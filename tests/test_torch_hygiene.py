@@ -1,0 +1,71 @@
+"""Import hygiene of the PyTorch port: shadow1_tpu_torch and chip_smoke.py
+must never pull in JAX or the JAX package.
+
+A fresh subprocess (tests/conftest.py imports jax in this one) imports
+every module of shadow1_tpu_torch, walked from the filesystem so a
+subpackage that fails to import cannot be skipped silently, and asserts
+that neither `jax` nor `shadow1_tpu` reached sys.modules.  A text scan of
+the package and chip_smoke.py catches imports on code paths an import
+does not execute."""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "shadow1_tpu_torch")
+
+
+def _modules():
+    names = []
+    for dirpath, _dirs, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, fn), REPO)
+                mod = rel[:-3].replace(os.sep, ".")
+                names.append(mod[:-len(".__init__")]
+                             if mod.endswith(".__init__") else mod)
+    assert "shadow1_tpu_torch.core.engine" in names
+    assert "shadow1_tpu_torch.core.megakernel" in names
+    return sorted(names)
+
+
+def _sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _dirs, files in os.walk(PKG):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith((".py", ".cu", ".cuh"))]
+    return paths
+
+
+def test_import_pulls_in_no_jax():
+    prog = (
+        "import sys\n"
+        "for m in sys.argv[1:]:\n"
+        "    __import__(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'flax' or m.startswith('flax.') or "
+        "m == 'shadow1_tpu' or m.startswith('shadow1_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('TORCH_HYGIENE_OK')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", prog, *_modules()],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, f"{out.stdout}\n{out.stderr}"
+    assert "TORCH_HYGIENE_OK" in out.stdout
+
+
+def test_sources_name_no_jax():
+    pat = re.compile(r"\b(import|from)\s+(jax|flax)\b|\bshadow1_tpu\.\w|"
+                     r"\b(import|from)\s+shadow1_tpu\b")
+    hits = []
+    for path in _sources():
+        with open(path) as fh:
+            for n, line in enumerate(fh, 1):
+                if pat.search(line.replace("shadow1_tpu_torch", "")):
+                    hits.append(f"{os.path.relpath(path, REPO)}:{n}: "
+                                f"{line.strip()}")
+    assert not hits, "JAX-package references:\n" + "\n".join(hits)
