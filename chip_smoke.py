@@ -13,7 +13,9 @@ Phases, each reported on its own line:
    the 10 ms warm-up plus a few windows, then on cloned inputs taken at a
    window boundary (exchange) and at a mid-window micro-step (K_DELIVER,
    K_TRANSPORT) runs each kernel and its plain torch version and requires
-   torch.equal on every output leaf; times both with CUDA events.  Then
+   torch.equal on every output leaf; times both (device time from
+   torch.profiler, call time with CUDA events) and counts the bytes and
+   operations each must move and do on that input.  Then
    checks the f64 log1p of the phold delay draw on all 2^24 keyed_uniform
    values and CoDel's f32 spacing on 2^20 counts against the CPU, and runs
    a congested lossy world through the kernels and through the plain
@@ -23,9 +25,9 @@ Phases, each reported on its own line:
    engine.run_until / run_chunked with megakernel=True, persistent=False;
    every kernel's launch counter is zeroed just before and read just
    after, and the trajectory must equal the JAX package's.
-   Then one window is replayed phase by phase (synchronised host timers)
-   under torch.profiler: per-phase wall per micro-step and the device's
-   busy share.
+   Then one more window runs under torch.profiler: each micro-step
+   phase's host and device time from its profiler range, and the
+   device's busy share.
 5. kernels line -- one JSON object with each kernel's numbers.
 
 The last two lines are the card's name and power limit, then
@@ -106,27 +108,140 @@ def leaves(obj, prefix=""):
             yield from leaves(v, f"{prefix}[{i}]")
 
 
-def nbytes(*objs) -> int:
-    return sum(t.numel() * t.element_size() for o in objs
-               for _n, t in leaves(o))
-
-
-def require_equal(a, b, label: str) -> None:
+def require_equal(a, b, label: str) -> float:
+    """Fails unless every leaf of `a` equals `b`'s (dtype, shape, values);
+    returns the largest |a - b| over the leaves."""
     import torch
     la, lb = list(leaves(a)), list(leaves(b))
     if [n for n, _ in la] != [n for n, _ in lb]:
         _fail(f"{label}: output trees differ in structure")
+    err = 0.0
     for (name, x), (_n, y) in zip(la, lb):
-        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+        if x.dtype != y.dtype or x.shape != y.shape:
             _fail(f"{label}: kernel and plain version differ at {name}")
+        if x.numel():
+            wide = torch.float64 if x.is_floating_point() else torch.int64
+            err = max(err, float((x.to(wide) - y.to(wide)).abs().max()))
+        if not torch.equal(x, y):
+            _fail(f"{label}: kernel and plain version differ at {name} "
+                  f"(max |diff| {err})")
+    return err
 
 
-def cuda_ms(run, make_args, reps: int = 7) -> float:
-    """Median ms of `run(*make_args())` by CUDA events; inputs are made
-    fresh (cloned) before each timed call and not timed."""
+def changed_bytes(before, after, skip=()) -> int:
+    """Bytes of the elements that differ between two state trees, leaves
+    whose name starts with a `skip` prefix left out: the least a function
+    that turns `before` into `after` must write."""
+    n = 0
+    for (name, x), (_n, y) in zip(leaves(before), leaves(after)):
+        if not name.startswith(tuple(skip)):
+            n += int((x != y).sum()) * x.element_size()
+    return n
+
+
+def deliver_bytes(st, out, delivered_n, active, app) -> int:
+    """Bytes K_DELIVER must move on this input: the slab stages of the
+    active hosts, the times of their live slots, the rows it consumes,
+    the socket rows of the hosts that receive, and the active hosts' rx
+    state; then the changed elements, the ring entries it pushes and the
+    two [H] outputs."""
+    from shadow1_tpu_torch.core.state import STAGE_FREE
+    h = st.hosts.num_hosts
+    ki = st.inbox.capacity // h
+    s = st.socks.slots
+    act = active.repeat_interleave(ki)
+    stage0, stage1 = st.inbox.stage, out.inbox.stage
+    n_act = int(active.sum())
+    n_live = int((act & (stage0 != STAGE_FREE)).sum())
+    n_taken = int(((stage0 != STAGE_FREE) & (stage1 == STAGE_FREE)).sum())
+    n_recv = int(delivered_n.sum())
+    n_recv_hosts = int((delivered_n > 0).sum())
+    n_push = int((out.socks.udp_count - st.socks.udp_count).sum())
+    hs = st.hosts
+    rx_row = sum(t.element_size() for t in (
+        hs.tokens_rx, hs.last_refill_rx, hs.rx_queued, hs.codel_count,
+        hs.codel_dropping, hs.codel_first_above, hs.codel_drop_next,
+        hs.pkts_dropped_router, hs.pkts_recv, hs.bytes_recv, hs.t_resume))
+    rx_row += 8 + 8 + (8 if app.rx_batch > 1 else 0)   # tick, bw_dn, aux0
+    read = (h * 1 + n_act * (ki * 4 + rx_row) + n_live * 8
+            + n_taken * 5 * 4                 # src, proto, len, ctr lo/hi
+            # sport/dport/payload; the socket's ring head+count and bytes
+            + n_recv * (3 * 4 + 2 * 4 + 8)
+            # the receiving host's socket rows for the lookup
+            + n_recv_hosts * s * 4 * 4)
+    written = (changed_bytes(st, out, skip=(".socks.udp_src",
+                                            ".socks.udp_sport",
+                                            ".socks.udp_len",
+                                            ".socks.udp_payload"))
+               + n_push * 4 * 4 + h * (4 + 8))
+    return read + written
+
+
+def transport_bytes(s2, out, em, active, params) -> int:
+    """Bytes K_TRANSPORT must move on this input: the emission valid
+    flags, the valid rows' dst (and the placed rows' other columns), the
+    route_blk entries they gather, the active hosts' outbox stages, their
+    parked rows and tx state, and every host's inbox slab for the scan;
+    then the placed and drained pool rows, the changed host elements and
+    th."""
     import torch
-    times = []
-    for _ in range(reps + 1):
+    from shadow1_tpu_torch.core.state import (OEXT_COLS, STAGE_FREE,
+                                              STAGE_IN_FLIGHT,
+                                              STAGE_TX_QUEUED)
+    h = s2.hosts.num_hosts
+    pc = s2.pool.blk.shape[1]
+    ko = s2.pool.capacity // h
+    ki = s2.inbox.capacity // h
+    st0, st1 = s2.pool.stage, out.pool.stage
+    placed = (st0 == STAGE_FREE) & (st1 != STAGE_FREE)
+    drained = (st0 == STAGE_TX_QUEUED) & (st1 == STAGE_IN_FLIGHT)
+    n_placed, n_drained = int(placed.sum()), int(drained.sum())
+    act = active.repeat_interleave(ko)
+    n_parked = int((act & (st0 == STAGE_TX_QUEUED)).sum())
+    n_act = int(active.sum())
+    valid = em.valid
+    n_valid = int(valid.sum())
+    dst = em.blk[..., pc - OEXT_COLS][valid].clamp(
+        0, params.host_vertex.numel() - 1)
+    src = torch.arange(h, device=valid.device).unsqueeze(1).expand_as(valid)
+    vs = params.host_vertex[src[valid]].to(torch.int64)
+    vd = params.host_vertex[dst].to(torch.int64)
+    n_routes = int(torch.unique(vs * params.n_vertices + vd).numel())
+    n_if = int((s2.inbox.stage == STAGE_IN_FLIGHT).sum())
+    hs = s2.hosts
+    tx_row = sum(t.element_size() for t in (
+        hs.send_ctr, hs.tokens_tx, hs.last_refill_tx, hs.tx_queued,
+        hs.pkts_sent, hs.bytes_sent, hs.pkts_dropped_inet,
+        hs.pkts_dropped_pool, hs.cpu_avail))
+    tx_row += 4 + 8 + 8 + 8 + 4    # host_vertex, bw_up, tick, t_post, n_rx
+    scan_row = 1 + 8 + 8 + 8 + ki * 4   # active, t_resume, t_app, cpu ns
+    read = (valid.numel() + n_valid * (4 + 4)         # dst, its vertex
+            + n_placed * 12 * 4                       # columns copied
+            + n_routes * 3 * 4                        # lat lo/hi, rel
+            + n_act * (ko * 4 + tx_row) + n_parked * 8
+            + n_drained * 4 * 4                       # proto, len, lat
+            + h * scan_row + n_if * 8)
+    written = (changed_bytes(s2, out, skip=(".pool.",))
+               + n_placed * (pc * 4 + 4 + 8) + n_drained * (4 + 8)
+               + h * 8)
+    return read + written
+
+
+def _on_device(e) -> bool:
+    return str(e.device_type).endswith("CUDA")
+
+
+def time_call(run, make_args, reps: int = 7) -> tuple[float, float]:
+    """(device ms, call ms) of `run(*make_args())`, inputs made fresh
+    (cloned) before each call and not timed.  Device ms: the durations
+    of every kernel, copy and memset the call puts on the card, from
+    torch.profiler, mean over `reps` calls.  Call ms: CUDA events around
+    one call on an idle card, so the host's enqueue time counts (median
+    of `reps`).  A warm-up call comes first."""
+    import torch
+    run(*make_args())
+    calls = []
+    for _ in range(reps):
         args = make_args()
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
@@ -135,80 +250,178 @@ def cuda_ms(run, make_args, reps: int = 7) -> float:
         run(*args)
         t1.record()
         torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times[1:])
+        calls.append(t0.elapsed_time(t1))
+    inputs = [make_args() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            run(*args)
+        torch.cuda.synchronize()
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if _on_device(e))
+    return dev_us / reps / 1e3, statistics.median(calls)
 
 
-def profile_window(state, params, app, dev):
-    """Where one window's micro-steps spend their time: host wall per
-    phase (synchronised after each) and, from torch.profiler, the
+def profile_window(state, params, app):
+    """Where one window's time goes: the window runs through
+    engine.run_until_impl under torch.profiler.  The "microstep.<phase>"
+    ranges that core/megakernel.py microstep_fused opens give each
+    phase's host time (the range on the host) and its device busy time
+    (the kernels that ran inside the range's span on the card); the rest
+    is the exchange, the scans and the per-step gmin reads.  Also the
     device-busy share of the window and the top kernels by device time.
     Returns printable lines."""
+    import collections
     import torch
-    from shadow1_tpu_torch.core import emit, engine
-    from shadow1_tpu_torch.core import megakernel as mk
-    ctx = engine._window_ctx(state, params)
-    st = engine._exchange(engine.clone_state(state), params, fused=True)
-    t_h, gmin = engine._scan_all(st, params, app)
-    we = min(max(int(st.now), int(gmin)) + params.min_latency_ns,
-             params.stop_time)
-    phases = {"setup": 0.0, "deliver": 0.0, "tick": 0.0, "transport": 0.0,
-              "sync": 0.0}
-    steps = 0
-    h = st.hosts.num_hosts
+    from shadow1_tpu_torch.core import engine
+    st = engine.clone_state(state)
+    steps0 = int(st.n_steps)
+    t_end = int(st.now) + params.min_latency_ns
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         w0 = time.perf_counter()
-        while True:
-            t0 = time.perf_counter()
-            g = int(gmin)
-            t1 = time.perf_counter()
-            phases["sync"] += t1 - t0
-            if g >= we:
-                wall = t1 - w0
-                break
-            st, active, tick_t = engine._tick_setup(st, t_h, we)
-            aux0 = engine._aux_times(st, params, app)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            st, dn, t_post = mk.deliver_call(st, params, app, tick_t, active,
-                                             we, ctx[1], aux0)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            em = emit.empty(h, engine._n_lanes(app), st.pool.blk.shape[1],
-                            dev)
-            st, em = engine._app_tick(st, params, app, em, t_post, active, we)
-            t_app = app.next_time(st)
-            torch.cuda.synchronize()
-            t4 = time.perf_counter()
-            st, t_h, gmin = mk.transport_call(st, params, em, tick_t, t_post,
-                                              active, ctx[0], dn, t_app)
-            torch.cuda.synchronize()
-            t5 = time.perf_counter()
-            phases["setup"] += t2 - t1
-            phases["deliver"] += t3 - t2
-            phases["tick"] += t4 - t3
-            phases["transport"] += t5 - t4
-            steps += 1
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) is not None
-           and str(e.device_type).endswith("CUDA")
-           and getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in evs)
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
-    lines = [
-        f"profile: {steps} micro-steps of one window, wall {wall * 1e3:.1f} "
-        f"ms under the profiler; per step (synchronised): "
-        + ", ".join(f"{k} {v / max(steps, 1) * 1e3:.3f} ms"
-                    for k, v in phases.items()),
-        f"profile: device busy {busy_us / 1e3:.1f} ms of {wall * 1e3:.1f} "
-        f"ms wall ({100 * busy_us / 1e3 / (wall * 1e3):.1f} %); "
-        f"{sum(e.count for e in evs)} device kernels; top by device time: "
-        + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
-                    f"x{e.count}" for e in top)]
-    return lines
+        st = engine.run_until_impl(st, params, app, t_end)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - w0) * 1e6
+    steps = max(int(st.n_steps) - steps0, 1)
+    host = collections.Counter()
+    busy = collections.Counter()
+    spans, kernels = [], []
+    for e in prof.events():
+        if e.name.startswith("microstep."):
+            if _on_device(e):
+                spans.append((e.time_range.start, e.time_range.end, e.name))
+            else:
+                host[e.name] += e.time_range.elapsed_us()
+        elif _on_device(e):
+            kernels.append(e)
+    for k in kernels:
+        t = k.time_range.start
+        phase = next((n for a, b, n in spans if a <= t < b), "outside")
+        busy[phase] += k.time_range.elapsed_us()
+    per_step = "; ".join(
+        f"{n[len('microstep.'):]} host {host[n] / steps / 1e3:.3f} ms, "
+        f"device busy {busy[n] / steps / 1e3:.3f} ms" for n in sorted(host))
+    by_name = collections.Counter()
+    for k in kernels:
+        by_name[k.name] += k.time_range.elapsed_us()
+    top = "; ".join(f"{n[:60]} {us / 1e3:.2f} ms"
+                    for n, us in by_name.most_common(6))
+    total = sum(busy.values())
+    return [
+        f"profile: {steps} micro-steps of one window, wall "
+        f"{wall_us / 1e3:.1f} ms under the profiler; per step: {per_step}; "
+        f"outside the ranges (exchange, scans, gmin reads) host "
+        f"{(wall_us - sum(host.values())) / steps / 1e3:.3f} ms, device "
+        f"busy {busy['outside'] / steps / 1e3:.3f} ms",
+        f"profile: device busy {total / 1e3:.1f} ms of {wall_us / 1e3:.1f} "
+        f"ms wall ({100 * total / wall_us:.1f} %); {len(kernels)} device "
+        f"kernels; top by device time: {top}"]
+
+
+def check_kernels(state, params, app, dev):
+    """Each kernel against its plain version on cloned inputs: the
+    exchange at a window boundary a few windows after `state`, K_DELIVER
+    and K_TRANSPORT at a mid-window micro-step.  Fails unless every
+    output leaf is equal.  Returns ({name: (kernel (device ms, call ms),
+    plain (device ms, call ms))},
+    {name: (bytes, operations) bound}, {name: max |kernel - plain|})."""
+    import torch
+    from shadow1_tpu_torch.core import emit, engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    from shadow1_tpu_torch.core.state import STAGE_IN_FLIGHT
+    ctx = engine._window_ctx(state, params)
+    # A few windows in, then stop at a window boundary.
+    for _ in range(3):
+        state = engine.run_until(state, params, app,
+                                 int(state.now) + params.min_latency_ns)
+    clone = engine.clone_state
+    h = state.hosts.num_hosts
+    times, bounds, errs = {}, {}, {}
+
+    # exchange, at the window boundary.
+    def ex_args(s=state):
+        c = clone(s)
+        return c.pool, c.inbox, h, params
+    pk, ik, tot_k, tp_k, nf_k = mk.exchange_kernel(*ex_args())
+    pp, ip, tot_p, tp_p, nf_p = mk.exchange_plain(*ex_args())
+    errs["exchange"] = require_equal((pk, ik, tot_k, tp_k, nf_k),
+                                     (pp, ip, tot_p, tp_p, nf_p), "exchange")
+    n_mov = int((state.pool.stage == STAGE_IN_FLIGHT).sum())
+    n_placed = int(torch.minimum(tot_p, nf_p).sum())
+    ic = state.inbox.blk.shape[1]
+    ki = state.inbox.capacity // h
+    # Data-dependent: the stage of every pool row and inbox slot, the dst,
+    # row and time of each mover, the placed rows and the three tallies.
+    bounds["exchange"] = (
+        state.pool.stage.numel() * 4 + state.inbox.stage.numel() * 4
+        + n_mov * (4 + ic * 4 + 8 + 4) + n_placed * (ic * 4 + 4)
+        + 3 * h * 4,
+        state.pool.stage.numel() * 2 + n_mov * (ic + 12) + h * ki * 2)
+    times["exchange"] = (time_call(mk.exchange_kernel, ex_args),
+                         time_call(mk.exchange_plain, ex_args))
+    print(f"kernels: exchange equal ({n_mov} movers)", flush=True)
+
+    # Mid-window micro-step: exchange, scan, then two micro-steps.
+    st = engine._exchange(clone(state), params, fused=True)
+    t_h, gmin = engine._scan_all(st, params, app)
+    we = min(max(int(st.now), int(gmin)) + params.min_latency_ns,
+             params.stop_time)
+    for _ in range(2):
+        st, t_h, gmin = mk.microstep_fused(st, params, app, t_h, we, ctx)
+    if int(gmin) >= we:
+        _fail("the probe window ended before its mid-window micro-step")
+    st, active, tick_t = engine._tick_setup(st, t_h, we)
+    aux0 = engine._aux_times(st, params, app)
+
+    def dl_args(s=st):
+        return (clone(s), params, app, tick_t, active, we, ctx[1], aux0)
+    out_k = mk.deliver_kernel(*dl_args())
+    out_p = mk.deliver_plain(*dl_args())
+    errs["deliver"] = require_equal(out_k, out_p, "deliver")
+    s2, delivered_n, t_post = out_p
+    n_act = int(active.sum())
+    # Operations: per active host the slab scans of the enqueue and of
+    # each delivery round plus the NIC/CoDel arithmetic; per delivery the
+    # socket lookup.
+    bounds["deliver"] = (
+        deliver_bytes(st, s2, delivered_n, active, app),
+        n_act * (ki * 6 + app.rx_batch * ki * 12 + 60)
+        + int(delivered_n.sum()) * st.socks.slots * 8)
+    times["deliver"] = (time_call(mk.deliver_kernel, dl_args),
+                        time_call(mk.deliver_plain, dl_args))
+    print(f"kernels: deliver equal ({int(delivered_n.sum())} deliveries)",
+          flush=True)
+
+    em = emit.empty(h, engine._n_lanes(app), s2.pool.blk.shape[1], dev)
+    s2, em = engine._app_tick(s2, params, app, em, t_post, active, we)
+    t_app = app.next_time(s2)
+
+    def tr_args(s=s2):
+        return (clone(s), params, em, tick_t, t_post, active, ctx[0],
+                delivered_n, t_app)
+    out_k = mk.transport_kernel(*tr_args())
+    out_p = mk.transport_plain(*tr_args())
+    errs["transport"] = require_equal(out_k, out_p, "transport")
+    # Operations: per valid emission the staging arithmetic, per active
+    # host its outbox slab scans, per host the post-step scan.
+    bounds["transport"] = (
+        transport_bytes(s2, out_p[0], em, active, params),
+        int(em.valid.sum()) * 60 + n_act * (s2.pool.capacity // h) * 8
+        + h * (ki * 6 + 40))
+    times["transport"] = (time_call(mk.transport_kernel, tr_args),
+                          time_call(mk.transport_plain, tr_args))
+    print(f"kernels: transport equal ({int(em.valid.sum())} emissions)",
+          flush=True)
+    for k, ((kd, kc), (pd, pc)) in times.items():
+        print(f"kernels: {k} kernel device {kd:.4f} ms (call {kc:.4f} ms), "
+              f"plain device {pd:.4f} ms (call {pc:.4f} ms), bound "
+              f"{bounds[k][0]} bytes, {bounds[k][1]} operations", flush=True)
+    return times, bounds, errs
 
 
 def main() -> int:
@@ -225,7 +438,7 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import shadow1_tpu_torch
     from shadow1_tpu_torch import sim
-    from shadow1_tpu_torch.core import emit, engine, nic, xlamath
+    from shadow1_tpu_torch.core import engine, nic, xlamath
     from shadow1_tpu_torch.core import megakernel as mk
 
     # ---- 1. device ------------------------------------------------------
@@ -249,106 +462,8 @@ def main() -> int:
     state, params, app = sim.build_phold(**BENCH, megakernel=True,
                                          persistent=False, device=dev)
     state = engine.run_until(state, params, app, WARM_NS)
-    ctx = engine._window_ctx(state, params)
-    # A few windows in, then stop at a window boundary.
-    for _ in range(3):
-        state = engine.run_until(state, params, app,
-                                 int(state.now) + params.min_latency_ns)
-    clone = engine.clone_state
-    h = state.hosts.num_hosts
-    times, bounds = {}, {}
-
-    # exchange, at the window boundary.
-    def ex_args(s=state):
-        c = clone(s)
-        return c.pool, c.inbox, h, params
-    pk, ik, tot_k, tp_k, nf_k = mk.exchange_kernel(*ex_args())
-    pp, ip, tot_p, tp_p, nf_p = mk.exchange_plain(*ex_args())
-    require_equal((pk, ik, tot_k, tp_k, nf_k), (pp, ip, tot_p, tp_p, nf_p),
-                  "exchange")
-    n_mov = int((state.pool.stage == 2).sum())
-    n_placed = int(torch.minimum(tot_p, nf_p).sum())
-    ic = state.inbox.blk.shape[1]
-    ki = state.inbox.capacity // h
-    # Data-dependent: the stage of every pool row and inbox slot, the dst,
-    # row and time of each mover, the placed rows and the three tallies.
-    bounds["exchange"] = (
-        state.pool.stage.numel() * 4 + state.inbox.stage.numel() * 4
-        + n_mov * (4 + ic * 4 + 8 + 4) + n_placed * (ic * 4 + 4)
-        + 3 * h * 4,
-        state.pool.stage.numel() * 2 + n_mov * (ic + 12) + h * ki * 2)
-    times["exchange"] = (cuda_ms(mk.exchange_kernel, ex_args),
-                         cuda_ms(mk.exchange_plain, ex_args))
-    print(f"kernels: exchange equal ({n_mov} movers)", flush=True)
-
-    # Mid-window micro-step: exchange, scan, then two micro-steps.
-    st = engine._exchange(clone(state), params, fused=True)
-    t_h, gmin = engine._scan_all(st, params, app)
-    we = min(max(int(st.now), int(gmin)) + params.min_latency_ns,
-             params.stop_time)
-    for _ in range(2):
-        st, t_h, gmin = mk.microstep_fused(st, params, app, t_h, we, ctx)
-    if int(gmin) >= we:
-        _fail("the probe window ended before its mid-window micro-step")
-    st, active, tick_t = engine._tick_setup(st, t_h, we)
-    aux0 = engine._aux_times(st, params, app)
-
-    def dl_args(s=st):
-        return (clone(s), params, app, tick_t, active, we, ctx[1], aux0)
-    out_k = mk.deliver_kernel(*dl_args())
-    out_p = mk.deliver_plain(*dl_args())
-    require_equal(out_k, out_p, "deliver")
-    # Every tensor it reads once and every tensor it writes once.
-    hs = st.hosts
-    rx_host = [hs.tokens_rx, hs.last_refill_rx, hs.rx_queued,
-               hs.codel_count, hs.codel_dropping, hs.codel_first_above,
-               hs.codel_drop_next, hs.pkts_dropped_router, hs.pkts_recv,
-               hs.bytes_recv, hs.t_resume]
-    sk = st.socks
-    rx_ring = [sk.udp_count, sk.udp_src, sk.udp_sport, sk.udp_len,
-               sk.udp_payload, sk.bytes_recv]
-    bounds["deliver"] = (
-        nbytes(st.inbox.blk, st.inbox.stage, rx_host, rx_ring, sk.stype,
-               sk.local_port, sk.peer_host, sk.peer_port, sk.udp_head,
-               tick_t, active, ctx[1], aux0)
-        + nbytes(st.inbox.stage, rx_host, rx_ring) + h * 12,
-        h * (ki * 6 + app.rx_batch * ki * 12 + sk.slots * 8 + 60))
-    times["deliver"] = (cuda_ms(mk.deliver_kernel, dl_args),
-                        cuda_ms(mk.deliver_plain, dl_args))
-    print(f"kernels: deliver equal ({int(out_p[1].sum())} deliveries)",
-          flush=True)
-
-    s2, delivered_n, t_post = out_p
-    em = emit.empty(h, engine._n_lanes(app), s2.pool.blk.shape[1], dev)
-    s2, em = engine._app_tick(s2, params, app, em, t_post, active, we)
-    t_app = app.next_time(s2)
-
-    def tr_args(s=s2):
-        return (clone(s), params, em, tick_t, t_post, active, ctx[0],
-                delivered_n, t_app)
-    out_k = mk.transport_kernel(*tr_args())
-    out_p = mk.transport_plain(*tr_args())
-    require_equal(out_k, out_p, "transport")
-    h2 = s2.hosts
-    tx_host = [h2.send_ctr, h2.tokens_tx, h2.last_refill_tx, h2.t_resume,
-               h2.tx_queued, h2.pkts_sent, h2.bytes_sent,
-               h2.pkts_dropped_inet, h2.pkts_dropped_pool, h2.cpu_avail]
-    pool_rw = [s2.pool.blk, s2.pool.stage, s2.pool.time]
-    bounds["transport"] = (
-        nbytes(em, pool_rw, s2.inbox.blk, s2.inbox.stage, tx_host,
-               params.host_vertex, params.route_blk, ctx[0],
-               params.cpu_ns_per_event, tick_t, t_post, active,
-               delivered_n, t_app)
-        + nbytes(pool_rw, tx_host) + h * 8,
-        h * (em.valid.shape[1] * 60 + (s2.pool.capacity // h) * 8
-             + ki * 6 + 40))
-    times["transport"] = (cuda_ms(mk.transport_kernel, tr_args),
-                          cuda_ms(mk.transport_plain, tr_args))
-    print(f"kernels: transport equal ({int(em.valid.sum())} emissions)",
-          flush=True)
-    for k, (a, b) in times.items():
-        print(f"kernels: {k} kernel {a:.4f} ms, plain {b:.4f} ms", flush=True)
-    del state, st, s2, out_k, out_p, em
+    times, bounds, errs = check_kernels(state, params, app, dev)
+    del state
 
     # f64 log1p of the delay draw on all 2^24 inputs: card vs CPU.
     n_bad = 0
@@ -431,7 +546,7 @@ def main() -> int:
           f"{launches}; trajectory equals the JAX package's", flush=True)
 
     # ---- 4b. where the time goes, one window after the run ---------------
-    for line in profile_window(out, params, app, dev):
+    for line in profile_window(out, params, app):
         print(line, flush=True)
 
     # ---- 5. kernels line ------------------------------------------------
@@ -444,8 +559,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"shadow1_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": 0, "ms": times[name][0],
-            "plain_ms": times[name][1], "bound_ms": max(bytes_ms, ops_ms),
+            "max_abs_err": errs[name], "ms": times[name][0][0],
+            "plain_ms": times[name][1][0], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None})
     print(json.dumps({"kernels": rows}))

@@ -26,8 +26,6 @@ instrumentation/netem block are later slices and are refused by
 
 from __future__ import annotations
 
-import warnings
-
 import torch
 
 from . import emit, nic, rng, simtime
@@ -80,6 +78,12 @@ def check_supported(state: SimState, params, app) -> None:
     if params.hosts_real is not None:
         raise NotImplementedError(
             "bucket-padded worlds (hosts_real) are not ported yet")
+    if params.megakernel and params.persistent:
+        raise NotImplementedError(
+            "params.persistent asks for K_WINDOW (the persistent "
+            "whole-window kernel), the next slice of the port (ROADMAP "
+            "queue 2); build with persistent=False for the per-phase "
+            "exchange/K_DELIVER/K_TRANSPORT kernels")
 
 
 # ---------------------------------------------------------------------------
@@ -710,12 +714,6 @@ def run_until_impl(state: SimState, params, app, t_target: int) -> SimState:
     check_supported(state, params, app)
     t_target = int(t_target)
     fused = mk.enabled(state, params, app)
-    if fused and params.persistent and state.device.type == "cuda":
-        warnings.warn(
-            "params.persistent asks for K_WINDOW, which is not ported "
-            "yet; running the per-phase exchange/K_DELIVER/K_TRANSPORT "
-            "kernels (pinned bitwise to K_WINDOW by the JAX package)",
-            RuntimeWarning, stacklevel=2)
     ctx = _window_ctx(state, params)
     _t_h, gmin = _scan_all(state, params, app)
     now = int(state.now)

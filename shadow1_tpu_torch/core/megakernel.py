@@ -27,6 +27,7 @@ is the next slice of the port.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -41,6 +42,15 @@ INV = engine.INV
 LAUNCHES = {"exchange": 0, "deliver": 0, "transport": 0}
 
 _BLOCK = 256     # threads per block of the per-host kernels
+
+
+def _phase(name: str):
+    """A profiler range named `name` while a torch profiler records, else
+    nothing: an idle `record_function` still calls into the profiler on
+    every entry, once per phase of every micro-step."""
+    if getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def reset_launches() -> None:
@@ -404,20 +414,26 @@ def transport_call(state, params, em, tick_t, t_post, active, bw_up,
 
 def microstep_fused(state, params, app, t_h, window_end: int, ctx=None):
     """One micro-step through the kernels.  Returns (state, t_h_next,
-    gmin_next): the post-step scan rides out of K_TRANSPORT."""
+    gmin_next): the post-step scan rides out of K_TRANSPORT.  Each phase
+    is a profiler range ("microstep.<phase>", see `_phase`)."""
     bw_up, bw_dn = engine._window_ctx(state, params) if ctx is None else ctx
     h = state.hosts.num_hosts
-    state, active, tick_t = engine._tick_setup(state, t_h, window_end)
-    d_rounds = max(1, int(getattr(app, "rx_batch", 1)))
-    # rx_batch bound at batch start (post re-arm, pre any rx mutation);
-    # the kernel does not carry app state, so it rides in per host.
-    aux0 = engine._aux_times(state, params, app) if d_rounds > 1 else None
-    state, delivered_n, t_post = deliver_call(
-        state, params, app, tick_t, active, window_end, bw_dn, aux0)
-    em = emit.empty(h, engine._n_lanes(app), state.pool.blk.shape[1],
-                    state.device)
-    state, em = engine._app_tick(state, params, app, em, t_post, active,
-                                 window_end)
-    t_app = app.next_time(state)
-    return transport_call(state, params, em, tick_t, t_post, active, bw_up,
-                          delivered_n, t_app)
+    with _phase("microstep.setup"):
+        state, active, tick_t = engine._tick_setup(state, t_h, window_end)
+        d_rounds = max(1, int(getattr(app, "rx_batch", 1)))
+        # rx_batch bound at batch start (post re-arm, pre any rx mutation);
+        # the kernel does not carry app state, so it rides in per host.
+        aux0 = (engine._aux_times(state, params, app) if d_rounds > 1
+                else None)
+    with _phase("microstep.deliver"):
+        state, delivered_n, t_post = deliver_call(
+            state, params, app, tick_t, active, window_end, bw_dn, aux0)
+    with _phase("microstep.app_tick"):
+        em = emit.empty(h, engine._n_lanes(app), state.pool.blk.shape[1],
+                        state.device)
+        state, em = engine._app_tick(state, params, app, em, t_post, active,
+                                     window_end)
+        t_app = app.next_time(state)
+    with _phase("microstep.transport"):
+        return transport_call(state, params, em, tick_t, t_post, active,
+                              bw_up, delivered_n, t_app)

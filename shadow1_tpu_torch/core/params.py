@@ -63,7 +63,9 @@ class NetParams(Tree):
     has_jitter: bool = True
     kernel_diet: bool = True
     megakernel: bool = True
-    persistent: bool = True
+    # K_WINDOW is the next slice: persistent (with megakernel) is refused
+    # by engine.check_supported, so the port defaults it off.
+    persistent: bool = False
     # Derived, host side: the folded purpose keys' words.
     purpose_words: dict = dataclasses.field(default=None, repr=False)
 
@@ -110,7 +112,7 @@ def make_net_params(latency_ns, reliability, host_vertex, bw_up_Bps,
                     qdisc: int = QDISC_FIFO, autotune_snd=None,
                     autotune_rcv=None, iface_buf_pkts=None, pcap_mask=None,
                     cong: str = "reno", megakernel: bool = True,
-                    persistent: bool = True, device=None) -> NetParams:
+                    persistent: bool = False, device=None) -> NetParams:
     """Same arguments and derivations as the JAX make_net_params; the
     tables are built on the CPU and moved to `device` once."""
     from .. import resolve_device

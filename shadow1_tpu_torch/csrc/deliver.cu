@@ -17,12 +17,14 @@
 // reduction leaves the kernel (the netem kill count and TCP error bits of
 // the JAX kernel do not exist in this slice).
 //
-// What bounds it on the H100: bytes.  Per launch it reads each host's
-// slab times/keys/stage (ki * (16 + 4) B) and its host/socket rows
-// (~250 B), and writes back the few fields it changes -- about 0.7 MB
-// at H = 16,384, a fraction of a microsecond of HBM time.  The strided
-// per-host slab reads are uncoalesced (448 B apart); at this size the
-// launch itself dominates.
+// What bounds it on the H100: bytes.  Per launch it must read each
+// active host's slab stages, the times of its live slots and its rx
+// state, the rows it consumes and the receivers' socket rows, and write
+// back the fields it changes, the ring entries and two [H] outputs --
+// about 1 MB at the bench world's mid-window step (chip_smoke.py
+// deliver_bytes counts it), a fraction of a microsecond of HBM time.
+// The strided per-host slab reads are uncoalesced (448 B apart); at this
+// size the launch itself dominates.
 #include "common.cuh"
 
 using namespace s1;
@@ -69,9 +71,11 @@ struct DeliverArgs {
 
 namespace {
 
-// XLA CPU's f32 rsqrt (core/xlamath.py rsqrt): the x86 rsqrtss estimate
+// XLA CPU's f32 rsqrt (core/xlamath.py rsqrt): Intel's rsqrtss estimate
 // (table of 12-bit mantissas indexed by exponent parity and the top 10
-// mantissa bits), then two Newton steps with fused multiply-adds.
+// mantissa bits), then two Newton steps with fused multiply-adds.  The
+// estimate is the CPU's own; the JAX results the port is held to come
+// from an Intel host.
 __device__ __forceinline__ float rsqrt_xla(float x, const float* tab) {
   const int32_t b = __float_as_int(x);
   const int32_t e = ((b >> 23) & 0xFF) - 127;

@@ -19,12 +19,14 @@
 // pass folds the per-block partials in block order into gmin and the
 // state's n_events / n_steps / err scalars.
 //
-// What bounds it on the H100: bytes.  Per launch it reads the emission
-// block ([H, E, 18] i32 + valid: ~7.2 MB at H = 16,384, E = 6), each
-// host's outbox slab stage/time (8 * 12 B) and inbox slab times/stage,
-// and writes the merged rows (72 B each) -- about 10 MB, ~3 us of HBM
-// time.  The emission rows are read with a per-host stride, so the reads
-// are uncoalesced; a later PR can stage them through shared memory.
+// What bounds it on the H100: bytes.  Per launch it must read every
+// host's emission valid flags, outbox slab stages and inbox slab (the
+// post-step scan), the valid emission rows and the route_blk entries they
+// gather, and write the placed rows (72 B each) and the changed host
+// fields -- about 1.8 MB at the bench world's mid-window step
+// (chip_smoke.py transport_bytes counts it), ~0.5 us of HBM time.  The
+// emission rows are read with a per-host stride, so the reads are
+// uncoalesced; a later PR can stage them through shared memory.
 #include "common.cuh"
 
 using namespace s1;

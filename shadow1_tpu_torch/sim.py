@@ -28,7 +28,7 @@ def build_phold(num_hosts: int,
                 bootstrap_end: int = 0,
                 rx_batch: int = 1,
                 megakernel: bool = True,
-                persistent: bool = True,
+                persistent: bool = False,
                 device=None):
     """A phold world on a uniform full mesh (at most 256 vertices, hosts
     striped across them); same arguments and result as the JAX

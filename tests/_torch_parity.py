@@ -6,12 +6,36 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 # The suite runs several test processes side by side (pytest-xdist); a
 # small torch thread pool keeps the port's tests from starving the
 # timing-sensitive tests of the other processes.
 torch.set_num_threads(2)
+
+
+def _cpu_vendor() -> str:
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("vendor_id"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return ""
+
+
+# XLA CPU computes f32 rsqrt (and CoDel's interval / sqrt(count), which it
+# rewrites to a product with rsqrt) from the CPU's own `rsqrtss` estimate,
+# which differs between vendors.  The port reproduces Intel's estimate
+# (core/xlamath.py), so the JAX reference it is held to exists only on an
+# Intel host.
+needs_intel_rsqrt = pytest.mark.skipif(
+    _cpu_vendor() != "GenuineIntel",
+    reason="the JAX reference's f32 rsqrt is the host CPU's rsqrtss "
+           "estimate; the port reproduces Intel's, and this CPU is not "
+           "Intel")
 
 
 def jax_tree(obj):

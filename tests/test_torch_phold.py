@@ -23,7 +23,7 @@ from shadow1_tpu_torch import convert
 from shadow1_tpu_torch import sim as tsim
 from shadow1_tpu_torch.core import engine as teng
 
-from _torch_parity import assert_same, jax_tree
+from _torch_parity import assert_same, jax_tree, needs_intel_rsqrt
 
 MS = 1_000_000
 SEC = 1_000_000_000
@@ -34,7 +34,7 @@ def _worlds(**kw):
     kw = {"num_hosts": 64, "msgs_per_host": 2, "pool_capacity": 64 * 8,
           "seed": 7, "stop_time": 2 * SEC, **kw}
     j = jsim.build_phold(**kw)
-    t = tsim.build_phold(**kw, persistent=False, device="cpu")
+    t = tsim.build_phold(**kw, device="cpu")
     return j, t
 
 
@@ -65,11 +65,14 @@ def test_run_equals_jax(rx_batch, chunk_ms):
                 f"phold H=64 rx_batch={rx_batch} chunk={chunk_ms}")
 
 
+@needs_intel_rsqrt
 def test_stressed_run_equals_jax():
     """A congested lossy world drives the branches the bench world never
     takes: reliability drops, TX parking and the drain, rx token
     starvation and CoDel drops, slab overflow, the bootstrap window, the
-    virtual-CPU clamp and the PDS trail."""
+    virtual-CPU clamp and the PDS trail.  CoDel's drop spacing goes
+    through XLA CPU's f32 rsqrt, whose estimate the port reproduces for
+    Intel hosts only."""
     import jax.numpy as jnp
     import torch
     kw = dict(msgs_per_host=8, seed=5, rx_batch=2, bw_up_Bps=50_000,
@@ -88,6 +91,17 @@ def test_stressed_run_equals_jax():
                  "pkts_dropped_pool"):
         assert int(getattr(h, name).sum()) > 0, f"no {name} in the world"
     assert_same(convert.to_numpy(tout), jax_tree(jout), "stressed phold")
+
+
+def test_persistent_is_refused():
+    """K_WINDOW is not ported: the port builds persistent=False by
+    default and refuses persistent=True by name, on any device."""
+    ts, tp, ta = tsim.build_phold(num_hosts=8, device="cpu")
+    assert tp.persistent is False
+    with pytest.raises(NotImplementedError, match="K_WINDOW"):
+        teng.run_until(ts, tp.replace(persistent=True), ta, 10 * MS)
+    with pytest.raises(NotImplementedError, match="K_WINDOW"):
+        teng.run_chunked(ts, tp.replace(persistent=True), ta, 10 * MS)
 
 
 def _chip_smoke():
@@ -111,8 +125,7 @@ def test_bench_trajectory():
     jout = jeng.run_chunked(jwarm, jp, ja, cs.RUN_NS)
     assert cs.summary(jwarm) == cs.JAX_WARM
     assert cs.summary(jout) == cs.JAX_FINAL
-    ts, tp, ta = tsim.build_phold(**cs.BENCH, persistent=False,
-                                  device="cpu")
+    ts, tp, ta = tsim.build_phold(**cs.BENCH, device="cpu")
     tout = teng.run_chunked(teng.run_until(ts, tp, ta, cs.WARM_NS), tp, ta,
                             cs.RUN_NS)
     assert_same(convert.to_numpy(tout), jax_tree(jout), "bench world")
