@@ -7,28 +7,38 @@ Phases, each reported on its own line:
 
 1. device  -- a CUDA card must be present; prints nvidia-smi's name and
    power limit.
-2. build   -- builds the three kernels from shadow1_tpu_torch/csrc with
-   nvcc (one process per source, in parallel).
-3. kernels -- builds the bench phold world on the card, runs it through
-   the 10 ms warm-up plus a few windows, then on cloned inputs taken at a
-   window boundary (exchange) and at a mid-window micro-step (K_DELIVER,
-   K_TRANSPORT) runs each kernel and its plain torch version and requires
-   torch.equal on every output leaf; times both (device time from
-   torch.profiler, call time with CUDA events) and counts the bytes and
-   operations each must move and do on that input.  Then
-   checks the f64 log1p of the phold delay draw on all 2^24 keyed_uniform
-   values and CoDel's f32 spacing on 2^20 counts against the CPU, and runs
-   a congested lossy world through the kernels and through the plain
-   versions, which must agree leaf for leaf.
+2. build   -- builds the four kernels from shadow1_tpu_torch/csrc with
+   nvcc (one process per source, in parallel); prints K_WINDOW's
+   registers and spills from ptxas.
+3. kernels -- builds the bench phold world on the card and runs it
+   through the 10 ms warm-up plus a few windows.  On cloned inputs taken
+   at a window boundary (exchange, K_WINDOW) and at a mid-window
+   micro-step (K_DELIVER, K_TRANSPORT) runs each kernel and its plain
+   torch version and requires torch.equal on every output leaf; times
+   both (device time from torch.profiler, call time with CUDA events) and
+   counts the bytes and operations each must move and do on that input
+   (K_WINDOW: the sum over its exchange and micro-steps).  Then checks
+   the f64 log1p of the phold delay draw on all 2^24 keyed_uniform values
+   against the CPU (the plain torch emulation on the card, and K_WINDOW's
+   device log1p), CoDel's f32 spacing on 2^20 counts, and runs a congested
+   lossy world through K_WINDOW, through the per-phase kernels and through
+   the plain versions, which must agree leaf for leaf.
 4. main path -- the bench world (H = 16,384, 4 messages per host, 10 ms
    mean delay, rx_batch = 2, pool H*8) for 2 simulated seconds through
-   engine.run_until / run_chunked with megakernel=True, persistent=False;
-   every kernel's launch counter is zeroed just before and read just
-   after, and the trajectory must equal the JAX package's.
-   Then one more window runs under torch.profiler: each micro-step
-   phase's host and device time from its profiler range, and the
-   device's busy share.
-5. kernels line -- one JSON object with each kernel's numbers.
+   engine.run_until / run_chunked with the defaults (megakernel and
+   persistent: one K_WINDOW launch per window); every kernel's launch
+   counter is zeroed just before and read just after, and the trajectory
+   must equal the JAX package's.  The timed part runs again under
+   torch.profiler: K_WINDOW's device time per launch, the host time per
+   window and the device's busy share.
+5. per-phase path -- the same world and schedule with persistent=False
+   (exchange, K_DELIVER, app tick in torch, K_TRANSPORT), counters zeroed
+   just before and read just after; its final state must equal the
+   persistent path's.  Then one window runs under torch.profiler: each
+   micro-step phase's host and device time and the device's busy share.
+6. kernels line -- one JSON object with each kernel's numbers (ms is
+   the device time, call_ms the call time); each kernel's launches come
+   from the run of its own path.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -80,7 +90,9 @@ REPLACES = {
     "exchange": "shadow1_tpu/core/megakernel.py:231",
     "deliver": "shadow1_tpu/core/megakernel.py:516",
     "transport": "shadow1_tpu/core/megakernel.py:576",
+    "window": "shadow1_tpu/core/megakernel.py:391",
 }
+PER_PHASE = ("exchange", "deliver", "transport")
 
 
 def _fail(msg: str) -> None:
@@ -227,6 +239,119 @@ def transport_bytes(s2, out, em, active, params) -> int:
     return read + written
 
 
+def exchange_bound(state) -> tuple[int, int]:
+    """(bytes, operations) the exchange must move and do on this state:
+    the stage of every pool row and inbox slot, the dst, row and time of
+    each mover, the placed rows and the three per-destination tallies."""
+    import torch
+    from shadow1_tpu_torch.core.state import STAGE_FREE, STAGE_IN_FLIGHT
+    h = state.hosts.num_hosts
+    ic = state.inbox.blk.shape[1]
+    ki = state.inbox.capacity // h
+    moving = state.pool.stage == STAGE_IN_FLIGHT
+    n_mov = int(moving.sum())
+    total = torch.bincount(state.pool.dst[moving].clamp(0, h - 1).long(),
+                           minlength=h)
+    n_free = (state.inbox.stage == STAGE_FREE).view(h, ki).sum(dim=1)
+    n_placed = int(torch.minimum(total, n_free).sum())
+    return (state.pool.stage.numel() * 4 + state.inbox.stage.numel() * 4
+            + n_mov * (4 + ic * 4 + 8 + 4) + n_placed * (ic * 4 + 4)
+            + 3 * h * 4,
+            state.pool.stage.numel() * 2 + n_mov * (ic + 12) + h * ki * 2)
+
+
+def deliver_ops(st, delivered_n, active, app) -> int:
+    """Operations of K_DELIVER: per active host the slab scans of the
+    enqueue and of each delivery round plus the NIC/CoDel arithmetic; per
+    delivery the socket lookup."""
+    ki = st.inbox.capacity // st.hosts.num_hosts
+    return (int(active.sum()) * (ki * 6 + app.rx_batch * ki * 12 + 60)
+            + int(delivered_n.sum()) * st.socks.slots * 8)
+
+
+def transport_ops(s2, em, active) -> int:
+    """Operations of K_TRANSPORT: per valid emission the staging
+    arithmetic, per active host its outbox slab scans, per host the
+    post-step scan."""
+    h = s2.hosts.num_hosts
+    ki = s2.inbox.capacity // h
+    return (int(em.valid.sum()) * 60
+            + int(active.sum()) * (s2.pool.capacity // h) * 8
+            + h * (ki * 6 + 40))
+
+
+def tick_bound(st, out, em, active) -> tuple[int, int]:
+    """(bytes, operations) of phold's tick for the active hosts: their
+    app state, draw counter, socket ring head and count, slab stages and
+    live slot times (the send bound) read; the changed elements and the
+    staged rows written.  Operations: ~80 per keyed f64 delay or dst draw
+    (the hash and the log1p), ~40 per active host plus its slab scan."""
+    from shadow1_tpu_torch.core.state import STAGE_FREE
+    h = st.hosts.num_hosts
+    ki = st.inbox.capacity // h
+    pc = em.blk.shape[-1]
+    n_act = int(active.sum())
+    live = (st.inbox.stage != STAGE_FREE).view(h, ki) & active[:, None]
+    n_valid = int(em.valid.sum())
+    read = n_act * (4 + 8 + 8 + 8 + 8 + 8) + n_act * ki * 4 \
+        + int(live.sum()) * 8
+    written = changed_bytes(st, out) + em.valid.numel() + n_valid * pc * 4
+    draws = int((out.app.recv - st.app.recv).sum()) + 2 * n_valid
+    return read + written, draws * 80 + n_act * (ki * 4 + 40)
+
+
+def window_bound(state, params, app, t_target) -> tuple[int, int, int]:
+    """(bytes, operations, micro-steps) of one K_WINDOW call on `state`:
+    the sum of what its phases must move and do, counted from this
+    window's data by replaying it phase by phase through the per-phase
+    kernels -- the exchange, the scan, per micro-step the tick setup,
+    K_DELIVER, the tick and K_TRANSPORT, and the closing outbox scan."""
+    from shadow1_tpu_torch.core import emit, engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    from shadow1_tpu_torch.core.state import STAGE_IN_FLIGHT
+    clone = engine.clone_state
+    h = state.hosts.num_hosts
+    ki = state.inbox.capacity // h
+    bw_up, bw_dn = engine._window_ctx(state, params)
+    b, ops = exchange_bound(state)
+    st = engine._exchange(clone(state), params, fused=True)
+    n_if = int((st.inbox.stage == STAGE_IN_FLIGHT).sum())
+    # Scan: slab stages, in-flight times, resume, app and CPU state; t_h.
+    b += h * (ki * 4 + 8 + 12 + 16) + n_if * 8 + h * 8
+    ops += h * (ki * 6 + 40)
+    t_h, gmin = engine._scan_all(st, params, app)
+    we = min(max(int(st.now), int(gmin)) + params.min_latency_ns,
+             int(t_target))
+    steps = 0
+    while int(gmin) < we:
+        steps += 1
+        st, active, tick_t = engine._tick_setup(st, t_h, we)
+        b += h * 8 + int(active.sum()) * 8          # t_h read, re-arm
+        aux0 = engine._aux_times(st, params, app)
+        s_in = clone(st)
+        st, dn, tp = mk.deliver_kernel(st, params, app, tick_t, active, we,
+                                       bw_dn, aux0)
+        b += deliver_bytes(s_in, st, dn, active, app)
+        ops += deliver_ops(s_in, dn, active, app)
+        s_in = clone(st)
+        em = emit.empty(h, engine._n_lanes(app), st.pool.blk.shape[1],
+                        st.device)
+        st, em = engine._app_tick(st, params, app, em, tp, active, we)
+        tb, to = tick_bound(s_in, st, em, active)
+        b, ops = b + tb, ops + to
+        t_app = app.next_time(st)
+        s_in = clone(st)
+        st, t_h, gmin = mk.transport_kernel(st, params, em, tick_t, tp,
+                                            active, bw_up, dn, t_app)
+        b += transport_bytes(s_in, st, em, active, params)
+        ops += transport_ops(s_in, em, active)
+    # Window close: the pool's stage column and its in-flight times.
+    n_out = int((st.pool.stage == STAGE_IN_FLIGHT).sum())
+    b += st.pool.stage.numel() * 4 + n_out * 8 + 5 * 8
+    ops += st.pool.stage.numel() * 2
+    return b, ops, steps
+
+
 def _on_device(e) -> bool:
     return str(e.device_type).endswith("CUDA")
 
@@ -330,7 +455,6 @@ def check_kernels(state, params, app, dev):
     output leaf is equal.  Returns ({name: (kernel (device ms, call ms),
     plain (device ms, call ms))},
     {name: (bytes, operations) bound}, {name: max |kernel - plain|})."""
-    import torch
     from shadow1_tpu_torch.core import emit, engine
     from shadow1_tpu_torch.core import megakernel as mk
     from shadow1_tpu_torch.core.state import STAGE_IN_FLIGHT
@@ -352,16 +476,8 @@ def check_kernels(state, params, app, dev):
     errs["exchange"] = require_equal((pk, ik, tot_k, tp_k, nf_k),
                                      (pp, ip, tot_p, tp_p, nf_p), "exchange")
     n_mov = int((state.pool.stage == STAGE_IN_FLIGHT).sum())
-    n_placed = int(torch.minimum(tot_p, nf_p).sum())
-    ic = state.inbox.blk.shape[1]
     ki = state.inbox.capacity // h
-    # Data-dependent: the stage of every pool row and inbox slot, the dst,
-    # row and time of each mover, the placed rows and the three tallies.
-    bounds["exchange"] = (
-        state.pool.stage.numel() * 4 + state.inbox.stage.numel() * 4
-        + n_mov * (4 + ic * 4 + 8 + 4) + n_placed * (ic * 4 + 4)
-        + 3 * h * 4,
-        state.pool.stage.numel() * 2 + n_mov * (ic + 12) + h * ki * 2)
+    bounds["exchange"] = exchange_bound(state)
     times["exchange"] = (time_call(mk.exchange_kernel, ex_args),
                          time_call(mk.exchange_plain, ex_args))
     print(f"kernels: exchange equal ({n_mov} movers)", flush=True)
@@ -384,14 +500,8 @@ def check_kernels(state, params, app, dev):
     out_p = mk.deliver_plain(*dl_args())
     errs["deliver"] = require_equal(out_k, out_p, "deliver")
     s2, delivered_n, t_post = out_p
-    n_act = int(active.sum())
-    # Operations: per active host the slab scans of the enqueue and of
-    # each delivery round plus the NIC/CoDel arithmetic; per delivery the
-    # socket lookup.
-    bounds["deliver"] = (
-        deliver_bytes(st, s2, delivered_n, active, app),
-        n_act * (ki * 6 + app.rx_batch * ki * 12 + 60)
-        + int(delivered_n.sum()) * st.socks.slots * 8)
+    bounds["deliver"] = (deliver_bytes(st, s2, delivered_n, active, app),
+                         deliver_ops(st, delivered_n, active, app))
     times["deliver"] = (time_call(mk.deliver_kernel, dl_args),
                         time_call(mk.deliver_plain, dl_args))
     print(f"kernels: deliver equal ({int(delivered_n.sum())} deliveries)",
@@ -407,12 +517,9 @@ def check_kernels(state, params, app, dev):
     out_k = mk.transport_kernel(*tr_args())
     out_p = mk.transport_plain(*tr_args())
     errs["transport"] = require_equal(out_k, out_p, "transport")
-    # Operations: per valid emission the staging arithmetic, per active
-    # host its outbox slab scans, per host the post-step scan.
     bounds["transport"] = (
         transport_bytes(s2, out_p[0], em, active, params),
-        int(em.valid.sum()) * 60 + n_act * (s2.pool.capacity // h) * 8
-        + h * (ki * 6 + 40))
+        transport_ops(s2, em, active))
     times["transport"] = (time_call(mk.transport_kernel, tr_args),
                           time_call(mk.transport_plain, tr_args))
     print(f"kernels: transport equal ({int(em.valid.sum())} emissions)",
@@ -422,6 +529,103 @@ def check_kernels(state, params, app, dev):
               f"plain device {pd:.4f} ms (call {pc:.4f} ms), bound "
               f"{bounds[k][0]} bytes, {bounds[k][1]} operations", flush=True)
     return times, bounds, errs
+
+
+def check_window(state, params, app):
+    """K_WINDOW against window_plain on clones of the bench world at a
+    window boundary three windows after `state`: every leaf of the state
+    and t_h / gmin / ws / we / outbox pending must be equal.  Returns
+    ((kernel (device ms, call ms), plain (device ms, call ms)),
+    (bytes, operations) bound, max |kernel - plain|)."""
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    params = params.replace(persistent=True)
+    for _ in range(3):
+        state = engine.run_until(state, params, app,
+                                 int(state.now) + params.min_latency_ns)
+
+    def args(s=state):
+        return engine.clone_state(s), params, app, params.stop_time
+    out_k = mk.window_kernel(*args())
+    out_p = mk.window_plain(*args())
+    err = require_equal(out_k, out_p, "window")
+    b, ops, steps = window_bound(state, params, app, params.stop_time)
+    times = (time_call(mk.window_kernel, args),
+             time_call(mk.window_plain, args))
+    (kd, kc), (pd, pc) = times
+    print(f"kernels: window equal ({steps} micro-steps, window "
+          f"{out_k[2][1].item()}..{out_k[2][2].item()} ns); kernel device "
+          f"{kd:.4f} ms (call {kc:.4f} ms), plain device {pd:.4f} ms (call "
+          f"{pc:.4f} ms), bound {b} bytes, {ops} operations", flush=True)
+    return times, (b, ops), err
+
+
+def profile_persistent(warm, params, app, t_end):
+    """The persistent main path's timed part again, under torch.profiler:
+    K_WINDOW's device time per launch, the device's busy share of the
+    wall time, and the wall per window.  Returns (printable line,
+    K_WINDOW device ms per launch)."""
+    import torch
+    from shadow1_tpu_torch.core import engine
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        w0 = time.perf_counter()
+        out = engine.run_chunked(warm, params, app, t_end)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - w0) * 1e6
+    windows = int(out.n_windows) - int(warm.n_windows)
+    dev = [e for e in prof.events() if _on_device(e)]
+    kw = [e.time_range.elapsed_us() for e in dev if "k_window" in e.name]
+    busy = sum(e.time_range.elapsed_us() for e in dev)
+    if len(kw) != windows:
+        _fail(f"profile: {len(kw)} K_WINDOW kernels for {windows} windows")
+    k_ms = sum(kw) / len(kw) / 1e3
+    return (f"profile (persistent): {windows} windows, wall "
+            f"{wall_us / 1e3:.1f} ms under the profiler "
+            f"({wall_us / windows / 1e3:.4f} ms per window); K_WINDOW device "
+            f"{k_ms:.4f} ms per launch (min {min(kw) / 1e3:.4f}, max "
+            f"{max(kw) / 1e3:.4f}); device busy {busy / 1e3:.1f} ms "
+            f"({100 * busy / wall_us:.1f} %), {len(dev)} device kernels"), \
+        k_ms
+
+
+def drive(state, params, app, label: str):
+    """The bench schedule (warm-up with run_until, then run_chunked to
+    RUN_NS) with every launch counter zeroed just before and read just
+    after; the trajectory must equal the JAX package's.  Prints the
+    timed part's events/s and wall.  Returns (final state, warm state,
+    launches, wall seconds of the timed part)."""
+    import torch
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    warm = engine.run_until(state, params, app, WARM_NS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = engine.run_chunked(warm, params, app, RUN_NS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(mk.LAUNCHES)
+    w, f = summary(warm), summary(out)
+    if w != JAX_WARM:
+        _fail(f"{label}: warm-up trajectory {w} != JAX {JAX_WARM}")
+    if f != JAX_FINAL:
+        _fail(f"{label}: trajectory {f} != JAX {JAX_FINAL}")
+    if int((out.app.next_send < 0).sum()) or out.pool.time.min() < 0:
+        _fail(f"{label}: negative times in the final state")
+    events = (f["sent"] - w["sent"]) + (f["recv"] - w["recv"])
+    wall = t2 - t1
+    windows = f["n_windows"] - w["n_windows"]
+    print(f"{label}: n_steps {f['n_steps'] - w['n_steps']} n_windows "
+          f"{windows} n_events {f['n_events'] - w['n_events']} events/s "
+          f"{events / wall:.1f} wall {wall:.4f} s ({wall / windows * 1e3:.4f}"
+          f" ms per window; warm-up {t1 - t0:.4f} s); launches {launches}; "
+          f"trajectory equals the JAX package's", flush=True)
+    return out, warm, launches, wall
 
 
 def main() -> int:
@@ -451,11 +655,15 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     # ---- 2. build -------------------------------------------------------
+    from shadow1_tpu_torch.core import _build
     t0 = time.perf_counter()
     built = shadow1_tpu_torch.build_kernels()
+    ptxas = [ln.split("ptxas info    : ")[-1] for ln in
+             (_build.BUILD_DIR / "window.log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})",
-          flush=True)
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())}); "
+          f"K_WINDOW ptxas: {' | '.join(ptxas)}", flush=True)
 
     # ---- 3. kernels against their plain versions ------------------------
     dev = torch.device("cuda")
@@ -463,19 +671,26 @@ def main() -> int:
                                          persistent=False, device=dev)
     state = engine.run_until(state, params, app, WARM_NS)
     times, bounds, errs = check_kernels(state, params, app, dev)
+    times["window"], bounds["window"], errs["window"] = check_window(
+        state, params, app)
     del state
 
-    # f64 log1p of the delay draw on all 2^24 inputs: card vs CPU.
-    n_bad = 0
+    # f64 log1p of the delay draw on all 2^24 inputs, card vs CPU: the
+    # plain torch emulation (per-phase path) and K_WINDOW's device log1p.
+    n_bad = n_bad_dev = 0
     for lo in range(0, 1 << 24, 1 << 22):
         k = torch.arange(lo, lo + (1 << 22), dtype=torch.int64)
         u = k.to(torch.float64) * (1.0 / (1 << 24))
-        gpu = xlamath.log1p(-u.to(dev)).cpu()
-        cpu = xlamath.log1p(-u)
-        n_bad += int((gpu.view(torch.int64) != cpu.view(torch.int64)).sum())
-    if n_bad:
-        _fail(f"f64 log1p: card and CPU differ on {n_bad} of 2^24 inputs")
-    print("kernels: f64 log1p bitwise equal to the CPU on all 2^24 inputs",
+        cpu = xlamath.log1p(-u).view(torch.int64)
+        gpu = xlamath.log1p(-u.to(dev)).cpu().view(torch.int64)
+        dev_fn = mk.log1p_probe(-u.to(dev)).cpu().view(torch.int64)
+        n_bad += int((gpu != cpu).sum())
+        n_bad_dev += int((dev_fn != cpu).sum())
+    if n_bad or n_bad_dev:
+        _fail(f"f64 log1p: card and CPU differ on {n_bad} (torch) / "
+              f"{n_bad_dev} (K_WINDOW device code) of 2^24 inputs")
+    print("kernels: f64 log1p bitwise equal to the CPU on all 2^24 inputs, "
+          "as torch on the card and as K_WINDOW's device function",
           flush=True)
     cnt = torch.arange(1, 1 << 20, dtype=torch.int32)
     if not torch.equal(nic.codel_spacing(cnt.to(dev)).cpu(),
@@ -485,84 +700,87 @@ def main() -> int:
     # A congested, lossy world takes the branches the bench world never
     # does (loss draws, TX parking and drain, rx starvation, CoDel drops,
     # slab overflow, bootstrap, the CPU clamp, the PDS trail): the whole
-    # run through the kernels must equal the whole run through the plain
-    # versions, leaf for leaf.
-    finals = []
-    for fused in (True, False):
+    # run through K_WINDOW, and through the per-phase kernels, must equal
+    # the whole run through the plain versions, leaf for leaf.
+    finals = {}
+    for path, (fused, persist) in (("K_WINDOW", (True, True)),
+                                   ("per-phase", (True, False)),
+                                   ("plain", (False, False))):
         s0, p0, a0 = sim.build_phold(**STRESS, megakernel=fused,
-                                     persistent=False, device=dev)
+                                     persistent=persist, device=dev)
         p0 = p0.replace(pds_trail=True, cpu_threshold_ns=0,
                         cpu_ns_per_event=torch.full_like(
                             p0.cpu_ns_per_event, 50_000))
         mk.reset_launches()
-        finals.append(engine.run_until(s0, p0, a0, STRESS_NS))
-        if fused and min(mk.LAUNCHES.values()) <= 0:
-            _fail(f"stressed world: a kernel was not launched "
-                  f"{mk.LAUNCHES}")
-    require_equal(finals[0], finals[1], "stressed world")
-    hs = finals[0].hosts
+        finals[path] = engine.run_until(s0, p0, a0, STRESS_NS)
+        used = {k for k, v in mk.LAUNCHES.items() if v > 0}
+        want = {"K_WINDOW": {"window"}, "per-phase": set(PER_PHASE),
+                "plain": set()}[path]
+        if used != want:
+            _fail(f"stressed world, {path} path: launches {mk.LAUNCHES}")
+    require_equal(finals["K_WINDOW"], finals["plain"],
+                  "stressed world, K_WINDOW")
+    require_equal(finals["per-phase"], finals["plain"],
+                  "stressed world, per-phase kernels")
+    hs = finals["plain"].hosts
     drops = {k: int(getattr(hs, k).sum()) for k in (
         "pkts_dropped_inet", "pkts_dropped_router", "pkts_dropped_pool")}
     if min(drops.values()) <= 0:
         _fail(f"stressed world did not take every drop path: {drops}")
     print(f"kernels: stressed world (H={STRESS['num_hosts']}, "
-          f"{STRESS_NS // MS} ms) equal through kernels and plain "
-          f"versions; {int(finals[0].n_steps)} micro-steps, drops {drops}",
+          f"{STRESS_NS // MS} ms) equal through K_WINDOW, the per-phase "
+          f"kernels and the plain versions; {int(hs.pkts_sent.numel())} "
+          f"hosts, {int(finals['plain'].n_steps)} micro-steps, "
+          f"{int(finals['plain'].n_windows)} windows, drops {drops}",
           flush=True)
     del finals
 
-    # ---- 4. main path ---------------------------------------------------
-    state, params, app = sim.build_phold(**BENCH, megakernel=True,
-                                         persistent=False, device=dev)
-    torch.cuda.synchronize()
-    mk.reset_launches()
-    t0 = time.perf_counter()
-    warm = engine.run_until(state, params, app, WARM_NS)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    out = engine.run_chunked(warm, params, app, RUN_NS)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = dict(mk.LAUNCHES)
-    w, f = summary(warm), summary(out)
-    if w != JAX_WARM:
-        _fail(f"warm-up trajectory {w} != JAX {JAX_WARM}")
-    if f != JAX_FINAL:
-        _fail(f"trajectory {f} != JAX {JAX_FINAL}")
-    if launches["exchange"] != f["n_windows"] or \
-            launches["deliver"] != f["n_steps"] or \
-            launches["transport"] != f["n_steps"]:
-        _fail(f"launch counts {launches} do not match windows/steps {f}")
-    if min(launches.values()) <= 0:
-        _fail(f"a kernel was not launched on the main path: {launches}")
-    if int((out.app.next_send < 0).sum()) or out.pool.time.min() < 0:
-        _fail("negative times in the final state")
-    events = (f["sent"] - w["sent"]) + (f["recv"] - w["recv"])
-    wall = t2 - t1
-    print(f"main path: n_steps {f['n_steps'] - w['n_steps']} n_windows "
-          f"{f['n_windows'] - w['n_windows']} n_events "
-          f"{f['n_events'] - w['n_events']} events/s {events / wall:.1f} "
-          f"wall {wall:.3f} s (warm-up {t1 - t0:.3f} s); launches "
-          f"{launches}; trajectory equals the JAX package's", flush=True)
+    # ---- 4. main path: the defaults, one K_WINDOW launch per window -----
+    state, params, app = sim.build_phold(**BENCH, device=dev)
+    if not (params.megakernel and params.persistent):
+        _fail("the port's defaults are not megakernel + persistent")
+    out, warm, launches, _ = drive(state, params, app, "main path")
+    if launches["window"] != JAX_FINAL["n_windows"] or \
+            any(launches[k] for k in PER_PHASE):
+        _fail(f"main path launches {launches}: want window = "
+              f"{JAX_FINAL['n_windows']} and no per-phase launch")
+    line, window_dev_ms = profile_persistent(warm, params, app, RUN_NS)
+    print(line, flush=True)
 
-    # ---- 4b. where the time goes, one window after the run ---------------
-    for line in profile_window(out, params, app):
+    # ---- 5. the per-phase path (persistent=False) ------------------------
+    state, params, app = sim.build_phold(**BENCH, persistent=False,
+                                         device=dev)
+    out_pp, _, launches_pp, _ = drive(state, params, app, "per-phase path")
+    if launches_pp["window"] or \
+            launches_pp["exchange"] != JAX_FINAL["n_windows"] or \
+            launches_pp["deliver"] != JAX_FINAL["n_steps"] or \
+            launches_pp["transport"] != JAX_FINAL["n_steps"]:
+        _fail(f"per-phase path launches {launches_pp} do not match its "
+              f"windows / micro-steps")
+    require_equal(out_pp, out, "per-phase path vs persistent path")
+    print("per-phase path: final state equal to the persistent path's",
+          flush=True)
+    for line in profile_window(out_pp, params, app):
         print(line, flush=True)
 
-    # ---- 5. kernels line ------------------------------------------------
+    # ---- 6. kernels line ------------------------------------------------
     rows = []
-    for name in ("exchange", "deliver", "transport"):
+    for name in (*PER_PHASE, "window"):
         b, ops = bounds[name]
         bytes_ms = b / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
+        n = launches[name] if name == "window" else launches_pp[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"shadow1_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": n,
             "max_abs_err": errs[name], "ms": times[name][0][0],
+            "call_ms": times[name][0][1],
             "plain_ms": times[name][1][0], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None})
+    print(f"K_WINDOW in the main path's profile: {window_dev_ms:.4f} ms "
+          f"device per launch", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,13 @@ its layout module for module (`core/state.py`, `core/engine.py`, ...) and
 holds every leaf bitwise against it.  It imports torch and numpy only --
 never jax, flax or anything of `shadow1_tpu`.
 
-Scope of this slice: the UDP-only phold world on a uniform full mesh,
-driven through `sim.build_phold` and `core.engine.run_until` /
-`run_chunked`, with the window-boundary exchange, K_DELIVER and
-K_TRANSPORT as hand-written CUDA kernels for sm_90a (`csrc/`).  Blocks of
-`SimState` this slice does not carry (log, cap, lineage, nm, fr, tr,
+Scope so far: the UDP-only phold world on a uniform full mesh, driven
+through `sim.build_phold` and `core.engine.run_until` / `run_chunked`,
+with every Pallas kernel of the JAX package as a hand-written CUDA kernel
+for sm_90a (`csrc/`): K_WINDOW, one cooperative launch per window with
+phold's tick as device code (the default, `persistent`), and the
+per-phase window-boundary exchange, K_DELIVER and K_TRANSPORT.  Blocks of
+`SimState` the port does not carry yet (log, cap, lineage, nm, fr, tr,
 scope, sentinel, dg) are refused by name wherever they would be needed.
 
 Conventions kept from the JAX package at every public function, so the

@@ -5,9 +5,10 @@ Every received UDP message becomes a pending message forwarded to a
 random other host after an exponential delay; draws are keyed by (host,
 per-host draw counter).  The f64 delay draw goes through
 core.xlamath.log1p, which reproduces the JAX package's f64 log1p bit for
-bit (torch.log1p does not).  `on_tick` runs as plain torch between the
-K_DELIVER and K_TRANSPORT launches, as it runs between the Pallas kernels
-in the JAX main graph."""
+bit (torch.log1p does not).  On the per-phase path `on_tick` runs as
+plain torch between the K_DELIVER and K_TRANSPORT launches, as it runs
+between the Pallas kernels in the JAX main graph; K_WINDOW runs its
+device copy, csrc/phold_tick.cuh (`device_tick = "phold"`)."""
 
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ class Phold:
     may_loopback = False
     app_tx_lanes = 4
     wants_window_end = True
+    # The tick K_WINDOW runs on the card (csrc/phold_tick.cuh).
+    device_tick = "phold"
 
     def __init__(self, mean_delay_ns: int, sock_slot: int = 0,
                  rx_batch: int = 1):

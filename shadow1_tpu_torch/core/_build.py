@@ -2,10 +2,11 @@
 library with a plain C interface, loaded with ctypes).
 
 Each `csrc/<name>.cu` builds into `shadow1_tpu_torch/_build/` under a
-name keyed by the hash of its sources and flags, at first use, from the
-sources in the checkout only.  `build_all` starts one nvcc per source at
-once.  Flags: sm_90a, -O3, --fmad=false (no multiply-add contraction, so
-every float op rounds as the JAX package's does), never fast math.
+name keyed by the hash of its sources (the .cu and every header it
+includes) and flags, at first use, from the sources in the checkout
+only.  `build_all` starts one nvcc per source at once.  Flags: sm_90a,
+-O3, --fmad=false (no multiply-add contraction, so every float op rounds
+as the JAX package's does), never fast math.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,17 +23,20 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-NAMES = ("exchange", "deliver", "transport")
+NAMES = ("exchange", "deliver", "transport", "window")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# The C entry points of each library and their argument types.
 _ARGTYPES = {
-    "exchange": ("exchange_launch",
+    "exchange": {"exchange_launch":
                  [_P, _I, _I64, _P, _P, _P, _P, _I, _P, _P, _I64, _I, _I,
-                  _P, _P, _P, _P, _P]),
-    "deliver": ("deliver_launch", [_P, _P]),
-    "transport": ("transport_launch", [_P, _P]),
+                  _P, _P, _P, _P, _P]},
+    "deliver": {"deliver_launch": [_P, _P]},
+    "transport": {"transport_launch": [_P, _P]},
+    "window": {"window_launch": [_P, _P], "window_grid": [_I, _P],
+               "log1p_probe_launch": [_P, _P, _I64, _P]},
 }
 
 _LOADED: dict = {}
@@ -50,7 +55,16 @@ def nvcc() -> str:
 
 
 def _sources(name: str) -> list[Path]:
-    return [SRC_DIR / f"{name}.cu", SRC_DIR / "common.cuh"]
+    """`csrc/<name>.cu` and every header it includes, transitively."""
+    out, todo = [], [SRC_DIR / f"{name}.cu"]
+    while todo:
+        p = todo.pop(0)
+        if p in out:
+            continue
+        out.append(p)
+        todo += [SRC_DIR / m for m in
+                 re.findall(r'^#include "([^"]+)"', p.read_text(), re.M)]
+    return out
 
 
 def lib_path(name: str) -> Path:
@@ -99,9 +113,9 @@ def load(name: str):
         if not target.exists():
             build_all((name,))
         lib = ctypes.CDLL(str(target))
-        sym, argtypes = _ARGTYPES[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for sym, argtypes in _ARGTYPES[name].items():
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib

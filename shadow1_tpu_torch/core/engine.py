@@ -15,9 +15,12 @@ accounting + the post-step scan (K_TRANSPORT).  They are functional
 goes through the kernels instead, and the tests pin these bodies leaf
 for leaf against the JAX package.
 
-The loops (`run_until`, `run_chunked`) run on the host: one scalar read
-per micro-step (the `gmin < window_end` predicate JAX evaluates inside
-its device while loop) and a few per window.
+The loops (`run_until`, `run_chunked`) run on the host.  With
+`params.persistent` (the default) each window is one K_WINDOW call
+(megakernel.window_call, body `_window_body_ref`) and the host reads one
+small vector per window; without it, one scalar per micro-step (the
+`gmin < window_end` predicate JAX evaluates inside its device while
+loop) and a few per window.
 
 Scope: TCP apps, loopback apps, jitter, interface buffers and every
 instrumentation/netem block are later slices and are refused by
@@ -57,7 +60,7 @@ def check_supported(state: SimState, params, app) -> None:
     if _uses_tcp(app):
         raise NotImplementedError(
             "TCP worlds (app.uses_tcp) are a later slice of the port "
-            "(ROADMAP queue 1 item 5: transport/tcp.py, the 28-column "
+            "(ROADMAP queue 1 item 1: transport/tcp.py, the 28-column "
             "block, the ACK-before-data re-rank, transmit/run_timers)")
     if _may_loopback(app):
         raise NotImplementedError(
@@ -78,12 +81,12 @@ def check_supported(state: SimState, params, app) -> None:
     if params.hosts_real is not None:
         raise NotImplementedError(
             "bucket-padded worlds (hosts_real) are not ported yet")
-    if params.megakernel and params.persistent:
+    if params.megakernel and params.persistent and \
+            getattr(app, "device_tick", None) is None:
         raise NotImplementedError(
-            "params.persistent asks for K_WINDOW (the persistent "
-            "whole-window kernel), the next slice of the port (ROADMAP "
-            "queue 2); build with persistent=False for the per-phase "
-            "exchange/K_DELIVER/K_TRANSPORT kernels")
+            f"params.persistent runs each window as K_WINDOW, with the app "
+            f"tick on the card, and {type(app).__name__} has no device tick "
+            f"(only Phold has one); build with persistent=False")
 
 
 # ---------------------------------------------------------------------------
@@ -683,6 +686,25 @@ def microstep(state: SimState, params, app, t_h, window_end: int):
     return _microstep_core(state, params, app, t_h, window_end)
 
 
+def _window_body_ref(state: SimState, params, app, t_target):
+    """One whole conservative window, reference functions only: the
+    boundary exchange, the per-window scan, the window bounds, the
+    micro-step loop and the window close -- the body of K_WINDOW
+    (megakernel.window_fused).  Returns (state, t_h, gmin, ws, we), the
+    last three as 0-d tensors."""
+    st = _exchange(state, params, fused=False)
+    t_h, gmin = _scan_all(st, params, app)
+    ws = torch.maximum(st.now, gmin)
+    we = torch.clamp(ws + params.min_latency_ns, max=int(t_target))
+    ctx = _window_ctx(st, params)
+    we_i = int(we)
+    while int(gmin) < we_i:
+        st = _microstep_core(st, params, app, t_h, we_i, ctx=ctx)
+        t_h, gmin = _scan_all(st, params, app)
+    st = st.replace(now=we.clone(), n_windows=st.n_windows + 1)
+    return st, t_h, gmin, ws, we
+
+
 def clone_state(state: SimState) -> SimState:
     """Deep copy of every tensor (the kernels update state in place; a
     run never mutates its caller's state)."""
@@ -709,10 +731,13 @@ def run_until(state: SimState, params, app, t_target: int) -> SimState:
 def run_until_impl(state: SimState, params, app, t_target: int) -> SimState:
     """The window loop on the host.  Per window: exchange, scan, window
     bounds, then micro-steps while the global next event lies before the
-    window end -- the JAX package's per-phase window body."""
+    window end -- one K_WINDOW call with params.persistent, else the JAX
+    package's per-phase window body."""
     from . import megakernel as mk
     check_supported(state, params, app)
     t_target = int(t_target)
+    if mk.persistent_enabled(state, params, app):
+        return _run_windows(state, params, app, t_target)
     fused = mk.enabled(state, params, app)
     ctx = _window_ctx(state, params)
     _t_h, gmin = _scan_all(state, params, app)
@@ -733,6 +758,21 @@ def run_until_impl(state: SimState, params, app, t_target: int) -> SimState:
         now = we
         state = state.replace(now=torch.full_like(state.now, we),
                               n_windows=state.n_windows + 1)
+    return state.replace(now=torch.full_like(state.now, t_target))
+
+
+def _run_windows(state: SimState, params, app, t_target: int) -> SimState:
+    """The persistent window loop: one window_call per window and one
+    host read of its (gmin, ws, we, outbox pending, status) vector."""
+    from . import megakernel as mk
+    _t_h, gmin = _scan_all(state, params, app)
+    now, g = torch.stack([state.now, torch.minimum(
+        gmin, _outbox_pending(state))]).tolist()
+    while now < t_target and g < t_target:
+        state, _t_h, win = mk.window_call(state, params, app, t_target)
+        gmin, _ws, now, gout, status = win.tolist()
+        mk.check_window_status(status)
+        g = min(gmin, gout)
     return state.replace(now=torch.full_like(state.now, t_target))
 
 

@@ -1,8 +1,8 @@
-"""The slice's three hand-written kernels, their launch wrappers, and
-their plain torch versions (counterpart of shadow1_tpu/core/megakernel.py).
+"""The port's hand-written kernels, their launch wrappers, and their
+plain torch versions (counterpart of shadow1_tpu/core/megakernel.py).
 
-Each TPU kernel of the JAX package's per-phase path has a CUDA kernel
-here, written for sm_90a in `csrc/` and built by core/_build.py:
+Each TPU kernel of the JAX package has a CUDA kernel here, written for
+sm_90a in `csrc/` and built by core/_build.py:
 
 * exchange  (csrc/exchange.cu)  <- megakernel.exchange_call,
   shadow1_tpu/core/megakernel.py:231-289, body engine._exchange_core;
@@ -10,19 +10,25 @@ here, written for sm_90a in `csrc/` and built by core/_build.py:
   megakernel.py:502-545, body engine._rx_phase;
 * transport (csrc/transport.cu) <- microstep_fused's K_TRANSPORT,
   megakernel.py:562-658, body _stage_emissions + _tx_drain_body + CPU
-  accounting + the post-step scan.
+  accounting + the post-step scan;
+* window    (csrc/window.cu)    <- window_fused's K_WINDOW,
+  megakernel.py:391-424, body engine._window_body_ref: the exchange, the
+  scan, the window bounds and the whole micro-step loop with phold's tick
+  as device code (csrc/phold_tick.cuh), one cooperative launch per
+  window.  The three phases are one copy of device code (csrc/*.cuh)
+  that the per-phase kernels share.
 
-Dispatch rule, the same for all three wrappers: a CUDA tensor launches
-the kernel (or raises); a CPU tensor runs the plain version, which is
-built from the reference functions of core/engine.py.  There is no third
-path and no fallback.  The kernels update the state's tensors in place
+Dispatch rule, the same for every wrapper: a CUDA tensor launches the
+kernel (or raises); a CPU tensor runs the plain version, which is built
+from the reference functions of core/engine.py.  There is no third path
+and no fallback.  The kernels update the state's tensors in place
 (run_until clones its input once); the plain versions return new
 tensors.  Each wrapper counts its launches in `LAUNCHES`.
 
-phold's tick runs between K_DELIVER and K_TRANSPORT as plain torch on the
-state's device, as it runs between the Pallas kernels in the JAX graph.
-K_WINDOW (megakernel.window_fused, the persistent whole-window region)
-is the next slice of the port.
+With `params.persistent` (the default, as in the JAX package) every
+window is one K_WINDOW launch.  Without it, phold's tick runs between
+K_DELIVER and K_TRANSPORT as plain torch on the state's device, as it
+runs between the Pallas kernels in the JAX per-phase graph.
 """
 
 from __future__ import annotations
@@ -38,10 +44,14 @@ from .state import I32, I64, ICOLS
 INV = engine.INV
 
 # Launches of each kernel since the last reset (plain versions do not
-# count).  chip_smoke.py zeroes these around the main-path run.
-LAUNCHES = {"exchange": 0, "deliver": 0, "transport": 0}
+# count).  chip_smoke.py zeroes these around the run of each path.
+LAUNCHES = {"exchange": 0, "deliver": 0, "transport": 0, "window": 0}
 
 _BLOCK = 256     # threads per block of the per-host kernels
+
+# K_WINDOW's micro-step cap per window: far above any real window (the
+# bench world's take ~6); past it the kernel stops and the wrapper raises.
+MAX_STEPS = 1 << 20
 
 
 def _phase(name: str):
@@ -64,6 +74,13 @@ def enabled(state, params, app) -> bool:
     return bool(getattr(params, "megakernel", False))
 
 
+def persistent_enabled(state, params, app) -> bool:
+    """Does this world run whole windows through K_WINDOW?  The kernel
+    path plus the params.persistent static (the port has no mesh)."""
+    return enabled(state, params, app) and \
+        bool(getattr(params, "persistent", False))
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
@@ -72,9 +89,10 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None \
-        else ctypes.c_void_p(0)
+def _addr(t) -> int:
+    """A tensor's address for a pointer argument or struct field (0 for
+    None)."""
+    return t.data_ptr() if t is not None else 0
 
 
 def _check(t, dtype, shape, name):
@@ -137,11 +155,11 @@ def exchange_kernel(pool, ib, h, params):
     n_free = torch.empty((h,), dtype=I32, device=dev)
     lib = _build.load("exchange")
     rc = lib.exchange_launch(
-        _ptr(pool.blk), pc, ctypes.c_int64(p0), _ptr(pool.time),
-        _ptr(pool.stage), _ptr(pool.status), _ptr(ib.blk), ic,
-        _ptr(ib.stage), _ptr(ib.status), ctypes.c_int64(p1), h,
-        int(bool(params.pds_trail)), _ptr(cnt), _ptr(lst), _ptr(total),
-        _ptr(n_free), _stream())
+        _addr(pool.blk), pc, ctypes.c_int64(p0), _addr(pool.time),
+        _addr(pool.stage), _addr(pool.status), _addr(ib.blk), ic,
+        _addr(ib.stage), _addr(ib.status), ctypes.c_int64(p1), h,
+        int(bool(params.pds_trail)), _addr(cnt), _addr(lst), _addr(total),
+        _addr(n_free), _stream())
     _raise_on(rc, "exchange")
     LAUNCHES["exchange"] += 1
     return pool, ib, total, total, n_free
@@ -183,19 +201,15 @@ class _DeliverArgs(ctypes.Structure):
         ("rx_batch", ctypes.c_int32), ("pds_trail", ctypes.c_int32)]
 
 
-def deliver_kernel(state, params, app, tick_t, active, window_end, bw_dn,
-                   aux0):
-    """Launch csrc/deliver.cu: _rx_phase with one thread per host.
-    Updates the inbox, hosts and socket tensors in place."""
-    from . import _build
+def _deliver_struct(state, params, app, bw_dn, window_end=0, tick_t=None,
+                    active=None, aux0=None, delivered_n=None,
+                    t_post=None) -> _DeliverArgs:
+    """K_DELIVER's arguments, state tensors checked.  The per-host inputs
+    and outputs are the per-phase kernel's; K_WINDOW leaves them None."""
     ib, hosts, socks = state.inbox, state.hosts, state.socks
     h = hosts.num_hosts
     p1, ic = ib.blk.shape
-    ki = p1 // h
     s = socks.slots
-    rx_batch = max(1, int(getattr(app, "rx_batch", 1)))
-    if rx_batch > 1 and aux0 is None:
-        raise ValueError("rx_batch > 1 needs the batch-start bound aux0")
     _check(ib.blk, I32, (p1, ic), "inbox.blk")
     _check(ib.stage, I32, (p1,), "inbox.stage")
     _check(ib.status, I32, (p1,), "inbox.status")
@@ -212,46 +226,55 @@ def deliver_kernel(state, params, app, tick_t, active, window_end, bw_dn,
     for name in ("udp_src", "udp_sport", "udp_len", "udp_payload"):
         _check(getattr(socks, name), I32, (h, s, 8), f"socks.{name}")
     _check(socks.bytes_recv, I64, (h, s), "socks.bytes_recv")
+    _check(bw_dn, I64, (h,), "bw_dn")
+    return _DeliverArgs(
+        ib_blk=_addr(ib.blk), ib_stage=_addr(ib.stage),
+        ib_status=_addr(ib.status),
+        tokens_rx=_addr(hosts.tokens_rx),
+        last_refill_rx=_addr(hosts.last_refill_rx),
+        rx_queued=_addr(hosts.rx_queued),
+        codel_count=_addr(hosts.codel_count),
+        codel_dropping=_addr(hosts.codel_dropping),
+        codel_first_above=_addr(hosts.codel_first_above),
+        codel_drop_next=_addr(hosts.codel_drop_next),
+        pkts_dropped_router=_addr(hosts.pkts_dropped_router),
+        pkts_recv=_addr(hosts.pkts_recv),
+        bytes_recv=_addr(hosts.bytes_recv),
+        t_resume=_addr(hosts.t_resume),
+        stype=_addr(socks.stype), local_port=_addr(socks.local_port),
+        peer_host=_addr(socks.peer_host), peer_port=_addr(socks.peer_port),
+        udp_head=_addr(socks.udp_head), udp_count=_addr(socks.udp_count),
+        udp_src=_addr(socks.udp_src), udp_sport=_addr(socks.udp_sport),
+        udp_len=_addr(socks.udp_len), udp_payload=_addr(socks.udp_payload),
+        sock_bytes_recv=_addr(socks.bytes_recv),
+        tick_t=_addr(tick_t), active=_addr(active), bw_dn=_addr(bw_dn),
+        aux0=_addr(aux0), delivered_n=_addr(delivered_n),
+        t_post=_addr(t_post),
+        rsqrt_tab=_addr(xlamath.rsqrt_table(bw_dn.device)),
+        bootstrap_end=params.bootstrap_end, window_end=int(window_end),
+        h=h, ki=p1 // h, ic=ic, slots=s,
+        rx_batch=max(1, int(getattr(app, "rx_batch", 1))),
+        pds_trail=int(bool(params.pds_trail)))
+
+
+def deliver_kernel(state, params, app, tick_t, active, window_end, bw_dn,
+                   aux0):
+    """Launch csrc/deliver.cu: _rx_phase with one thread per host.
+    Updates the inbox, hosts and socket tensors in place."""
+    from . import _build
+    h = state.hosts.num_hosts
+    rx_batch = max(1, int(getattr(app, "rx_batch", 1)))
+    if rx_batch > 1 and aux0 is None:
+        raise ValueError("rx_batch > 1 needs the batch-start bound aux0")
     _check(tick_t, I64, (h,), "tick_t")
     _check(active, torch.bool, (h,), "active")
-    _check(bw_dn, I64, (h,), "bw_dn")
     if aux0 is not None:
         _check(aux0, I64, (h,), "aux0")
     dev = tick_t.device
-    rsqrt_tab = xlamath.rsqrt_table(dev)
     delivered_n = torch.empty((h,), dtype=I32, device=dev)
     t_post = torch.empty((h,), dtype=I64, device=dev)
-    a = _DeliverArgs(
-        ib_blk=ib.blk.data_ptr(), ib_stage=ib.stage.data_ptr(),
-        ib_status=ib.status.data_ptr(),
-        tokens_rx=hosts.tokens_rx.data_ptr(),
-        last_refill_rx=hosts.last_refill_rx.data_ptr(),
-        rx_queued=hosts.rx_queued.data_ptr(),
-        codel_count=hosts.codel_count.data_ptr(),
-        codel_dropping=hosts.codel_dropping.data_ptr(),
-        codel_first_above=hosts.codel_first_above.data_ptr(),
-        codel_drop_next=hosts.codel_drop_next.data_ptr(),
-        pkts_dropped_router=hosts.pkts_dropped_router.data_ptr(),
-        pkts_recv=hosts.pkts_recv.data_ptr(),
-        bytes_recv=hosts.bytes_recv.data_ptr(),
-        t_resume=hosts.t_resume.data_ptr(),
-        stype=socks.stype.data_ptr(), local_port=socks.local_port.data_ptr(),
-        peer_host=socks.peer_host.data_ptr(),
-        peer_port=socks.peer_port.data_ptr(),
-        udp_head=socks.udp_head.data_ptr(),
-        udp_count=socks.udp_count.data_ptr(),
-        udp_src=socks.udp_src.data_ptr(), udp_sport=socks.udp_sport.data_ptr(),
-        udp_len=socks.udp_len.data_ptr(),
-        udp_payload=socks.udp_payload.data_ptr(),
-        sock_bytes_recv=socks.bytes_recv.data_ptr(),
-        tick_t=tick_t.data_ptr(), active=active.data_ptr(),
-        bw_dn=bw_dn.data_ptr(),
-        aux0=aux0.data_ptr() if aux0 is not None else 0,
-        delivered_n=delivered_n.data_ptr(), t_post=t_post.data_ptr(),
-        rsqrt_tab=rsqrt_tab.data_ptr(),
-        bootstrap_end=params.bootstrap_end, window_end=int(window_end),
-        h=h, ki=ki, ic=ic, slots=s, rx_batch=rx_batch,
-        pds_trail=int(bool(params.pds_trail)))
+    a = _deliver_struct(state, params, app, bw_dn, window_end, tick_t,
+                        active, aux0, delivered_n, t_post)
     lib = _build.load("deliver")
     _raise_on(lib.deliver_launch(ctypes.byref(a), _stream()), "deliver")
     LAUNCHES["deliver"] += 1
@@ -313,20 +336,22 @@ class _TransportArgs(ctypes.Structure):
         ("n_blocks", ctypes.c_int32)]
 
 
-def transport_kernel(state, params, em, tick_t, t_post, active, bw_up,
-                     delivered_n, t_app):
-    """Launch csrc/transport.cu: staging + drain + CPU accounting + scan
-    with one thread per host, then the fixed-order reduction of the
-    per-block partials into gmin / n_events / n_steps / err.  Updates
-    the pool, hosts and state scalars in place."""
-    from . import _build
+def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
+                      tick_t=None, t_post=None, active=None,
+                      delivered_n=None, t_app=None, th=None, blk_ev=None,
+                      blk_min=None, blk_err=None, gmin=None,
+                      n_blocks=0) -> _TransportArgs:
+    """K_TRANSPORT's arguments, state tensors checked.  The per-host
+    inputs and the partial/scalar outputs from `th` on are the per-phase
+    kernel's; K_WINDOW leaves them None."""
     pool, hosts, ib = state.pool, state.hosts, state.inbox
     h = hosts.num_hosts
     p0, pc = pool.blk.shape
     p1, ic = ib.blk.shape
-    e = em.valid.shape[1]
-    _check(em.valid, torch.bool, (h, e), "em.valid")
-    _check(em.blk, I32, (h, e, pc), "em.blk")
+    _check(em_valid, torch.bool, tuple(em_valid.shape), "em.valid")
+    _check(em_blk, I32, tuple(em_blk.shape), "em.blk")
+    if em_valid.numel() != h * e or em_blk.numel() != h * e * pc:
+        raise ValueError("emission staging is not [H, E] x pool width")
     _check(pool.blk, I32, (p0, pc), "pool.blk")
     _check(pool.stage, I32, (p0,), "pool.stage")
     _check(pool.time, I64, (p0,), "pool.time")
@@ -344,15 +369,57 @@ def transport_kernel(state, params, em, tick_t, t_post, active, bw_up,
            "params.route_blk")
     _check(bw_up, I64, (h,), "bw_up")
     _check(params.cpu_ns_per_event, I64, (h,), "params.cpu_ns_per_event")
+    for name, t, dt in (("n_events", state.n_events, I64),
+                        ("n_steps", state.n_steps, I64),
+                        ("err", state.err, I32)):
+        _check(t, dt, (), name)
+    k0, k1 = params.purpose_words[rng.PURPOSE_PACKET_DROP]
+    return _TransportArgs(
+        em_valid=_addr(em_valid), em_blk=_addr(em_blk),
+        pool_blk=_addr(pool.blk), pool_stage=_addr(pool.stage),
+        pool_time=_addr(pool.time), pool_status=_addr(pool.status),
+        ib_blk=_addr(ib.blk), ib_stage=_addr(ib.stage),
+        send_ctr=_addr(hosts.send_ctr), tokens_tx=_addr(hosts.tokens_tx),
+        last_refill_tx=_addr(hosts.last_refill_tx),
+        t_resume=_addr(hosts.t_resume), tx_queued=_addr(hosts.tx_queued),
+        pkts_sent=_addr(hosts.pkts_sent), bytes_sent=_addr(hosts.bytes_sent),
+        pkts_dropped_inet=_addr(hosts.pkts_dropped_inet),
+        pkts_dropped_pool=_addr(hosts.pkts_dropped_pool),
+        cpu_avail=_addr(hosts.cpu_avail),
+        host_vertex=_addr(params.host_vertex),
+        route_blk=_addr(params.route_blk), bw_up=_addr(bw_up),
+        cpu_ns_per_event=_addr(params.cpu_ns_per_event),
+        tick_t=_addr(tick_t), t_post=_addr(t_post), active=_addr(active),
+        delivered_n=_addr(delivered_n), t_app=_addr(t_app), th=_addr(th),
+        blk_ev=_addr(blk_ev), blk_min=_addr(blk_min), blk_err=_addr(blk_err),
+        n_events=_addr(state.n_events), n_steps=_addr(state.n_steps),
+        err=_addr(state.err), gmin=_addr(gmin),
+        bootstrap_end=params.bootstrap_end,
+        cpu_threshold=params.cpu_threshold_ns,
+        cpu_precision=params.cpu_precision_ns, drop_k0=k0, drop_k1=k1,
+        h=h, e=e, pc=pc, ko=p0 // h, ki=p1 // h, ic=ic,
+        n_vertices=params.n_vertices, n_hv=nhv,
+        has_loss=int(bool(params.has_loss)),
+        pds_trail=int(bool(params.pds_trail)), n_blocks=n_blocks)
+
+
+def transport_kernel(state, params, em, tick_t, t_post, active, bw_up,
+                     delivered_n, t_app):
+    """Launch csrc/transport.cu: staging + drain + CPU accounting + scan
+    with one thread per host, then the fixed-order reduction of the
+    per-block partials into gmin / n_events / n_steps / err.  Updates
+    the pool, hosts and state scalars in place."""
+    from . import _build
+    h = state.hosts.num_hosts
+    pc = state.pool.blk.shape[1]
+    e = em.valid.shape[1]
+    _check(em.valid, torch.bool, (h, e), "em.valid")
+    _check(em.blk, I32, (h, e, pc), "em.blk")
     for name, t in (("tick_t", tick_t), ("t_post", t_post),
                     ("t_app", t_app)):
         _check(t, I64, (h,), name)
     _check(active, torch.bool, (h,), "active")
     _check(delivered_n, I32, (h,), "delivered_n")
-    for name, t, dt in (("n_events", state.n_events, I64),
-                        ("n_steps", state.n_steps, I64),
-                        ("err", state.err, I32)):
-        _check(t, dt, (), name)
     dev = tick_t.device
     nb = _n_blocks(h)
     th = torch.empty((h,), dtype=I64, device=dev)
@@ -360,38 +427,9 @@ def transport_kernel(state, params, em, tick_t, t_post, active, bw_up,
     blk_min = torch.empty((nb,), dtype=I64, device=dev)
     blk_err = torch.empty((nb,), dtype=I32, device=dev)
     gmin = torch.empty((), dtype=I64, device=dev)
-    k0, k1 = params.purpose_words[rng.PURPOSE_PACKET_DROP]
-    a = _TransportArgs(
-        em_valid=em.valid.data_ptr(), em_blk=em.blk.data_ptr(),
-        pool_blk=pool.blk.data_ptr(), pool_stage=pool.stage.data_ptr(),
-        pool_time=pool.time.data_ptr(), pool_status=pool.status.data_ptr(),
-        ib_blk=ib.blk.data_ptr(), ib_stage=ib.stage.data_ptr(),
-        send_ctr=hosts.send_ctr.data_ptr(),
-        tokens_tx=hosts.tokens_tx.data_ptr(),
-        last_refill_tx=hosts.last_refill_tx.data_ptr(),
-        t_resume=hosts.t_resume.data_ptr(),
-        tx_queued=hosts.tx_queued.data_ptr(),
-        pkts_sent=hosts.pkts_sent.data_ptr(),
-        bytes_sent=hosts.bytes_sent.data_ptr(),
-        pkts_dropped_inet=hosts.pkts_dropped_inet.data_ptr(),
-        pkts_dropped_pool=hosts.pkts_dropped_pool.data_ptr(),
-        cpu_avail=hosts.cpu_avail.data_ptr(),
-        host_vertex=params.host_vertex.data_ptr(),
-        route_blk=params.route_blk.data_ptr(), bw_up=bw_up.data_ptr(),
-        cpu_ns_per_event=params.cpu_ns_per_event.data_ptr(),
-        tick_t=tick_t.data_ptr(), t_post=t_post.data_ptr(),
-        active=active.data_ptr(), delivered_n=delivered_n.data_ptr(),
-        t_app=t_app.data_ptr(), th=th.data_ptr(), blk_ev=blk_ev.data_ptr(),
-        blk_min=blk_min.data_ptr(), blk_err=blk_err.data_ptr(),
-        n_events=state.n_events.data_ptr(), n_steps=state.n_steps.data_ptr(),
-        err=state.err.data_ptr(), gmin=gmin.data_ptr(),
-        bootstrap_end=params.bootstrap_end,
-        cpu_threshold=params.cpu_threshold_ns,
-        cpu_precision=params.cpu_precision_ns, drop_k0=k0, drop_k1=k1,
-        h=h, e=e, pc=pc, ko=p0 // h, ki=p1 // h, ic=ic,
-        n_vertices=params.n_vertices, n_hv=nhv,
-        has_loss=int(bool(params.has_loss)),
-        pds_trail=int(bool(params.pds_trail)), n_blocks=nb)
+    a = _transport_struct(state, params, em.valid, em.blk, e, bw_up, tick_t,
+                          t_post, active, delivered_n, t_app, th, blk_ev,
+                          blk_min, blk_err, gmin, nb)
     lib = _build.load("transport")
     _raise_on(lib.transport_launch(ctypes.byref(a), _stream()), "transport")
     LAUNCHES["transport"] += 1
@@ -437,3 +475,174 @@ def microstep_fused(state, params, app, t_h, window_end: int, ctx=None):
     with _phase("microstep.transport"):
         return transport_call(state, params, em, tick_t, t_post, active,
                               bw_up, delivered_n, t_app)
+
+
+# ---------------------------------------------------------------------------
+# K_WINDOW: a whole window in one cooperative launch
+# ---------------------------------------------------------------------------
+
+
+def window_plain(state, params, app, t_target):
+    """Plain version: engine._window_body_ref, then the outbox-pending
+    min.  Returns (state, t_h, win) with win = i64[5] (gmin, ws, we,
+    outbox pending, status 0)."""
+    st, t_h, gmin, ws, we = engine._window_body_ref(state, params, app,
+                                                    t_target)
+    win = torch.stack([gmin, ws, we, engine._outbox_pending(st),
+                       torch.zeros_like(gmin)])
+    return st, t_h, win
+
+
+class _ExchangeArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "pool_blk", "pool_stage", "pool_time", "pool_status", "ib_blk",
+        "ib_stage", "ib_status", "cnt", "fill", "start", "lst")] + [
+        ("p0", ctypes.c_int64), ("pc", ctypes.c_int32),
+        ("ic", ctypes.c_int32), ("ki", ctypes.c_int32),
+        ("h", ctypes.c_int32), ("pds_trail", ctypes.c_int32)]
+
+
+class _PholdArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "next_send", "pending", "sent", "recv", "rng_ctr")] + [
+        ("mean_delay_ns", ctypes.c_int64), ("k0", ctypes.c_uint32),
+        ("k1", ctypes.c_uint32), ("sock_slot", ctypes.c_int32),
+        ("rx_batch", ctypes.c_int32), ("lanes", ctypes.c_int32),
+        ("n_hosts", ctypes.c_int32)]
+
+
+class _WindowArgs(ctypes.Structure):
+    _fields_ = [("x", _ExchangeArgs), ("d", _DeliverArgs),
+                ("t", _TransportArgs), ("p", _PholdArgs)] + [
+        (n, ctypes.c_void_p) for n in (
+            "t_h", "part_min", "part_ev", "part_err", "now", "n_windows",
+            "win", "em_valid", "em_blk")] + [
+        ("t_target", ctypes.c_int64), ("min_latency", ctypes.c_int64),
+        ("max_steps", ctypes.c_int64), ("n_blocks", ctypes.c_int32)]
+
+
+_GRID: dict = {}
+
+
+def _window_grid(lib, h: int) -> int:
+    """Blocks of K_WINDOW's cooperative grid for h hosts (cached per
+    device and h).  Raises if the card cannot launch cooperatively."""
+    key = (torch.cuda.current_device(), h)
+    if key not in _GRID:
+        g = ctypes.c_int(0)
+        rc = lib.window_grid(h, ctypes.byref(g))
+        if rc == -1:
+            raise RuntimeError("K_WINDOW: the device cannot launch "
+                               "cooperative kernels (or the kernel does "
+                               "not fit on one SM)")
+        _raise_on(rc, "window (occupancy query)")
+        _GRID[key] = g.value
+    return _GRID[key]
+
+
+def window_kernel(state, params, app, t_target):
+    """Launch csrc/window.cu: one whole window (exchange, scan, bounds,
+    the micro-step loop with phold's tick) as one cooperative kernel.
+    Updates the state's tensors in place; returns (state, t_h, win) with
+    win = i64[5] (gmin, ws, we, outbox pending, status) on the card."""
+    from . import _build
+    if getattr(app, "device_tick", None) != "phold":
+        raise NotImplementedError(
+            f"K_WINDOW runs the app tick on the card; "
+            f"{type(app).__name__} has no device tick (only Phold has one)")
+    pool, ib, hosts, a_st = state.pool, state.inbox, state.hosts, state.app
+    h = hosts.num_hosts
+    p0, pc = pool.blk.shape
+    p1, ic = ib.blk.shape
+    if ic >= ICOLS:
+        raise NotImplementedError("K_WINDOW takes the narrow (UDP) inbox "
+                                  "only")
+    if p0 % h or p1 % h:
+        raise ValueError("pool and inbox capacities must be multiples of h")
+    _check(ib.status, I32, (p1,), "inbox.status")
+    _check(hosts.rng_ctr, I64, (h,), "hosts.rng_ctr")
+    for name, dt in (("next_send", I64), ("pending", I32), ("sent", I64),
+                     ("recv", I64)):
+        _check(getattr(a_st, name), dt, (h,), f"app.{name}")
+    for name in ("now", "n_windows"):
+        _check(getattr(state, name), I64, (), name)
+    lib = _build.load("window")
+    grid = _window_grid(lib, h)
+    dev = pool.blk.device
+    e = engine._n_lanes(app)
+    bw_up, bw_dn = engine._window_ctx(state, params)
+    scratch = torch.empty((3 * h + 1,), dtype=I32, device=dev)
+    lst = torch.empty((p0,), dtype=I32, device=dev)
+    t_h = torch.empty((h,), dtype=I64, device=dev)
+    part_min = torch.empty((2 * grid,), dtype=I64, device=dev)
+    part_ev = torch.empty((2 * grid,), dtype=I64, device=dev)
+    part_err = torch.empty((2 * grid,), dtype=I32, device=dev)
+    win = torch.empty((5,), dtype=I64, device=dev)
+    em_valid = torch.empty((h * e,), dtype=torch.bool, device=dev)
+    em_blk = torch.empty((h * e * pc,), dtype=I32, device=dev)
+    x = _ExchangeArgs(
+        pool_blk=_addr(pool.blk), pool_stage=_addr(pool.stage),
+        pool_time=_addr(pool.time), pool_status=_addr(pool.status),
+        ib_blk=_addr(ib.blk), ib_stage=_addr(ib.stage),
+        ib_status=_addr(ib.status), cnt=_addr(scratch),
+        fill=_addr(scratch) + 4 * h, start=_addr(scratch) + 8 * h,
+        lst=_addr(lst), p0=p0, pc=pc, ic=ic, ki=p1 // h, h=h,
+        pds_trail=int(bool(params.pds_trail)))
+    k0, k1 = params.purpose_words[rng.PURPOSE_HOST_APP]
+    p = _PholdArgs(
+        next_send=_addr(a_st.next_send), pending=_addr(a_st.pending),
+        sent=_addr(a_st.sent), recv=_addr(a_st.recv),
+        rng_ctr=_addr(hosts.rng_ctr), mean_delay_ns=app.mean_delay_ns,
+        k0=k0, k1=k1, sock_slot=app.sock_slot,
+        rx_batch=max(1, int(app.rx_batch)),
+        lanes=max(1, int(app.app_tx_lanes)),
+        n_hosts=params.global_hosts())
+    args = _WindowArgs(
+        x=x, d=_deliver_struct(state, params, app, bw_dn),
+        t=_transport_struct(state, params, em_valid, em_blk, e, bw_up),
+        p=p, t_h=_addr(t_h), part_min=_addr(part_min),
+        part_ev=_addr(part_ev), part_err=_addr(part_err),
+        now=_addr(state.now), n_windows=_addr(state.n_windows),
+        win=_addr(win), em_valid=_addr(em_valid), em_blk=_addr(em_blk),
+        t_target=int(t_target), min_latency=params.min_latency_ns,
+        max_steps=MAX_STEPS, n_blocks=grid)
+    _raise_on(lib.window_launch(ctypes.byref(args), _stream()), "window")
+    LAUNCHES["window"] += 1
+    return state, t_h, win
+
+
+def window_call(state, params, app, t_target):
+    """One window: K_WINDOW on a CUDA tensor, the plain version on the
+    CPU.  Returns (state, t_h, win); the caller reads `win` once and
+    passes its status to `check_window_status`."""
+    if _on_cuda(state.pool.stage):
+        return window_kernel(state, params, app, t_target)
+    return window_plain(state, params, app, t_target)
+
+
+def check_window_status(status: int) -> None:
+    if int(status) != 0:
+        raise RuntimeError(
+            f"K_WINDOW stopped at its cap of {MAX_STEPS} micro-steps in one "
+            f"window (status {int(status)}): the loop predicate never "
+            f"turned false")
+
+
+def window_fused(state, params, app, t_target):
+    """One whole window (the JAX window_fused): returns (state, t_h,
+    gmin, ws, we), the scalars as 0-d tensors."""
+    state, t_h, win = window_call(state, params, app, t_target)
+    check_window_status(win[4])
+    return state, t_h, win[0], win[1], win[2]
+
+
+def log1p_probe(x):
+    """The device f64 log1p of K_WINDOW's phold tick (csrc/phold_tick.cuh
+    log1p_xla) on a CUDA f64 vector."""
+    from . import _build
+    _check(x, torch.float64, (x.numel(),), "x")
+    y = torch.empty_like(x)
+    lib = _build.load("window")
+    _raise_on(lib.log1p_probe_launch(_addr(x), _addr(y), x.numel(),
+                                     _stream()), "log1p probe")
+    return y

@@ -1,5 +1,5 @@
 """Float functions bit-identical to the JAX package on XLA CPU, as plain
-tensor ops: phold's f64 log1p and CoDel's f32 rsqrt.
+tensor ops: phold's f64 log1p, CoDel's f32 rsqrt and CUBIC's f32 cbrt.
 
 phold draws its exponential delay as `-log1p(-u) * mean` in f64 and
 truncates to int64 ns (apps/phold.py), so the port must reproduce the
@@ -30,6 +30,14 @@ midpoint x_mid of those bits' interval in [1, 4), which `_rsqrt_table`
 computes.  `rsqrt` below is that estimate plus the two Newton steps,
 each FMA emulated exactly in f64 (an f32 product is exact there; the sum
 is rounded to odd, then once to f32).
+
+XLA CPU's f32 `cbrt(x)` is `copysign(powf(|x|, f32(1/3)), x)`, and
+`powf` is the C library's: on glibc with FMA, the algorithm of glibc's
+`e_powf.c` -- log2 from a 16-entry table and a degree-5 polynomial,
+exp2 from a 32-entry table and a degree-3 polynomial, both in f64 with
+FMA contraction, one rounding to f32 at the end.  `cbrt` below is that
+sequence with glibc's own tables (`_POWF_*`); torch's `pow(x, 1/3)` is
+not (it differs on about 2 % of inputs).
 
 Torch has no fused multiply-add and the card's `log` is not glibc's, so
 both are rebuilt from exactly rounded IEEE add/sub/mul/div (which every
@@ -266,6 +274,114 @@ def log(x):
     r3 = r * r2
     p = fma(q2, r2, q1)
     return fma(r3, p, t) + hi
+
+
+# glibc e_powf_log2_data.c / e_exp2f_data.c (__powf_log2_data,
+# __exp2f_data with EXP2F_TABLE_BITS = 5): log2 poly A[0..4], per
+# subinterval (invc, logc), exp2 poly C[0..2], and the exp2 table
+# (asuint64(2^(i/32)) - (i << 52) / 32).
+_POWF_OFF = 0x3F330000
+_POWF_A = tuple(_H(a) for a in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0"))
+_POWF_TAB = (
+    ("0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2"),
+    ("0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2"),
+    ("0x1.49539f0f010b0p+0", "-0x1.7418b0a1fb77bp-2"),
+    ("0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2"),
+    ("0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2"),
+    ("0x1.25e227b0b8ea0p+0", "-0x1.97c1d1b3b7af0p-3"),
+    ("0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3"),
+    ("0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4"),
+    ("0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5"),
+    ("0x1.0000000000000p+0", "0x0.0p+0"),
+    ("0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4"),
+    ("0x1.ca4b31f026aa0p-1", "0x1.476a9543891bap-3"),
+    ("0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3"),
+    ("0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2"),
+    ("0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2"),
+    ("0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2"))
+_EXP2F_SHIFT = _H("0x1.8p+47")
+_EXP2F_C = tuple(_H(c) for c in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+_EXP2F_TAB = (
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f,
+    0x3fef9301d0125b51, 0x3fef72b83c7d517b, 0x3fef54873168b9aa,
+    0x3fef387a6e756238, 0x3fef1e9df51fdee1, 0x3fef06fe0a31b715,
+    0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429,
+    0x3feea47eb03a5585, 0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74,
+    0x3feea11473eb0187, 0x3feea589994cce13, 0x3feeace5422aa0db,
+    0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c,
+    0x3fef3720dcef9069, 0x3fef5818dcfba487, 0x3fef7c97337b9b5f,
+    0x3fefa4afa2a490da, 0x3fefd0765b6e4540)
+_THIRD_F32 = 0.3333333432674408     # f32(1/3) = 0x3EAAAAAB
+
+
+def _powf_tables(device):
+    key = ("powf", str(device))
+    if key not in _TABLES:
+        _TABLES[key] = (
+            torch.tensor([_H(r[0]) for r in _POWF_TAB], dtype=F64,
+                         device=device),
+            torch.tensor([_H(r[1]) for r in _POWF_TAB], dtype=F64,
+                         device=device),
+            torch.tensor(_EXP2F_TAB, dtype=torch.int64, device=device))
+    return _TABLES[key]
+
+
+def cbrt(x):
+    """XLA CPU's f32 cbrt: copysign(powf(|x|, f32(1/3)), x) with glibc's
+    FMA powf (the `e_powf.c` main path; the exponent is fixed, so the
+    overflow and negative-base branches never apply)."""
+    m32 = 0xFFFFFFFF
+    invc_t, logc_t, exp2_t = _powf_tables(x.device)
+    ax = x.abs()
+    ix = ax.contiguous().view(torch.int32).to(torch.int64)
+    # Subnormal |x|: glibc scales it by 2^23 and takes the exponent back
+    # out, but XLA CPU runs with denormals-are-zero, so the product is 0
+    # and the bits become 0 - (23 << 23).
+    sub = (ix > 0) & (ix < 0x00800000)
+    ix = torch.where(sub, -(23 << 23), ix)
+    # log2_inline: |x| = 2^k z, z in [OFF, 2 OFF), table i near z.
+    tmp = (ix - _POWF_OFF) & m32
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    iz = (ix - top) & m32
+    k = torch.where(top >= 1 << 31, top - (1 << 32), top) >> 23
+    z = iz.to(torch.int32).view(torch.float32).to(F64)
+    a0, a1, a2, a3, a4 = _POWF_A
+    r = fma(z, invc_t[i], -1.0)
+    y0 = k.to(F64) + logc_t[i]
+    y = fma(r, a0, a1)
+    p = fma(r, a2, a3)
+    r2 = r * r
+    q = fma(r, a4, y0)
+    r4 = r2 * r2
+    q = fma(r2, p, q)
+    logx = fma(y, r4, q)
+    ylogx = logx * _THIRD_F32
+    # exp2_inline: 2^ylogx = 2^(ki/32) * 2^r.
+    kd = ylogx + _EXP2F_SHIFT
+    ki = kd.view(torch.int64)
+    kd = kd - _EXP2F_SHIFT
+    r = ylogx - kd
+    # t = tab[ki % 32] + (ki << 47) mod 2^64, in 32-bit halves (the
+    # result is a positive double, so the high half stays below 2^31).
+    t = exp2_t[ki & 31]
+    t_hi = ((t >> 32) + ((ki & 0x1FFFF) << 15)) & m32
+    s = ((t_hi << 32) | (t & m32)).view(F64)
+    c0, c1, c2 = _EXP2F_C
+    zz = fma(r, c0, c1)
+    r2 = r * r
+    yy = fma(r, c2, 1.0)
+    yy = fma(zz, r2, yy)
+    out = (yy * s).to(torch.float32)
+    # powf(0) = 0, powf(inf) = inf, powf(nan) = nan (x * x in glibc).
+    special = (ix == 0) | ~torch.isfinite(ax)
+    out = torch.where(special, ax * ax, out)
+    return torch.copysign(out, x)
 
 
 def log1p(x):

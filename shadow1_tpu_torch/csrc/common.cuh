@@ -18,6 +18,8 @@ constexpr int UDP_RING = 8;
 constexpr int TCP_HEADER_SIZE = 40;
 constexpr int UDP_HEADER_SIZE = 28;
 
+constexpr int ERR_POOL_OVERFLOW = 1 << 0;
+
 constexpr int PDS_SND_CREATED = 1 << 0;
 constexpr int PDS_SND_INTERFACE_SENT = 1 << 2;
 constexpr int PDS_INET_SENT = 1 << 3;

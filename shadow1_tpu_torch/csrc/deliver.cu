@@ -8,7 +8,8 @@
 // order through the NIC rx token bucket and CoDel, into the UDP socket
 // ring.
 //
-// Design: one thread per host.  Every phase is row-local by the
+// Design: one thread per host (the body is deliver_host, deliver.cuh,
+// which K_WINDOW shares).  Every phase is row-local by the
 // megakernel's blocking contract (megakernel.py:30-37): a host touches
 // only its own inbox slab, host row and socket rows, so threads never
 // share a written word and need no synchronisation.  The inbox slab is
@@ -25,269 +26,20 @@
 // deliver_bytes counts it), a fraction of a microsecond of HBM time.
 // The strided per-host slab reads are uncoalesced (448 B apart); at this
 // size the launch itself dominates.
-#include "common.cuh"
+#include "deliver.cuh"
 
 using namespace s1;
 
-// Launch arguments; mirrored field for field by the ctypes.Structure
-// in shadow1_tpu_torch/core/megakernel.py.
-struct DeliverArgs {
-  const int32_t* ib_blk;
-  int32_t* ib_stage;
-  int32_t* ib_status;
-  int64_t* tokens_rx;
-  int64_t* last_refill_rx;
-  int32_t* rx_queued;
-  int32_t* codel_count;
-  uint8_t* codel_dropping;
-  int64_t* codel_first_above;
-  int64_t* codel_drop_next;
-  int64_t* pkts_dropped_router;
-  int64_t* pkts_recv;
-  int64_t* bytes_recv;
-  int64_t* t_resume;
-  const int32_t* stype;
-  const int32_t* local_port;
-  const int32_t* peer_host;
-  const int32_t* peer_port;
-  int32_t* udp_head;
-  int32_t* udp_count;
-  int32_t* udp_src;
-  int32_t* udp_sport;
-  int32_t* udp_len;
-  int32_t* udp_payload;
-  int64_t* sock_bytes_recv;
-  const int64_t* tick_t;
-  const uint8_t* active;
-  const int64_t* bw_dn;
-  const int64_t* aux0;          // null when rx_batch == 1
-  int32_t* delivered_n;
-  int64_t* t_post;
-  const float* rsqrt_tab;       // xlamath.rsqrt_table: 2048 estimates
-  int64_t bootstrap_end;
-  int64_t window_end;
-  int32_t h, ki, ic, slots, rx_batch, pds_trail;
-};
-
 namespace {
-
-// XLA CPU's f32 rsqrt (core/xlamath.py rsqrt): Intel's rsqrtss estimate
-// (table of 12-bit mantissas indexed by exponent parity and the top 10
-// mantissa bits), then two Newton steps with fused multiply-adds.  The
-// estimate is the CPU's own; the JAX results the port is held to come
-// from an Intel host.
-__device__ __forceinline__ float rsqrt_xla(float x, const float* tab) {
-  const int32_t b = __float_as_int(x);
-  const int32_t e = ((b >> 23) & 0xFF) - 127;
-  const int idx = ((e & 1) << 10) | ((b >> 13) & 0x3FF);
-  float y = __int_as_float((__float_as_int(tab[idx]) & 0x7FFFFF) |
-                           ((126 - (e >> 1)) << 23));
-  for (int i = 0; i < 2; ++i) {
-    const float t = __fmaf_rn(y, __fmul_rn(x, y), -1.0f);
-    y = __fmaf_rn(__fmul_rn(y, -0.5f), t, y);
-  }
-  return y;
-}
-
-// CoDel drop-next spacing: interval / sqrt(count) as the JAX package
-// computes it after XLA's rewrite, int64(f32(interval) * rsqrt(count)).
-__device__ __forceinline__ int64_t codel_spacing(int32_t cnt,
-                                                 const float* tab) {
-  const float c = (float)(cnt > 1 ? cnt : 1);
-  return (int64_t)__fmul_rn(rsqrt_xla(c, tab), (float)CODEL_INTERVAL_NS);
-}
-
-struct Codel {
-  int32_t count;
-  bool dropping;
-  int64_t first_above, drop_next;
-
-  // nic.codel_dequeue for one host; returns drop.
-  __device__ bool dequeue(bool mask, int64_t now, int64_t sojourn,
-                          int32_t backlog_after, const float* tab) {
-    bool below = (sojourn < CODEL_TARGET_NS) || (backlog_after <= 0);
-    int64_t fa_new = below ? 0
-                           : (first_above == 0 ? now + CODEL_INTERVAL_NS
-                                               : first_above);
-    bool ok = mask && !below && fa_new != 0 && now >= fa_new;
-    bool drop_in = dropping && ok && now >= drop_next;
-    int32_t count_in = count + (drop_in ? 1 : 0);
-    int64_t next_in = drop_in ? drop_next + codel_spacing(count_in, tab)
-                              : drop_next;
-    bool recent = (now - drop_next) < 16 * CODEL_INTERVAL_NS;
-    bool enter = mask && !dropping && ok;
-    int32_t count_enter = (recent && count > 2) ? count - 2 : 1;
-    bool drop = drop_in || enter;
-    bool new_dropping = mask ? ((dropping && ok) || enter) : dropping;
-    int32_t new_count = enter ? count_enter
-                              : ((mask && dropping) ? count_in : count);
-    int64_t new_next =
-        enter ? now + codel_spacing(count_enter, tab)
-              : ((mask && dropping) ? next_in : drop_next);
-    if (mask) first_above = fa_new;
-    dropping = new_dropping;
-    count = new_count;
-    drop_next = new_next;
-    return drop;
-  }
-};
 
 __global__ void k_deliver(DeliverArgs a) {
   const int hh = blockIdx.x * blockDim.x + threadIdx.x;
   if (hh >= a.h) return;
-  const int ki = a.ki, ic = a.ic, S = a.slots;
-  const int64_t base = (int64_t)hh * ki;
-  const int64_t tick = a.tick_t[hh];
-  const bool act = a.active[hh] != 0;
-
-  // Router enqueue: due wire arrivals join the router queue.
-  int32_t rxq = a.rx_queued[hh];
-  for (int k = 0; k < ki; ++k) {
-    const int64_t slot = base + k;
-    const int32_t* row = a.ib_blk + slot * ic;
-    if (act && a.ib_stage[slot] == STAGE_IN_FLIGHT &&
-        dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]) <= tick) {
-      a.ib_stage[slot] = STAGE_RX_QUEUED;
-      if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
-      ++rxq;
-    }
-  }
-
-  const bool boot = tick < a.bootstrap_end;
-  const int64_t rate = a.bw_dn[hh];
-  int64_t tokens = a.tokens_rx[hh], last = a.last_refill_rx[hh];
-  refill(tokens, last, rate, tick, act);
-  int64_t bound = tick;
-  if (a.rx_batch > 1) {
-    bound = imin(a.aux0[hh], tick + ONE_MS);
-    bound = imin(bound, a.window_end - 1);
-  }
-  Codel cd{a.codel_count[hh], a.codel_dropping[hh] != 0,
-           a.codel_first_above[hh], a.codel_drop_next[hh]};
-  int64_t t_resume = a.t_resume[hh];
-  int64_t dropped_router = a.pkts_dropped_router[hh];
-  int64_t pkts_recv = a.pkts_recv[hh], bytes_recv = a.bytes_recv[hh];
-  int32_t delivered = 0;
-  int64_t t_post = tick;
-
-  for (int r = 0; r < a.rx_batch; ++r) {
-    const int64_t limit = r == 0 ? tick : bound;
-    // Earliest candidate by (time, pkt_id), lowest slot on a full tie.
-    int64_t tmin = INV, kmin = INV;
-    int col = ki;
-    for (int k = 0; k < ki; ++k) {
-      const int64_t slot = base + k;
-      const int32_t st = a.ib_stage[slot];
-      const int32_t* row = a.ib_blk + slot * ic;
-      const int64_t t = dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]);
-      const bool cand = act && (st == STAGE_RX_QUEUED ||
-                                (r > 0 && st == STAGE_IN_FLIGHT &&
-                                 t <= limit));
-      if (!cand) continue;
-      const int64_t key = ((int64_t)row[ICOL_SRC] << 40) |
-                          dec_i64(row[ICOL_CTR_LO], row[ICOL_CTR_HI]);
-      if (t < tmin || (t == tmin && key < kmin)) {
-        tmin = t;
-        kmin = key;
-        col = k;
-      }
-    }
-    const bool have = act && col < ki && tmin <= limit;
-    if (col > ki - 1) col = ki - 1;
-    const int64_t slot = base + col;
-    const bool was_queued = have && a.ib_stage[slot] == STAGE_RX_QUEUED;
-    const int64_t t_eff = imax(tick, have ? tmin : 0);
-    const int32_t* row = a.ib_blk + slot * ic;
-    const int32_t p_src = row[ICOL_SRC], p_proto = row[ICOL_PROTO];
-    const int32_t p_len = row[ICOL_LEN];
-    const int64_t p_time = have ? tmin : 0;
-
-    if (r > 0) refill(tokens, last, rate, t_eff, have);
-    const int64_t size = wire_size(p_proto, p_len);
-    const bool loop = p_src == hh;
-    const bool free_pass = loop || boot;
-    const bool funded = have && (free_pass || tokens >= size);
-    const int64_t sojourn = imax(t_eff - p_time, 0);
-    const int32_t backlog_after = rxq - (was_queued ? 1 : 0);
-    const bool drop = cd.dequeue(funded && !loop, t_eff, sojourn,
-                                 backlog_after, a.rsqrt_tab);
-    const bool deliver = funded && !drop;
-    if (funded && !free_pass) tokens -= size;
-    if (funded) {
-      a.ib_stage[slot] = STAGE_FREE;
-      if (a.pds_trail) {
-        a.ib_status[slot] |= drop ? (PDS_ROUTER_ENQUEUED | PDS_ROUTER_DROPPED)
-                                  : (PDS_ROUTER_ENQUEUED |
-                                     PDS_RCV_SOCKET_PROCESSED);
-      }
-    }
-    if (funded && was_queued) --rxq;
-    if (drop) ++dropped_router;
-    if (r == a.rx_batch - 1) {
-      const int64_t t_res =
-          (have && !funded) ? tick + time_until(size - tokens, rate)
-                            : ((funded && rxq > 0) ? tick : INV);
-      t_resume = imin(t_resume, t_res);
-    }
-
-    if (deliver && p_proto == PROTO_UDP) {
-      // udp.lookup_socket: connected beats wildcard, lowest slot on ties.
-      const int32_t p_sport = row[ICOL_SPORT], p_dport = row[ICOL_DPORT];
-      int best = 0, sl = 0;
-      for (int s = 0; s < S; ++s) {
-        const int64_t i = (int64_t)hh * S + s;
-        const bool port_ok = a.stype[i] == SOCK_UDP &&
-                             a.local_port[i] == p_dport;
-        const int score =
-            !port_ok ? 0
-            : (a.peer_host[i] == p_src && a.peer_port[i] == p_sport) ? 2
-            : (a.peer_host[i] == -1 ? 1 : 0);
-        if (score > best) {
-          best = score;
-          sl = s;
-        }
-      }
-      if (best > 0) {
-        // udp.push_ring: append unless the ring is full.
-        const int64_t i = (int64_t)hh * S + sl;
-        const int32_t cnt = a.udp_count[i];
-        if (cnt < UDP_RING) {
-          const int32_t pos = (a.udp_head[i] + cnt) % UDP_RING;
-          const int64_t j = i * UDP_RING + pos;
-          a.udp_src[j] = p_src;
-          a.udp_sport[j] = p_sport;
-          a.udp_len[j] = p_len;
-          a.udp_payload[j] = row[ICOL_PAYLOAD];
-          a.udp_count[i] = cnt + 1;
-          a.sock_bytes_recv[i] += p_len;
-        }
-      }
-    }
-    if (deliver) {
-      ++pkts_recv;
-      bytes_recv += p_len;
-      ++delivered;
-    }
-    if (r == 0) {
-      t_post = deliver ? t_eff : tick;
-    } else if (deliver) {
-      t_post = imax(t_post, t_eff);
-    }
-  }
-
-  a.rx_queued[hh] = rxq;
-  a.tokens_rx[hh] = tokens;
-  a.last_refill_rx[hh] = last;
-  a.codel_count[hh] = cd.count;
-  a.codel_dropping[hh] = cd.dropping ? 1 : 0;
-  a.codel_first_above[hh] = cd.first_above;
-  a.codel_drop_next[hh] = cd.drop_next;
-  a.t_resume[hh] = t_resume;
-  a.pkts_dropped_router[hh] = dropped_router;
-  a.pkts_recv[hh] = pkts_recv;
-  a.bytes_recv[hh] = bytes_recv;
-  a.delivered_n[hh] = delivered;
-  a.t_post[hh] = t_post;
+  const DeliverOut o = deliver_host(a, hh, a.tick_t[hh], a.active[hh] != 0,
+                                    a.rx_batch > 1 ? a.aux0[hh] : INV,
+                                    a.window_end);
+  a.delivered_n[hh] = o.delivered;
+  a.t_post[hh] = o.t_post;
 }
 
 }  // namespace

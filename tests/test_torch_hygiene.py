@@ -6,12 +6,15 @@ every module of shadow1_tpu_torch, walked from the filesystem so a
 subpackage that fails to import cannot be skipped silently, and asserts
 that neither `jax` nor `shadow1_tpu` reached sys.modules.  A text scan of
 the package and chip_smoke.py catches imports on code paths an import
-does not execute."""
+does not execute.  Entry points default to the CUDA card and never fall
+back to the CPU."""
 
 import os
 import re
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "shadow1_tpu_torch")
@@ -69,3 +72,32 @@ def test_sources_name_no_jax():
                     hits.append(f"{os.path.relpath(path, REPO)}:{n}: "
                                 f"{line.strip()}")
     assert not hits, "JAX-package references:\n" + "\n".join(hits)
+
+
+def _entry_points():
+    from shadow1_tpu_torch import convert, sim
+    from shadow1_tpu_torch.core import params, state
+    return {
+        "sim.build_phold": lambda: sim.build_phold(num_hosts=4),
+        "convert.state_from_jax": lambda: convert.state_from_jax({}),
+        "convert.params_from_jax": lambda: convert.params_from_jax({}, {}),
+        "params.make_net_params": lambda: params.make_net_params(
+            [[1]], [[1.0]], [0, 0], [1, 1], [1, 1]),
+        "state.make_sim_state": lambda: state.make_sim_state(4),
+    }
+
+
+@pytest.mark.parametrize("name", ["sim.build_phold",
+                                  "convert.state_from_jax",
+                                  "convert.params_from_jax",
+                                  "params.make_net_params",
+                                  "state.make_sim_state"])
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """Every entry point that places tensors takes device=None as the
+    CUDA card and raises when there is none; nothing falls back to the
+    CPU on its own.  (engine.run_until / run_chunked and the kernel
+    wrappers follow the device of the state they are given.)"""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()

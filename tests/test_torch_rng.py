@@ -11,7 +11,10 @@
 * XLA CPU's f32 rsqrt (the rsqrtss estimate + two Newton steps) on
   random positive floats, and CoDel's drop spacing on every count in
   [1, 2^20].  The estimate is the host CPU's own; the port reproduces
-  Intel's, so this check runs on Intel hosts only.
+  Intel's, so this check runs on Intel hosts only;
+* XLA CPU's f32 cbrt (glibc's FMA powf with exponent f32(1/3)), on the
+  5,242,880 samples where torch's pow(x, 1/3) differs from it 107,584
+  times, and (slow) on every finite non-negative f32 up to 2^21.
 """
 
 import jax
@@ -123,3 +126,39 @@ def test_rsqrt_and_codel_spacing_equal_jax():
     jr = np.asarray(jax.jit(jax.lax.rsqrt)(jnp.asarray(x)))
     tr = xlamath.rsqrt(torch.from_numpy(x.copy())).numpy()
     np.testing.assert_array_equal(tr.view(np.uint32), jr.view(np.uint32))
+
+
+def _cbrt_mismatches(x: np.ndarray) -> int:
+    ref = np.asarray(jax.jit(jnp.cbrt)(jnp.asarray(x)))
+    out = xlamath.cbrt(torch.from_numpy(x)).numpy()
+    assert out.dtype == np.float32
+    return int((out.view(np.uint32) != ref.view(np.uint32)).sum())
+
+
+def test_cbrt_f32_equals_jax():
+    """2^20 grid points at step 0.25 plus 2^22 uniform draws in [0, 1e7):
+    torch.pow(x, 1/3) differs from jnp.cbrt on 107,584 of them, the port's
+    cbrt on none; plus signed zeros, infinities, NaN, subnormals (XLA CPU
+    treats them as zero) and negative inputs."""
+    grid = np.arange(1 << 20, dtype=np.float32) * np.float32(0.25)
+    uni = np.random.default_rng(0).uniform(0, 1e7, 1 << 22)
+    x = np.concatenate([grid, uni.astype(np.float32)])
+    assert x.size == 5_242_880
+    assert _cbrt_mismatches(x) == 0
+    odd = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, 1e-40,
+                    1.17e-38, -8.0, -1e-3, 3.4e38, 1.0, 27.0], np.float32)
+    assert _cbrt_mismatches(np.concatenate([odd, -x[:4096]])) == 0
+
+
+@pytest.mark.slow
+def test_cbrt_f32_every_input_cubic_takes():
+    """Every finite non-negative f32 up to 2^21 (bit patterns 0 ..
+    0x4A000000).  CUBIC's K is cbrt(wmax_seg * 0.3 / 0.4) with wmax_seg
+    an int32 cwnd over the 1460-byte MSS (transport/cong.py:86), so its
+    argument stays below 1.1e6."""
+    top = 0x4A000000
+    step = 1 << 23
+    for lo in range(0, top + 1, step):
+        bits = np.arange(lo, min(lo + step, top + 1), dtype=np.uint32)
+        n = _cbrt_mismatches(bits.view(np.float32))
+        assert n == 0, f"cbrt differs on {n} inputs in [{lo:#x}, +{step:#x})"
