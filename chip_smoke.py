@@ -36,9 +36,23 @@ Phases, each reported on its own line:
    just before and read just after; its final state must equal the
    persistent path's.  Then one window runs under torch.profiler: each
    micro-step phase's host and device time and the device's busy share.
-6. kernels line -- one JSON object with each kernel's numbers (ms is
+6. TCP kernels -- the bulk world (BULK: 1 server, 99 clients, full
+   width) on the card through its warm-up and into the transfer: the TCP
+   branches of the exchange (at a window boundary, and on crafted
+   slab-overflow inputs that shed pure ACKs), K_DELIVER and K_TRANSPORT
+   (at the arrival-heaviest of a window's micro-steps) against their
+   plain versions, torch.equal on every output leaf, timed and bounded as
+   in phase 3.  Then a lossy 16-host bulk world to 3 s through the
+   per-phase kernels and through the plain versions, leaf for leaf, with
+   retransmissions reached.
+7. TCP main path -- BULK with persistent=False (Bulk has no device tick)
+   through run_until / run_chunked from 0 to BULK_RUN_NS, counters zeroed
+   just before and read just after; the trajectory must equal the JAX
+   package's and the launches its windows and micro-steps.  Then one
+   window under torch.profiler, as in phase 5.
+8. kernels line -- one JSON object with each kernel's numbers (ms is
    the device time, call_ms the call time); each kernel's launches come
-   from the run of its own path.
+   from the run of its own path; the TCP branches are rows of their own.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -47,6 +61,7 @@ The last two lines are the card's name and power limit, then
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -86,6 +101,37 @@ JAX_FINAL = dict(n_steps=1216, n_windows=200, n_events=7729852,
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM non-tensor f32/int32 lane rate
 
+# The bulk TCP world (sim.build_bulk): the fan-in shape of Shadow's
+# examples/tgen-100host, 1 server and 99 clients of 1 MiB each, sized by
+# shadow1_tpu/config/assemble.py's rule (sock_slots = min(512, 2 * fan_in
+# + 4), slab = min(4096, 32 * (1 + fan_in))).  Its depth is cut to
+# BULK_RUN_NS, since the JAX reference on a CPU takes well over ten
+# minutes to reach 2 s; 0.5 s holds the slab overflow (err bit 0), the
+# go-back-N retransmissions and the first 15 completions.
+BULK = dict(num_hosts=100, server=0, bytes_per_client=1 << 20,
+            latency_ns=10 * MS, reliability=1.0, sock_slots=204,
+            pool_capacity=100 * 3200, seed=1, stop_time=60 * SEC)
+BULK_RUN_NS = 500 * MS
+# Where the TCP kernels are checked: a window boundary mid-transfer.
+TCP_PROBE_NS = 60 * MS
+
+# A lossy bulk world for the kernels-vs-plain whole-run check.
+LOSSY = dict(num_hosts=16, bytes_per_client=200_000, reliability=0.97,
+             seed=11, stop_time=4 * SEC)
+LOSSY_NS = 3 * SEC
+
+# The JAX package's trajectory of BULK and its schedule (warm-up to 10 ms
+# with run_until, then run_chunked to BULK_RUN_NS; reference graph),
+# measured on the CPU with:
+#   env JAX_PLATFORMS=cpu python -m pytest tests/test_torch_tcp.py \
+#       -m slow -k bulk_bench_trajectory
+# which asserts these numbers.
+JAX_BULK_WARM = dict(n_steps=2, n_windows=1, n_events=99, bytes_recv=0,
+                     done=0, finish_sum=0, err=0)
+JAX_BULK_FINAL = dict(n_steps=21340, n_windows=47, n_events=106189,
+                      bytes_recv=48340660, done=15, finish_sum=2578965422,
+                      err=1)
+
 REPLACES = {
     "exchange": "shadow1_tpu/core/megakernel.py:231",
     "deliver": "shadow1_tpu/core/megakernel.py:516",
@@ -93,6 +139,8 @@ REPLACES = {
     "window": "shadow1_tpu/core/megakernel.py:391",
 }
 PER_PHASE = ("exchange", "deliver", "transport")
+TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
+            "transport_tcp": "transport"}
 
 
 def _fail(msg: str) -> None:
@@ -104,6 +152,29 @@ def summary(state) -> dict:
                 n_events=int(state.n_events),
                 sent=int(state.app.sent.sum()), recv=int(state.app.recv.sum()),
                 err=int(state.err))
+
+
+def tcp_summary(state) -> dict:
+    """The bulk world's trajectory: steps, windows, events, bytes
+    received, completed clients and the sum of their finish times, err."""
+    import numpy as np
+
+    def host(x):
+        return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+    done = host(state.app.phase) == 2
+    fin = host(state.app.finish_t)
+    return dict(n_steps=int(state.n_steps), n_windows=int(state.n_windows),
+                n_events=int(state.n_events),
+                bytes_recv=int(state.socks.bytes_recv.sum()),
+                done=int(done.sum()), finish_sum=int(fin[done].sum()),
+                err=int(state.err))
+
+
+def kernel_name(mangled: str) -> str:
+    """The k_* kernel name inside a mangled symbol (else the symbol)."""
+    m = re.search(r"k_\w*?(?=E|$)", mangled)
+    return m.group(0) if m else mangled
 
 
 def leaves(obj, prefix=""):
@@ -151,12 +222,22 @@ def changed_bytes(before, after, skip=()) -> int:
     return n
 
 
-def deliver_bytes(st, out, delivered_n, active, app) -> int:
+def sock_row_bytes(socks) -> int:
+    """Bytes of one socket's TCP fields (the registers a gather reads)."""
+    from shadow1_tpu_torch.transport.tcp import _Sock
+    return sum(getattr(socks, f)[0, 0].numel()
+               * getattr(socks, f).element_size()
+               for f in _Sock.FIELDS + _Sock.RANGE_FIELDS)
+
+
+def deliver_bytes(st, out, delivered_n, active, app, em=None) -> int:
     """Bytes K_DELIVER must move on this input: the slab stages of the
     active hosts, the times of their live slots, the rows it consumes,
     the socket rows of the hosts that receive, and the active hosts' rx
     state; then the changed elements, the ring entries it pushes and the
-    two [H] outputs."""
+    two [H] outputs.  In TCP worlds (`em` given) each delivery also reads
+    the five match columns of its host's sockets and the matched socket,
+    and each reply writes its emission row."""
     from shadow1_tpu_torch.core.state import STAGE_FREE
     h = st.hosts.num_hosts
     ki = st.inbox.capacity // h
@@ -186,16 +267,22 @@ def deliver_bytes(st, out, delivered_n, active, app) -> int:
                                             ".socks.udp_len",
                                             ".socks.udp_payload"))
                + n_push * 4 * 4 + h * (4 + 8))
+    if em is not None:
+        read += n_recv * (s * 5 * 4 + sock_row_bytes(st.socks))
+        written += int(em.valid.sum()) * em.blk.shape[-1] * 4 \
+            + em.valid.numel()
     return read + written
 
 
-def transport_bytes(s2, out, em, active, params) -> int:
+def transport_bytes(s2, out, em, active, params, tcp=False) -> int:
     """Bytes K_TRANSPORT must move on this input: the emission valid
     flags, the valid rows' dst (and the placed rows' other columns), the
     route_blk entries they gather, the active hosts' outbox stages, their
     parked rows and tx state, and every host's inbox slab for the scan;
     then the placed and drained pool rows, the changed host elements and
-    th."""
+    th.  In TCP worlds transmit also reads the nine eligibility columns of
+    each active host's sockets and the sending socket, and the scan every
+    socket's four timers."""
     import torch
     from shadow1_tpu_torch.core.state import (OEXT_COLS, STAGE_FREE,
                                               STAGE_IN_FLIGHT,
@@ -236,6 +323,15 @@ def transport_bytes(s2, out, em, active, params) -> int:
     written = (changed_bytes(s2, out, skip=(".pool.",))
                + n_placed * (pc * 4 + 4 + 8) + n_drained * (4 + 8)
                + h * 8)
+    if tcp:
+        socks = s2.socks
+        s = socks.slots
+        elig = 4 + 8 * 3 + 4 + 4 + 8 * 2 + 1
+        senders = int(((out.socks.snd_nxt != socks.snd_nxt)
+                       | (out.socks.retrans_nxt != socks.retrans_nxt))
+                      .any(dim=1).sum())
+        read += n_act * s * elig + h * s * 4 * 8 \
+            + senders * sock_row_bytes(socks)
     return read + written
 
 
@@ -260,24 +356,31 @@ def exchange_bound(state) -> tuple[int, int]:
             state.pool.stage.numel() * 2 + n_mov * (ic + 12) + h * ki * 2)
 
 
-def deliver_ops(st, delivered_n, active, app) -> int:
+def deliver_ops(st, delivered_n, active, app, tcp=False) -> int:
     """Operations of K_DELIVER: per active host the slab scans of the
     enqueue and of each delivery round plus the NIC/CoDel arithmetic; per
-    delivery the socket lookup."""
+    delivery the socket lookup (and in TCP worlds ~600 operations of the
+    TCP machine, ~400 more when a scoreboard insert sorts 11 entries)."""
     ki = st.inbox.capacity // st.hosts.num_hosts
+    per_rx = st.socks.slots * 8 + (1000 if tcp else 0)
     return (int(active.sum()) * (ki * 6 + app.rx_batch * ki * 12 + 60)
-            + int(delivered_n.sum()) * st.socks.slots * 8)
+            + int(delivered_n.sum()) * per_rx)
 
 
-def transport_ops(s2, em, active) -> int:
+def transport_ops(s2, em, active, tcp=False) -> int:
     """Operations of K_TRANSPORT: per valid emission the staging
     arithmetic, per active host its outbox slab scans, per host the
-    post-step scan."""
+    post-step scan; in TCP worlds per active host two eligibility scans
+    of its sockets (~30 operations a socket) and per host the timer scan."""
     h = s2.hosts.num_hosts
     ki = s2.inbox.capacity // h
-    return (int(em.valid.sum()) * 60
-            + int(active.sum()) * (s2.pool.capacity // h) * 8
-            + h * (ki * 6 + 40))
+    ops = (int(em.valid.sum()) * 60
+           + int(active.sum()) * (s2.pool.capacity // h) * 8
+           + h * (ki * 6 + 40))
+    if tcp:
+        s = s2.socks.slots
+        ops += int(active.sum()) * s * 60 + h * s * 4
+    return ops
 
 
 def tick_bound(st, out, em, active) -> tuple[int, int]:
@@ -329,19 +432,19 @@ def window_bound(state, params, app, t_target) -> tuple[int, int, int]:
         b += h * 8 + int(active.sum()) * 8          # t_h read, re-arm
         aux0 = engine._aux_times(st, params, app)
         s_in = clone(st)
-        st, dn, tp = mk.deliver_kernel(st, params, app, tick_t, active, we,
-                                       bw_dn, aux0)
+        em = emit.empty(h, engine._n_lanes(app), st.pool.blk.shape[1],
+                        st.device)
+        st, em, dn, tp = mk.deliver_kernel(st, params, app, em, tick_t,
+                                           active, we, bw_dn, aux0)
         b += deliver_bytes(s_in, st, dn, active, app)
         ops += deliver_ops(s_in, dn, active, app)
         s_in = clone(st)
-        em = emit.empty(h, engine._n_lanes(app), st.pool.blk.shape[1],
-                        st.device)
         st, em = engine._app_tick(st, params, app, em, tp, active, we)
         tb, to = tick_bound(s_in, st, em, active)
         b, ops = b + tb, ops + to
         t_app = app.next_time(st)
         s_in = clone(st)
-        st, t_h, gmin = mk.transport_kernel(st, params, em, tick_t, tp,
+        st, t_h, gmin = mk.transport_kernel(st, params, app, em, tick_t, tp,
                                             active, bw_up, dn, t_app)
         b += transport_bytes(s_in, st, em, active, params)
         ops += transport_ops(s_in, em, active)
@@ -356,24 +459,70 @@ def _on_device(e) -> bool:
     return str(e.device_type).endswith("CUDA")
 
 
-def time_call(run, make_args, reps: int = 7) -> tuple[float, float]:
+def _spin_cycles_per_ms() -> float:
+    """GPU clock cycles per millisecond of torch.cuda._sleep, measured."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    torch.cuda._sleep(10_000_000)
+    e1.record()
+    torch.cuda.synchronize()
+    return 10_000_000 / e0.elapsed_time(e1)
+
+
+def device_ms_events(run, make_args, reps: int, host_ms: float) -> float:
+    """Device ms of one `run(*make_args())` from CUDA events: the stream
+    first spins (torch.cuda._sleep) for twice the call's host time, so the
+    host has enqueued the whole call before the first event runs and the
+    events bracket only the call's work on the card.  Median of `reps`."""
+    import torch
+    per_ms = _spin_cycles_per_ms()
+    out = []
+    for _ in range(reps):
+        args = make_args()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(per_ms * (2 * host_ms + 1)))
+        h0 = time.perf_counter()
+        e0.record()
+        run(*args)
+        e1.record()
+        host = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        if host > 2 * host_ms + 1:
+            _fail(f"device_ms_events: the call's host time ({host:.3f} ms) "
+                  f"outran the spin")
+        out.append(e0.elapsed_time(e1))
+    return statistics.median(out)
+
+
+def time_call(run, make_args, reps: int = 7,
+              kernel: str | None = None) -> tuple[float, float]:
     """(device ms, call ms) of `run(*make_args())`, inputs made fresh
     (cloned) before each call and not timed.  Device ms: the durations
     of every kernel, copy and memset the call puts on the card, from
     torch.profiler, mean over `reps` calls.  Call ms: CUDA events around
     one call on an idle card, so the host's enqueue time counts (median
-    of `reps`).  A warm-up call comes first."""
+    of `reps`).  A warm-up call comes first.  `kernel` names the CUDA
+    kernel each call launches: when the profile holds fewer than `reps`
+    of its launches (the tracer drops records of some long kernels),
+    the device ms comes from CUDA events instead (device_ms_events)."""
     import torch
     run(*make_args())
-    calls = []
+    calls, hosts = [], []
     for _ in range(reps):
         args = make_args()
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
         t0.record()
         run(*args)
         t1.record()
+        hosts.append((time.perf_counter() - h0) * 1e3)
         torch.cuda.synchronize()
         calls.append(t0.elapsed_time(t1))
     inputs = [make_args() for _ in range(reps)]
@@ -384,9 +533,17 @@ def time_call(run, make_args, reps: int = 7) -> tuple[float, float]:
         for args in inputs:
             run(*args)
         torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if _on_device(e))
-    return dev_us / reps / 1e3, statistics.median(calls)
+    dev = [e for e in prof.events() if _on_device(e)]
+    seen = sum(f"::{kernel}(" in e.name or kernel_name(e.name) == kernel
+               for e in dev) if kernel else reps
+    if seen >= reps:
+        dev_ms = sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    else:
+        dev_ms = device_ms_events(run, make_args, reps, max(hosts))
+        print(f"time_call: the profile held {seen} of {reps} {kernel} "
+              f"launches; device time {dev_ms:.4f} ms from CUDA events",
+              flush=True)
+    return dev_ms, statistics.median(calls)
 
 
 def profile_window(state, params, app):
@@ -478,7 +635,8 @@ def check_kernels(state, params, app, dev):
     n_mov = int((state.pool.stage == STAGE_IN_FLIGHT).sum())
     ki = state.inbox.capacity // h
     bounds["exchange"] = exchange_bound(state)
-    times["exchange"] = (time_call(mk.exchange_kernel, ex_args),
+    times["exchange"] = (time_call(mk.exchange_kernel, ex_args,
+                                   kernel="k_place"),
                          time_call(mk.exchange_plain, ex_args))
     print(f"kernels: exchange equal ({n_mov} movers)", flush=True)
 
@@ -494,25 +652,29 @@ def check_kernels(state, params, app, dev):
     st, active, tick_t = engine._tick_setup(st, t_h, we)
     aux0 = engine._aux_times(st, params, app)
 
+    lanes = engine._n_lanes(app)
+
     def dl_args(s=st):
-        return (clone(s), params, app, tick_t, active, we, ctx[1], aux0)
+        return (clone(s), params, app,
+                emit.empty(h, lanes, s.pool.blk.shape[1], dev), tick_t,
+                active, we, ctx[1], aux0)
     out_k = mk.deliver_kernel(*dl_args())
     out_p = mk.deliver_plain(*dl_args())
     errs["deliver"] = require_equal(out_k, out_p, "deliver")
-    s2, delivered_n, t_post = out_p
+    s2, em, delivered_n, t_post = out_p
     bounds["deliver"] = (deliver_bytes(st, s2, delivered_n, active, app),
                          deliver_ops(st, delivered_n, active, app))
-    times["deliver"] = (time_call(mk.deliver_kernel, dl_args),
+    times["deliver"] = (time_call(mk.deliver_kernel, dl_args,
+                                  kernel="k_deliver"),
                         time_call(mk.deliver_plain, dl_args))
     print(f"kernels: deliver equal ({int(delivered_n.sum())} deliveries)",
           flush=True)
 
-    em = emit.empty(h, engine._n_lanes(app), s2.pool.blk.shape[1], dev)
     s2, em = engine._app_tick(s2, params, app, em, t_post, active, we)
     t_app = app.next_time(s2)
 
     def tr_args(s=s2):
-        return (clone(s), params, em, tick_t, t_post, active, ctx[0],
+        return (clone(s), params, app, em, tick_t, t_post, active, ctx[0],
                 delivered_n, t_app)
     out_k = mk.transport_kernel(*tr_args())
     out_p = mk.transport_plain(*tr_args())
@@ -520,7 +682,8 @@ def check_kernels(state, params, app, dev):
     bounds["transport"] = (
         transport_bytes(s2, out_p[0], em, active, params),
         transport_ops(s2, em, active))
-    times["transport"] = (time_call(mk.transport_kernel, tr_args),
+    times["transport"] = (time_call(mk.transport_kernel, tr_args,
+                                    kernel="k_transport"),
                           time_call(mk.transport_plain, tr_args))
     print(f"kernels: transport equal ({int(em.valid.sum())} emissions)",
           flush=True)
@@ -550,7 +713,7 @@ def check_window(state, params, app):
     out_p = mk.window_plain(*args())
     err = require_equal(out_k, out_p, "window")
     b, ops, steps = window_bound(state, params, app, params.stop_time)
-    times = (time_call(mk.window_kernel, args),
+    times = (time_call(mk.window_kernel, args, kernel="k_window"),
              time_call(mk.window_plain, args))
     (kd, kc), (pd, pc) = times
     print(f"kernels: window equal ({steps} micro-steps, window "
@@ -628,6 +791,237 @@ def drive(state, params, app, label: str):
     return out, warm, launches, wall
 
 
+def _ack_shed_input(dev, n_data, n_acks, n_free):
+    """tests/test_ack_shed.py's crafted overflow on the card: in a 2-host
+    bulk world host 1 has `n_data` data segments then `n_acks` pure ACKs
+    in flight to host 0, whose inbox slab has `n_free` free slots."""
+    import torch
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core.state import (
+        ICOL_FLAGS, ICOL_LEN, ICOL_PROTO, PROTO_TCP, STAGE_IN_FLIGHT,
+        STAGE_RX_QUEUED, TCP_FLAG_ACK, ext_base)
+    state, params, _ = sim.build_bulk(num_hosts=2, server=0,
+                                      bytes_per_client=1000, stop_time=SEC,
+                                      seed=1, persistent=False, device=dev)
+    pool, ib = state.pool, state.inbox
+    ko, ki = pool.capacity // 2, ib.capacity // 2
+    idx = torch.arange(n_data + n_acks, device=dev) + ko
+    is_ack = torch.arange(n_data + n_acks, device=dev) >= n_data
+    blk, stage, tm = pool.blk.clone(), pool.stage.clone(), pool.time.clone()
+    blk[idx, ICOL_PROTO] = PROTO_TCP
+    blk[idx, ICOL_FLAGS] = TCP_FLAG_ACK
+    blk[idx, ICOL_LEN] = torch.where(is_ack, 0, 100).to(blk.dtype)
+    blk[idx, ext_base(blk.shape[1])] = 0
+    stage[idx] = STAGE_IN_FLIGHT
+    tm[idx] = 1000
+    ib_stage = ib.stage.clone()
+    ib_stage[n_free:ki] = STAGE_RX_QUEUED
+    return state.replace(pool=pool.replace(blk=blk, stage=stage, time=tm),
+                         inbox=ib.replace(stage=ib_stage)), params
+
+
+def check_ack_shed(dev) -> list:
+    """The exchange kernel's two-class re-rank against the plain version
+    on crafted overflows (pure ACKs shed first; data overflow raises
+    ERR_POOL_OVERFLOW): every output and the accounting tail equal, and
+    the shed count the crafted one.  Returns printable lines."""
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    lines = []
+    for n_data, n_acks, n_free in ((6, 4, 8), (11, 2, 8), (0, 9, 5),
+                                   (2, 2, 8)):
+        state, params = _ack_shed_input(dev, n_data, n_acks, n_free)
+        outs = []
+        for fn in (mk.exchange_kernel, mk.exchange_plain):
+            c = engine.clone_state(state)
+            pool, ib, total, tprot, nf = fn(c.pool, c.inbox, 2, params)
+            tail = engine._exchange_tail(c.replace(pool=pool, inbox=ib),
+                                         total, tprot, nf)
+            outs.append((pool, ib, total, tprot, nf, tail))
+        label = f"ack shed ({n_data} data, {n_acks} acks, {n_free} free)"
+        require_equal(outs[0], outs[1], label)
+        tail = outs[0][5]
+        shed = int(tail.hosts.acks_thinned.sum())
+        want = max(0, min(n_acks, n_data + n_acks - n_free))
+        if shed != want:
+            _fail(f"{label}: {shed} acks shed, want {want}")
+        lines.append(f"{label}: equal, {shed} shed, "
+                     f"{int(tail.hosts.pkts_dropped_pool.sum())} data "
+                     f"dropped, err {int(tail.err)}")
+    return lines
+
+
+def check_tcp_kernels(state, params, app, dev):
+    """The TCP branches against their plain versions on clones of the
+    bulk world: the exchange at the window boundary `state` is at, then
+    K_DELIVER and K_TRANSPORT at the micro-step of the next window with
+    the most due arrivals.  Returns (times, bounds, errs) keyed like the
+    kernels line's TCP rows."""
+    import torch
+    from shadow1_tpu_torch.core import emit, engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    from shadow1_tpu_torch.core.state import STAGE_IN_FLIGHT
+    from shadow1_tpu_torch.transport import tcp
+    clone = engine.clone_state
+    ctx = engine._window_ctx(state, params)
+    h = state.hosts.num_hosts
+    times, bounds, errs = {}, {}, {}
+
+    def ex_args(s=state):
+        c = clone(s)
+        return c.pool, c.inbox, h, params
+    out_k = mk.exchange_kernel(*ex_args())
+    out_p = mk.exchange_plain(*ex_args())
+    errs["exchange_tcp"] = require_equal(out_k, out_p, "exchange (TCP)")
+    n_mov = int((state.pool.stage == STAGE_IN_FLIGHT).sum())
+    bounds["exchange_tcp"] = exchange_bound(state)
+    times["exchange_tcp"] = (time_call(mk.exchange_kernel, ex_args,
+                                       kernel="k_place"),
+                             time_call(mk.exchange_plain, ex_args))
+    print(f"tcp kernels: exchange equal ({n_mov} movers)", flush=True)
+
+    # The window's micro-steps; keep the one with the most due arrivals.
+    st = engine._exchange(clone(state), params, fused=True)
+    t_h, gmin = engine._scan_all(st, params, app)
+    we = min(max(int(st.now), int(gmin)) + params.min_latency_ns,
+             params.stop_time)
+    best, n_best = None, -1
+    while int(gmin) < we:
+        ib = st.inbox
+        ki = ib.capacity // h
+        tk = torch.where(t_h < we, t_h, we)
+        due = ((ib.stage == STAGE_IN_FLIGHT).view(h, ki)
+               & (ib.times().view(h, ki) <= tk[:, None])).sum()
+        if int(due) > n_best:
+            best, n_best = (clone(st), t_h.clone()), int(due)
+        st, t_h, gmin = mk.microstep_fused(st, params, app, t_h, we, ctx)
+    if best is None:
+        _fail("the TCP probe window has no micro-step")
+    st, t_h = best
+    st, active, tick_t = engine._tick_setup(st, t_h, we)
+    aux0 = engine._aux_times(st, params, app)
+    lanes = engine._n_lanes(app)
+
+    def dl_args(s=st):
+        return (clone(s), params, app,
+                emit.empty(h, lanes, s.pool.blk.shape[1], dev), tick_t,
+                active, we, ctx[1], aux0)
+    out_k = mk.deliver_kernel(*dl_args())
+    out_p = mk.deliver_plain(*dl_args())
+    errs["deliver_tcp"] = require_equal(out_k, out_p, "deliver (TCP)")
+    s2, em, delivered_n, t_post = out_p
+    bounds["deliver_tcp"] = (
+        deliver_bytes(st, s2, delivered_n, active, app, em),
+        deliver_ops(st, delivered_n, active, app, tcp=True))
+    times["deliver_tcp"] = (time_call(mk.deliver_kernel, dl_args,
+                                      kernel="k_deliver_tcp"),
+                            time_call(mk.deliver_plain, dl_args))
+    print(f"tcp kernels: deliver equal ({int(delivered_n.sum())} "
+          f"deliveries, {int(em.valid.sum())} replies)", flush=True)
+
+    s2, em = tcp.run_timers(s2, params, em, t_post, active)
+    s2, em = engine._app_tick(s2, params, app, em, t_post, active, we)
+    t_app = app.next_time(s2)
+
+    def tr_args(s=s2):
+        return (clone(s), params, app, clone(em), tick_t, t_post, active,
+                ctx[0], delivered_n, t_app)
+    out_k = mk.transport_kernel(*tr_args())
+    out_p = mk.transport_plain(*tr_args())
+    errs["transport_tcp"] = require_equal(out_k, out_p, "transport (TCP)")
+    bounds["transport_tcp"] = (
+        transport_bytes(s2, out_p[0], em, active, params, tcp=True),
+        transport_ops(s2, em, active, tcp=True))
+    times["transport_tcp"] = (time_call(mk.transport_kernel, tr_args,
+                                        kernel="k_transport"),
+                              time_call(mk.transport_plain, tr_args))
+    sent = int((out_p[0].hosts.pkts_sent - s2.hosts.pkts_sent).sum())
+    print(f"tcp kernels: transport equal ({sent} segments placed)",
+          flush=True)
+    for k, ((kd, kc), (pd, pc)) in times.items():
+        print(f"tcp kernels: {k} kernel device {kd:.4f} ms (call "
+              f"{kc:.4f} ms), plain device {pd:.4f} ms (call {pc:.4f} ms), "
+              f"bound {bounds[k][0]} bytes, {bounds[k][1]} operations",
+              flush=True)
+    return times, bounds, errs
+
+
+def check_lossy_tcp(dev) -> str:
+    """The lossy 16-host bulk world to LOSSY_NS through the per-phase
+    kernels and through the plain versions: equal leaf for leaf, with
+    retransmissions reached.  Returns a printable line."""
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    finals = {}
+    for path, fused in (("kernels", True), ("plain", False)):
+        s0, p0, a0 = sim.build_bulk(**LOSSY, megakernel=fused,
+                                    persistent=False, device=dev)
+        mk.reset_launches()
+        finals[path] = engine.run_until(s0, p0, a0, LOSSY_NS)
+        used = {k for k, v in mk.LAUNCHES.items() if v > 0}
+        if used != (set(PER_PHASE) if fused else set()):
+            _fail(f"lossy TCP world, {path} path: launches {mk.LAUNCHES}")
+    require_equal(finals["kernels"], finals["plain"], "lossy TCP world")
+    out = finals["plain"]
+    retx = int(out.socks.retx_segs.sum())
+    if retx <= 0:
+        _fail("lossy TCP world: no retransmission reached")
+    return (f"tcp kernels: lossy world (H={LOSSY['num_hosts']}, "
+            f"{LOSSY_NS // MS} ms, reliability {LOSSY['reliability']}) equal "
+            f"through the per-phase kernels and the plain versions; "
+            f"{int(out.n_steps)} micro-steps, {retx} retransmitted segments, "
+            f"{int(out.hosts.pkts_dropped_inet.sum())} segments lost, "
+            f"{int((out.app.phase == 2).sum())} transfers done")
+
+
+def drive_tcp(dev):
+    """BULK from 0 to BULK_RUN_NS on the per-phase path (warm-up with
+    run_until, then run_chunked), every launch counter zeroed just before
+    and read just after; the trajectory must equal the JAX package's.
+    Returns (final state, params, app, launches, wall seconds)."""
+    import torch
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    state, params, app = sim.build_bulk(**BULK, persistent=False,
+                                        device=dev)
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    warm = engine.run_until(state, params, app, WARM_NS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = engine.run_chunked(warm, params, app, BULK_RUN_NS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(mk.LAUNCHES)
+    w, f = tcp_summary(warm), tcp_summary(out)
+    if w != JAX_BULK_WARM:
+        _fail(f"TCP main path: warm-up trajectory {w} != JAX {JAX_BULK_WARM}")
+    if f != JAX_BULK_FINAL:
+        _fail(f"TCP main path: trajectory {f} != JAX {JAX_BULK_FINAL}")
+    if launches["window"] or launches["exchange"] != f["n_windows"] or \
+            launches["deliver"] != f["n_steps"] or \
+            launches["transport"] != f["n_steps"]:
+        _fail(f"TCP main path launches {launches} do not match its windows "
+              f"/ micro-steps")
+    wall = t2 - t1
+    windows = f["n_windows"] - w["n_windows"]
+    events = f["n_events"] - w["n_events"]
+    print(f"tcp main path: n_steps {f['n_steps'] - w['n_steps']} n_windows "
+          f"{windows} n_events {events} events/s {events / wall:.1f} wall "
+          f"{wall:.4f} s ({wall / windows * 1e3:.4f} ms per window, "
+          f"{wall / (f['n_steps'] - w['n_steps']) * 1e3:.4f} ms per "
+          f"micro-step; warm-up {t1 - t0:.4f} s); bytes received "
+          f"{f['bytes_recv']}, {f['done']} transfers done, err {f['err']} "
+          f"({int(out.hosts.pkts_dropped_pool.sum())} segments over a full "
+          f"slab, {int(out.hosts.acks_thinned.sum())} acks shed, "
+          f"{int(out.socks.retx_segs.sum())} retransmitted); launches "
+          f"{launches}; trajectory equals the JAX package's", flush=True)
+    return out, params, app, launches, wall
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -658,12 +1052,18 @@ def main() -> int:
     from shadow1_tpu_torch.core import _build
     t0 = time.perf_counter()
     built = shadow1_tpu_torch.build_kernels()
-    ptxas = [ln.split("ptxas info    : ")[-1] for ln in
-             (_build.BUILD_DIR / "window.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())}); "
-          f"K_WINDOW ptxas: {' | '.join(ptxas)}", flush=True)
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})",
+          flush=True)
+    for name in _build.NAMES:
+        log = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
+        fns = [kernel_name(ln.split("'")[1]) for ln in log
+               if "Compiling entry" in ln]
+        use = [ln.split("ptxas info    : ")[-1].strip() for ln in log
+               if "registers" in ln or "spill" in ln]
+        print(f"build: {name} ptxas: " + " | ".join(
+            f"{f}: {a}; {b}" for f, a, b in zip(fns, use[0::2],
+                                                use[1::2])), flush=True)
 
     # ---- 3. kernels against their plain versions ------------------------
     dev = torch.device("cuda")
@@ -763,17 +1163,38 @@ def main() -> int:
     for line in profile_window(out_pp, params, app):
         print(line, flush=True)
 
-    # ---- 6. kernels line ------------------------------------------------
+    # ---- 6. TCP kernels against their plain versions --------------------
+    state, params, app = sim.build_bulk(**BULK, persistent=False,
+                                        device=dev)
+    state = engine.run_until(state, params, app, TCP_PROBE_NS)
+    t_times, t_bounds, t_errs = check_tcp_kernels(state, params, app, dev)
+    times.update(t_times)
+    bounds.update(t_bounds)
+    errs.update(t_errs)
+    del state
+    for line in check_ack_shed(dev):
+        print(f"tcp kernels: {line}", flush=True)
+    print(check_lossy_tcp(dev), flush=True)
+
+    # ---- 7. TCP main path: the bulk world, per-phase kernels -----------
+    out_tcp, params, app, launches_tcp, _ = drive_tcp(dev)
+    for line in profile_window(out_tcp, params, app):
+        print(f"tcp {line}", flush=True)
+    del out_tcp
+
+    # ---- 8. kernels line ------------------------------------------------
     rows = []
-    for name in (*PER_PHASE, "window"):
+    for name in (*PER_PHASE, "window", *TCP_ROWS):
         b, ops = bounds[name]
         bytes_ms = b / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
-        n = launches[name] if name == "window" else launches_pp[name]
+        base = TCP_ROWS.get(name, name)
+        n = launches[name] if name == "window" else \
+            launches_tcp[base] if name in TCP_ROWS else launches_pp[name]
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"shadow1_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": n,
+            "source": f"shadow1_tpu_torch/csrc/{base}.cu",
+            "replaces": REPLACES[base], "launches": n,
             "max_abs_err": errs[name], "ms": times[name][0][0],
             "call_ms": times[name][0][1],
             "plain_ms": times[name][1][0], "bound_ms": max(bytes_ms, ops_ms),

@@ -32,9 +32,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {
     "exchange": {"exchange_launch":
                  [_P, _I, _I64, _P, _P, _P, _P, _I, _P, _P, _I64, _I, _I,
-                  _P, _P, _P, _P, _P]},
-    "deliver": {"deliver_launch": [_P, _P]},
-    "transport": {"transport_launch": [_P, _P]},
+                  _P, _P, _P, _P, _P, _P]},
+    "deliver": {"deliver_launch": [_P, _P, _P]},
+    "transport": {"transport_launch": [_P, _P, _P]},
     "window": {"window_launch": [_P, _P], "window_grid": [_I, _P],
                "log1p_probe_launch": [_P, _P, _I64, _P]},
 }

@@ -13,9 +13,9 @@ import torch
 
 from .state import (I32, I64, ICOLS, ICOL_SPORT, ICOL_DPORT, ICOL_PROTO,
                     ICOL_FLAGS, ICOL_SEQ, ICOL_ACK, ICOL_WND, ICOL_LEN,
-                    ICOL_PAYLOAD, ICOL_TIME_LO, ICOL_TIME_HI, ICOL_TSE_LO,
-                    ICOL_TSE_HI, OEXT_DST, OEXT_PRIO, Tree, dec_i64, enc_hi,
-                    enc_lo, ext_base)
+                    ICOL_PAYLOAD, ICOL_SACK0_LO, ICOL_TIME_LO, ICOL_TIME_HI,
+                    ICOL_TSE_LO, ICOL_TSE_HI, OEXT_DST, OEXT_PRIO,
+                    SACK_BLOCKS, Tree, dec_i64, enc_hi, enc_lo, ext_base)
 
 SLOT_RX_REPLY = 0
 SLOT_TIMER = 1
@@ -69,11 +69,12 @@ def _col(x, h, dtype, device):
 
 def put(em: Emissions, mask: torch.Tensor, slot: int, *, dst, sport, dport,
         proto, flags=0, seq=0, ack=0, wnd=0, length=0, ts_echo=0,
-        t_send=0, payload_id=-1, priority=0.0) -> Emissions:
+        t_send=0, sack_lo=None, sack_hi=None, payload_id=-1,
+        priority=0.0) -> Emissions:
     """For hosts where `mask` is set, stage one packet in lane `slot`.
-    UDP-only slice: the TCP-only columns (TSE, SACK) are written only for
-    full-width blocks, exactly as the JAX put does; SACK blocks are not
-    taken.  `seq`/`ack` are uint32 values given as int64."""
+    The TCP-only columns (TSE, SACK) exist only in full-width blocks, as
+    in the JAX put.  `seq`/`ack` and the [H, SACK_BLOCKS] (or
+    [SACK_BLOCKS]) `sack_lo`/`sack_hi` are uint32 values held in int64."""
     h = em.valid.shape[0]
     dev = em.blk.device
     width = em.blk.shape[-1]
@@ -98,6 +99,17 @@ def put(em: Emissions, mask: torch.Tensor, slot: int, *, dst, sport, dport,
                                                  device=dev), (h,))
         cols[ICOL_TSE_LO] = enc_lo(tse)
         cols[ICOL_TSE_HI] = enc_hi(tse)
+        if sack_lo is not None:
+            slo = torch.as_tensor(sack_lo, dtype=I64, device=dev)
+            shi = torch.as_tensor(sack_hi, dtype=I64, device=dev)
+            slo = torch.broadcast_to(slo, (h, SACK_BLOCKS))
+            shi = torch.broadcast_to(shi, (h, SACK_BLOCKS))
+            for i in range(SACK_BLOCKS):
+                cols[ICOL_SACK0_LO + 2 * i] = slo[:, i].to(I32)
+                cols[ICOL_SACK0_LO + 2 * i + 1] = shi[:, i].to(I32)
+    elif sack_lo is not None:
+        raise ValueError("SACK blocks need a full-width (TCP) emission "
+                         "block; this world staged a narrow one")
     cols[base + OEXT_DST] = _col(dst, h, I32, dev)
     prio = torch.broadcast_to(torch.as_tensor(priority, dtype=torch.float32,
                                               device=dev), (h,))

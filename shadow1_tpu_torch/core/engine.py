@@ -1,5 +1,5 @@
-"""The windowed discrete-event engine, UDP branch, in plain torch
-(counterpart of shadow1_tpu/core/engine.py).
+"""The windowed discrete-event engine in plain torch (counterpart of
+shadow1_tpu/core/engine.py).
 
 Conservative windows with min-latency lookahead; within a window every
 host advances its earliest pending event per micro-step.  The data
@@ -7,9 +7,10 @@ layout is the JAX package's: per-SOURCE outbox slabs (`state.pool`),
 per-DESTINATION inbox slabs (`state.inbox`), and one window-boundary
 exchange moving IN_FLIGHT outbox rows into their destination slabs.
 
-The functions here are the plain versions of the three kernels of this
-slice (core/megakernel.py): `_exchange_core` (exchange), `_rx_phase`
-(K_DELIVER), and `_stage_emissions` + `_tx_drain_body` + the CPU
+The functions here are the plain versions of the per-phase kernels
+(core/megakernel.py): `_exchange_core` (exchange), `_rx_phase`
+(K_DELIVER, with tcp.process_arrivals in TCP worlds), and
+tcp.transmit + `_stage_emissions` + `_tx_drain_body` + the CPU
 accounting + the post-step scan (K_TRANSPORT).  They are functional
 (return new tensors) and run on any device; on the card the main path
 goes through the kernels instead, and the tests pin these bodies leaf
@@ -22,9 +23,10 @@ small vector per window; without it, one scalar per micro-step (the
 `gmin < window_end` predicate JAX evaluates inside its device while
 loop) and a few per window.
 
-Scope: TCP apps, loopback apps, jitter, interface buffers and every
-instrumentation/netem block are later slices and are refused by
-`check_supported` with a message naming what is missing.
+Scope: phold (UDP) and bulk (TCP, Reno) worlds.  Other apps, CUBIC,
+loopback apps, jitter, interface buffers and every instrumentation and
+netem block are later slices, refused by `check_supported` with a
+message naming what is missing.
 """
 
 from __future__ import annotations
@@ -32,9 +34,12 @@ from __future__ import annotations
 import torch
 
 from . import emit, nic, rng, simtime
-from .state import (ERR_POOL_OVERFLOW, I32, I64, ICOLS, ICOL_DPORT,
-                    ICOL_LEN, ICOL_PAYLOAD, ICOL_PROTO, ICOL_SPORT, ICOL_SRC,
-                    ICOL_TIME_HI, ICOL_TIME_LO, OEXT_DST, OEXT_LAT_HI,
+from .state import (ERR_POOL_OVERFLOW, I32, I64, ICOLS, ICOL_ACK,
+                    ICOL_DPORT, ICOL_FLAGS, ICOL_LEN, ICOL_PAYLOAD,
+                    ICOL_PROTO, ICOL_SACK0_HI, ICOL_SACK0_LO, ICOL_SEQ,
+                    ICOL_SPORT, ICOL_SRC, ICOL_TIME_HI, ICOL_TIME_LO,
+                    ICOL_TSE_HI, ICOL_TSE_LO, ICOL_TS_HI, ICOL_TS_LO,
+                    ICOL_WND, OEXT_DST, OEXT_LAT_HI,
                     OEXT_LAT_LO, OEXT_PRIO, PDS_INET_SENT,
                     PDS_RCV_SOCKET_PROCESSED, PDS_ROUTER_DROPPED,
                     PDS_ROUTER_ENQUEUED, PDS_SND_CREATED,
@@ -42,6 +47,8 @@ from .state import (ERR_POOL_OVERFLOW, I32, I64, ICOLS, ICOL_DPORT,
                     STAGE_FREE, STAGE_IN_FLIGHT, STAGE_RX_QUEUED,
                     STAGE_TX_QUEUED, TCP_HEADER_SIZE, UDP_HEADER_SIZE,
                     SimState, dec_i64, enc_hi, enc_lo, ext_base, host_ids)
+from ..transport import cong
+from ..transport import tcp as tcp_mod
 from ..transport import udp as udp_mod
 
 INV = simtime.SIMTIME_INVALID
@@ -55,20 +62,30 @@ def _may_loopback(app) -> bool:
     return getattr(app, "may_loopback", True)
 
 
+PORTED_APPS = ("Phold", "Bulk")
+
+
 def check_supported(state: SimState, params, app) -> None:
-    """Refuse, by name, what this slice of the port does not carry."""
-    if _uses_tcp(app):
+    """Refuse, by name, what the port does not carry yet."""
+    name = type(app).__name__
+    if not any(c.__name__ in PORTED_APPS for c in type(app).__mro__):
         raise NotImplementedError(
-            "TCP worlds (app.uses_tcp) are a later slice of the port "
-            "(ROADMAP queue 1 item 1: transport/tcp.py, the 28-column "
-            "block, the ACK-before-data re-rank, transmit/run_timers)")
+            f"the app {name} is not ported yet (ported: "
+            f"{', '.join(PORTED_APPS)}; Echo and Tgen are ROADMAP queue 1)")
     if _may_loopback(app):
         raise NotImplementedError(
             "loopback emissions (app.may_loopback) are not ported yet: "
             "_loopback_insert is a later slice")
-    if state.inbox.blk.shape[1] >= ICOLS:
+    wide = state.inbox.blk.shape[1] >= ICOLS
+    if _uses_tcp(app):
+        cong.validate(params.cong)
+        if not wide:
+            raise ValueError(
+                "this world's inbox was built narrow (uses_tcp=False) but "
+                "the app uses TCP; TCP segments need the TS/SACK columns")
+    elif wide:
         raise NotImplementedError(
-            "full-width (TCP) inbox blocks are a later slice; build the "
+            "a full-width inbox for a UDP app is not ported; build the "
             "world with uses_tcp=False")
     if params.has_jitter:
         raise NotImplementedError(
@@ -95,8 +112,10 @@ def check_supported(state: SimState, params, app) -> None:
 
 
 def _aux_times(state: SimState, params, app):
-    """Per-host earliest non-packet event: re-ticks and the app."""
+    """Per-host earliest non-packet event: re-ticks, TCP timers, the app."""
     t_h = state.hosts.t_resume
+    if _uses_tcp(app):
+        t_h = torch.minimum(t_h, tcp_mod.timer_min(state.socks))
     if app is not None:
         t_h = torch.minimum(t_h, app.next_time(state))
     return t_h
@@ -176,16 +195,19 @@ def _exchange_core(pool, ib, h, params):
     """Rank movers by destination, splice them into the destination
     slabs' free slots (ascending slot order), clear the outbox stage.
     Returns (pool, inbox, total, total_prot, n_free); the last three are
-    [H] int32 per-destination tallies.  UDP worlds only: the two-class
-    ACK re-rank of TCP worlds is a later slice."""
+    [H] int32 per-destination tallies.
+
+    TCP worlds (full-width inbox) shed pure ACKs first on overflow: when
+    some destination cannot take all its movers and some mover is a pure
+    ACK, every destination ranks its protected movers (data and control)
+    first, in flat order, then its pure ACKs; `total_prot` counts the
+    protected ones.  The gate is global, as in the JAX package, because
+    the re-rank also moves movers of destinations that do not overflow."""
     p0 = pool.capacity
     p1 = ib.capacity
     ki = p1 // h
     ic = ib.blk.shape[1]
     dev = pool.stage.device
-    if ic >= ICOLS:
-        raise NotImplementedError("the exchange's TCP two-class re-rank "
-                                  "is a later slice of the port")
 
     moving = pool.stage == STAGE_IN_FLIGHT
     dst = torch.clamp(pool.dst, 0, h - 1)
@@ -199,6 +221,17 @@ def _exchange_core(pool, ib, h, params):
     free2 = (ib.stage == STAGE_FREE).reshape(h, ki)
     ids = torch.arange(ki, dtype=I32, device=dev)[None, :]
     n_free = free2.sum(dim=1, dtype=I32)
+
+    total_prot = total
+    if ic >= ICOLS:
+        blk = pool.blk
+        ackp = torch.nn.functional.pad(tcp_mod.pure_ack(
+            blk[:, ICOL_PROTO], blk[:, ICOL_FLAGS], blk[:, ICOL_LEN]),
+            (0, pad)) & mvp
+        if bool((total > n_free).any() & ackp.any()):
+            rank_prot, total_prot = _rank_by_dst(mvp & ~ackp, dstp, h, m)
+            rank = torch.where(ackp, total_prot[dstp.to(I64)]
+                               + (rank - rank_prot), rank_prot)
 
     order2 = torch.argsort(torch.where(free2, ids, ids + ki), dim=1,
                            stable=True).to(I32)
@@ -222,12 +255,13 @@ def _exchange_core(pool, ib, h, params):
         status[sel] = torch.nn.functional.pad(pool.status, (0, pad))[ok]
     ib = ib.replace(blk=blk, stage=stage, status=status)
     pool = pool.replace(stage=torch.where(moving, STAGE_FREE, pool.stage))
-    return pool, ib, total, total, n_free
+    return pool, ib, total, total_prot, n_free
 
 
 def _exchange_tail(state: SimState, total, total_prot, n_free) -> SimState:
-    """Accounting tail of the exchange: overflowed movers are counted
-    drops (pure-ACK shedding only exists in TCP worlds)."""
+    """Accounting tail of the exchange: overflowed pure ACKs are shed
+    (acks_thinned), every other overflowed mover is a counted drop that
+    raises ERR_POOL_OVERFLOW."""
     hosts = state.hosts
     drops_all = torch.clamp(total - n_free, min=0).to(I64)
     data_drops = torch.minimum(
@@ -264,13 +298,44 @@ def _wire_bytes(proto, length):
                                 UDP_HEADER_SIZE).to(length.dtype)
 
 
-def _rx_phase(state: SimState, params, tick_t, active, app, window_end,
+class RxPkt:
+    """Field registers of the packet each host takes in one delivery
+    round, decoded from its inbox row ([H] tensors; seq/ack/SACK are
+    uint32 held in int64)."""
+
+    __slots__ = ("src", "sport", "dport", "proto", "flags", "seq", "ack",
+                 "wnd", "length", "payload_id", "time", "ts", "ts_echo",
+                 "pkt_id", "sack_lo", "sack_hi")
+
+    def __init__(self, row, keys_row, time_row):
+        def u32(c):
+            return c.to(I64) & 0xFFFFFFFF
+
+        self.src = row[:, ICOL_SRC]
+        self.sport = row[:, ICOL_SPORT]
+        self.dport = row[:, ICOL_DPORT]
+        self.proto = row[:, ICOL_PROTO]
+        self.flags = row[:, ICOL_FLAGS]
+        self.seq = u32(row[:, ICOL_SEQ])
+        self.ack = u32(row[:, ICOL_ACK])
+        self.wnd = row[:, ICOL_WND]
+        self.length = row[:, ICOL_LEN]
+        self.payload_id = row[:, ICOL_PAYLOAD]
+        self.time = time_row
+        self.ts = dec_i64(row[:, ICOL_TS_LO], row[:, ICOL_TS_HI])
+        self.ts_echo = dec_i64(row[:, ICOL_TSE_LO], row[:, ICOL_TSE_HI])
+        self.sack_lo = u32(row[:, ICOL_SACK0_LO:ICOL_SACK0_LO + 6:2])
+        self.sack_hi = u32(row[:, ICOL_SACK0_HI:ICOL_SACK0_HI + 6:2])
+        self.pkt_id = keys_row
+
+
+def _rx_phase(state: SimState, params, em, tick_t, active, app, window_end,
               bw_dn, aux_bound=None):
-    """Arrivals (UDP branch): router enqueue, NIC rx token/CoDel drain of
-    one packet per host per round, UDP delivery, inbox slot free.
-    Returns (state, delivered_n [H] i32, t_post [H] i64).  UDP delivery
-    stages no emission, so unlike the JAX signature no `em` rides
-    through."""
+    """Arrivals: router enqueue, NIC rx token/CoDel drain of one packet
+    per host per round, UDP delivery, and in TCP worlds
+    tcp.process_arrivals, whose reply of round r goes into lane
+    SLOT_RX_REPLY (r = 0) or NUM_SLOTS + r - 1.  Returns (state, em,
+    delivered_n [H] i32, t_post [H] i64); UDP worlds pass `em` through."""
     ib, hosts = state.inbox, state.hosts
     h = hosts.num_hosts
     p1 = ib.capacity
@@ -392,13 +457,25 @@ def _rx_phase(state: SimState, params, tick_t, active, app, window_end,
             bytes_recv=hosts.bytes_recv
             + torch.where(deliver, p_len, 0).to(I64))
         state = state.replace(socks=socks, hosts=hosts)
+        if _uses_tcp(app):
+            tcp_mask = deliver & (p_proto == PROTO_TCP)
+            # Exact skip: every write of process_arrivals is masked by a
+            # subset of tcp_mask.  It touches no host counter, so it may
+            # follow the counter update below the UDP delivery.
+            if bool(tcp_mask.any()):
+                pkt = RxPkt(row, torch.where(have, kmin, 0), p_time)
+                reply_slot = emit.SLOT_RX_REPLY if r == 0 \
+                    else emit.NUM_SLOTS + r - 1
+                state, em = tcp_mod.process_arrivals(
+                    state, params, em, t_eff, pkt, tcp_mask,
+                    reply_slot=reply_slot)
         delivered_n = delivered_n + deliver.to(I32)
         if r == 0:
             t_post = torch.where(deliver, t_eff, tick_t)
         else:
             t_post = torch.where(deliver, torch.maximum(t_post, t_eff),
                                  t_post)
-    return state, delivered_n, t_post
+    return state, em, delivered_n, t_post
 
 
 # ---------------------------------------------------------------------------
@@ -414,32 +491,37 @@ def _route(params, vs, vd):
 
 def _free_slot_pick(free2, rank2):
     """[H, E] slot columns: the r-th allocation takes the r-th free slot
-    in ascending order (callers mask by rank2 < n_free)."""
+    in ascending order; 0 where rank2 is negative or past the free slots
+    (callers mask by rank2 < n_free)."""
     h, k = free2.shape
-    pos = torch.cumsum(free2, dim=1) - 1
-    ids = torch.arange(k, dtype=I32, device=free2.device)[None, None, :]
-    onehot = free2[:, None, :] & (pos[:, None, :] == rank2[:, :, None]) & \
-        (rank2 >= 0)[:, :, None]
-    return torch.where(onehot, ids, 0).sum(dim=2, dtype=I32)
+    order = torch.argsort((~free2).to(torch.int8), dim=1, stable=True)
+    pick = order.gather(1, torch.clamp(rank2, 0, k - 1).to(I64)).to(I32)
+    ok = (rank2 >= 0) & (rank2 < free2.sum(dim=1, keepdim=True))
+    return torch.where(ok, pick, 0)
 
 
-def _patched_rows(em, src2, ctr2, time_v, lat, stage_v, status_v):
-    """[H, E, C+2] staging rows of the narrow (UDP) block: the emission
-    row with SRC/TIME/CTR/LAT patched, plus stage/status scratch."""
+def _patched_rows(em, src2, ctr2, time_v, send_t, lat, stage_v, status_v):
+    """[H, E, C+2] staging rows: the emission row with SRC/TIME/CTR/LAT
+    (and, in full-width TCP rows, the TS send stamp) patched, plus
+    stage/status scratch."""
     eb = em.blk
     base = ext_base(eb.shape[2])
 
     def c(x):
         return x[:, :, None].to(I32)
 
-    return torch.cat([
-        c(src2), eb[:, :, 1:ICOL_TIME_LO],
-        c(enc_lo(time_v)), c(enc_hi(time_v)),
-        c(enc_lo(ctr2)), c(enc_hi(ctr2)),
-        eb[:, :, base + OEXT_DST:base + OEXT_DST + 1],
-        c(enc_lo(lat)), c(enc_hi(lat)),
-        eb[:, :, base + OEXT_PRIO:base + OEXT_PRIO + 1],
-        c(stage_v), c(status_v)], dim=2)
+    pieces = [c(src2), eb[:, :, 1:ICOL_TIME_LO],
+              c(enc_lo(time_v)), c(enc_hi(time_v)),
+              c(enc_lo(ctr2)), c(enc_hi(ctr2))]
+    if base >= ICOLS:
+        pieces += [c(enc_lo(send_t)), c(enc_hi(send_t)),
+                   eb[:, :, ICOL_TSE_LO:base + 1]]
+    else:
+        pieces += [eb[:, :, base + OEXT_DST:base + OEXT_DST + 1]]
+    pieces += [c(enc_lo(lat)), c(enc_hi(lat)),
+               eb[:, :, base + OEXT_PRIO:base + OEXT_PRIO + 1],
+               c(stage_v), c(status_v)]
+    return torch.cat(pieces, dim=2)
 
 
 def _stage_emissions(state: SimState, params, em, tick_t, active, bw_up):
@@ -479,7 +561,6 @@ def _stage_emissions(state: SimState, params, em, tick_t, active, bw_up):
     nl = live
 
     free = (pool.stage == STAGE_FREE).reshape(h, ko)
-    ids = torch.arange(ko, dtype=I32, device=dev)[None, :]
     n_free = free.sum(dim=1)
     nl_rank = torch.where(nl, torch.cumsum(nl, dim=1) - 1, -1)
     within = _free_slot_pick(free, nl_rank)
@@ -513,23 +594,23 @@ def _stage_emissions(state: SimState, params, em, tick_t, active, bw_up):
         admit, PDS_SND_CREATED | PDS_SND_INTERFACE_SENT | PDS_INET_SENT,
         PDS_SND_CREATED)
 
-    oh = (within[:, :, None] == ids[:, None, :]) & placed[:, :, None]
-    hit = oh.any(dim=1)
+    # Each placed emission takes its own slot: write the rows there (the
+    # JAX package's one-hot merge of the [H, E] rows into [H, ko]).
     pc = pool.blk.shape[1]
-    val3 = _patched_rows(em, src2, ctr2, time_v, lat, stage_v, status_v)
-    v = torch.where(oh[:, :, :, None], val3[:, :, None, :], 0).sum(
-        dim=1, dtype=I32)
-    blk3 = pool.blk.reshape(h, ko, pc)
-    pool = pool.replace(
-        blk=torch.where(hit[:, :, None], v[:, :, :pc], blk3).reshape(-1, pc),
-        stage=torch.where(hit, v[:, :, pc],
-                          pool.stage.reshape(h, ko)).reshape(-1),
-        status=torch.where(hit, v[:, :, pc + 1],
-                           pool.status.reshape(h, ko)).reshape(-1)
-        if params.pds_trail else pool.status,
-        time=torch.where(hit, dec_i64(v[:, :, ICOL_TIME_LO],
-                                      v[:, :, ICOL_TIME_HI]),
-                         pool.time.reshape(h, ko)).reshape(-1))
+    val3 = _patched_rows(em, src2, ctr2, time_v, send_t, lat, stage_v,
+                         status_v)
+    hh, ee = placed.nonzero(as_tuple=True)
+    flat = hh * ko + within[hh, ee].to(I64)
+    rows = val3[hh, ee]
+    blk, stage, time = pool.blk.clone(), pool.stage.clone(), pool.time.clone()
+    blk[flat] = rows[:, :pc]
+    stage[flat] = rows[:, pc]
+    time[flat] = dec_i64(rows[:, ICOL_TIME_LO], rows[:, ICOL_TIME_HI])
+    status = pool.status
+    if params.pds_trail:
+        status = status.clone()
+        status[flat] = rows[:, pc + 1]
+    pool = pool.replace(blk=blk, stage=stage, status=status, time=time)
 
     overflow = (live & ~placed).any()
     sent_bytes = torch.where(placed, em.length, 0).sum(dim=1).to(I64)
@@ -635,6 +716,10 @@ def _window_ctx(state: SimState, params):
 
 
 def _n_lanes(app) -> int:
+    """Emission lanes per host: TCP apps take the fixed TCP lanes plus one
+    reply lane per extra delivery round; UDP apps their send lanes."""
+    if _uses_tcp(app):
+        return emit.NUM_SLOTS + max(0, int(getattr(app, "rx_batch", 1)) - 1)
     return emit.SLOT_APP + max(1, int(getattr(app, "app_tx_lanes", 1)))
 
 
@@ -662,10 +747,14 @@ def _microstep_core(state: SimState, params, app, t_h, window_end: int,
     h = state.hosts.num_hosts
     state, active, tick_t = _tick_setup(state, t_h, window_end)
     em = emit.empty(h, _n_lanes(app), state.pool.blk.shape[1], state.device)
-    state, delivered_n, t_post = _rx_phase(state, params, tick_t, active,
-                                           app, window_end, bw_dn)
+    state, em, delivered_n, t_post = _rx_phase(
+        state, params, em, tick_t, active, app, window_end, bw_dn)
+    if _uses_tcp(app):
+        state, em = tcp_mod.run_timers(state, params, em, t_post, active)
     state, em = _app_tick(state, params, app, em, t_post, active,
                           window_end)
+    if _uses_tcp(app):
+        state, em = tcp_mod.transmit(state, params, em, t_post, active)
     state, _placed = _stage_emissions(state, params, em, t_post, active,
                                       bw_up)
     state = _tx_drain_body(state, params, t_post, active, bw_up)

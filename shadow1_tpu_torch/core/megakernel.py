@@ -5,12 +5,15 @@ Each TPU kernel of the JAX package has a CUDA kernel here, written for
 sm_90a in `csrc/` and built by core/_build.py:
 
 * exchange  (csrc/exchange.cu)  <- megakernel.exchange_call,
-  shadow1_tpu/core/megakernel.py:231-289, body engine._exchange_core;
+  shadow1_tpu/core/megakernel.py:231-289, body engine._exchange_core
+  (with the ACK-before-data two-class re-rank of TCP worlds);
 * deliver   (csrc/deliver.cu)   <- microstep_fused's K_DELIVER,
-  megakernel.py:502-545, body engine._rx_phase;
+  megakernel.py:502-545, body engine._rx_phase (with
+  tcp.process_arrivals in TCP worlds, csrc/tcp.cuh);
 * transport (csrc/transport.cu) <- microstep_fused's K_TRANSPORT,
-  megakernel.py:562-658, body _stage_emissions + _tx_drain_body + CPU
-  accounting + the post-step scan;
+  megakernel.py:562-658, body tcp.transmit (TCP worlds) +
+  _stage_emissions + _tx_drain_body + CPU accounting + the post-step
+  scan;
 * window    (csrc/window.cu)    <- window_fused's K_WINDOW,
   megakernel.py:391-424, body engine._window_body_ref: the exchange, the
   scan, the window bounds and the whole micro-step loop with phold's tick
@@ -26,9 +29,10 @@ and no fallback.  The kernels update the state's tensors in place
 tensors.  Each wrapper counts its launches in `LAUNCHES`.
 
 With `params.persistent` (the default, as in the JAX package) every
-window is one K_WINDOW launch.  Without it, phold's tick runs between
-K_DELIVER and K_TRANSPORT as plain torch on the state's device, as it
-runs between the Pallas kernels in the JAX per-phase graph.
+window is one K_WINDOW launch (UDP worlds with phold's tick only).
+Without it, the app tick (and in TCP worlds tcp.run_timers before it)
+runs between K_DELIVER and K_TRANSPORT as plain torch on the state's
+device, as it runs between the Pallas kernels in the JAX per-phase graph.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ import ctypes
 import torch
 
 from . import emit, engine, rng, xlamath
-from .state import I32, I64, ICOLS
+from ..transport import tcp
+from .state import I32, I64, ICOLS, SACK_RANGES, SSACK_RANGES
 
 INV = engine.INV
 
@@ -136,9 +141,6 @@ def exchange_kernel(pool, ib, h, params):
     from . import _build
     p0, pc = pool.blk.shape
     p1, ic = ib.blk.shape
-    if ic >= ICOLS:
-        raise NotImplementedError("the exchange kernel takes the narrow "
-                                  "(UDP) inbox only")
     if p0 % h or p1 % h:
         raise ValueError("pool and inbox capacities must be multiples of h")
     _check(pool.blk, I32, (p0, pc), "pool.blk")
@@ -149,20 +151,21 @@ def exchange_kernel(pool, ib, h, params):
     _check(ib.stage, I32, (p1,), "inbox.stage")
     _check(ib.status, I32, (p1,), "inbox.status")
     dev = pool.blk.device
-    cnt = torch.empty((3 * h + 1,), dtype=I32, device=dev)
+    scratch = torch.empty((3 * h + 3,), dtype=I32, device=dev)
     lst = torch.empty((p0,), dtype=I32, device=dev)
     total = torch.empty((h,), dtype=I32, device=dev)
+    total_prot = torch.empty((h,), dtype=I32, device=dev)
     n_free = torch.empty((h,), dtype=I32, device=dev)
     lib = _build.load("exchange")
     rc = lib.exchange_launch(
         _addr(pool.blk), pc, ctypes.c_int64(p0), _addr(pool.time),
         _addr(pool.stage), _addr(pool.status), _addr(ib.blk), ic,
         _addr(ib.stage), _addr(ib.status), ctypes.c_int64(p1), h,
-        int(bool(params.pds_trail)), _addr(cnt), _addr(lst), _addr(total),
-        _addr(n_free), _stream())
+        int(bool(params.pds_trail)), _addr(scratch), _addr(lst),
+        _addr(total), _addr(total_prot), _addr(n_free), _stream())
     _raise_on(rc, "exchange")
     LAUNCHES["exchange"] += 1
-    return pool, ib, total, total, n_free
+    return pool, ib, total, total_prot, n_free
 
 
 def exchange_call(pool, ib, h, params):
@@ -173,16 +176,90 @@ def exchange_call(pool, ib, h, params):
 
 
 # ---------------------------------------------------------------------------
+# The TCP branches' arguments (csrc/tcp.cuh TcpArgs)
+# ---------------------------------------------------------------------------
+
+# Socket-table fields in TcpArgs order, with their dtypes (uint32 leaves
+# are int64 words) and trailing range width (None for [H, S]).
+_TCP_SOCK_FIELDS = (
+    ("stype", I32, None), ("tcp_state", I32, None), ("local_port", I32, None),
+    ("peer_host", I32, None), ("peer_port", I32, None), ("parent", I32, None),
+    ("accepted", torch.bool, None), ("child_order", I64, None),
+    ("backlog", I32, None), ("snd_una", I64, None), ("snd_nxt", I64, None),
+    ("snd_end", I64, None), ("snd_wnd", I32, None),
+    ("snd_buf_cap", I32, None), ("cwnd", I32, None), ("ssthresh", I32, None),
+    ("dup_acks", I32, None), ("recover", I64, None),
+    ("in_recovery", torch.bool, None), ("retrans_nxt", I64, None),
+    ("retrans_end", I64, None), ("app_closed", torch.bool, None),
+    ("rcv_nxt", I64, None), ("rcv_read", I64, None),
+    ("rcv_buf_cap", I32, None), ("sack_lo", I64, SACK_RANGES),
+    ("sack_hi", I64, SACK_RANGES), ("fin_seq", I64, None),
+    ("ts_recent", I64, None), ("srtt", I64, None), ("rttvar", I64, None),
+    ("rto", I64, None), ("t_rto", I64, None), ("t_delack", I64, None),
+    ("t_tw", I64, None), ("t_persist", I64, None),
+    ("delack_pending", I32, None), ("at_bytes", I64, None),
+    ("at_last", I64, None), ("cub_epoch", I64, None), ("cub_wmax", I32, None),
+    ("ssack_lo", I64, SSACK_RANGES), ("ssack_hi", I64, SSACK_RANGES),
+    ("retx_segs", I32, None), ("error", I32, None), ("bytes_sent", I64, None),
+    ("bytes_recv", I64, None))
+
+
+class _TcpArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n, _d, _r in _TCP_SOCK_FIELDS] + [
+        (n, ctypes.c_void_p) for n in (
+            "def_snd_buf", "def_rcv_buf", "autotune_snd", "autotune_rcv",
+            "rr_next", "em_valid", "em_blk", "gates", "err")] + [
+        ("min_latency", ctypes.c_int64), ("slots", ctypes.c_int32),
+        ("e", ctypes.c_int32), ("pc", ctypes.c_int32),
+        ("qdisc", ctypes.c_int32)]
+
+
+def _tcp_struct(state, params, em, gates=None) -> _TcpArgs:
+    """The TCP branches' arguments, socket table and emission block
+    checked.  `gates` ([rx_batch] int32) is K_DELIVER's grid-wide gate
+    scratch; K_TRANSPORT leaves it None."""
+    socks, hosts = state.socks, state.hosts
+    h, s = socks.num_hosts, socks.slots
+    pc = state.pool.blk.shape[1]
+    e = em.valid.shape[1]
+    if pc != ICOLS + 4:
+        raise ValueError("the TCP kernels take the full-width (28-column) "
+                         "pool")
+    ptrs = {}
+    for name, dt, r in _TCP_SOCK_FIELDS:
+        t = getattr(socks, name)
+        _check(t, dt, (h, s) if r is None else (h, s, r), f"socks.{name}")
+        ptrs[name] = _addr(t)
+    for name in ("def_snd_buf", "def_rcv_buf"):
+        _check(getattr(socks, name), I32, (h,), f"socks.{name}")
+    for name in ("autotune_snd", "autotune_rcv"):
+        _check(getattr(params, name), torch.bool, (h,), f"params.{name}")
+    _check(hosts.rr_next, I32, (h,), "hosts.rr_next")
+    _check(em.valid, torch.bool, (h, e), "em.valid")
+    _check(em.blk, I32, (h, e, pc), "em.blk")
+    _check(state.err, I32, (), "err")
+    return _TcpArgs(
+        **ptrs, def_snd_buf=_addr(socks.def_snd_buf),
+        def_rcv_buf=_addr(socks.def_rcv_buf),
+        autotune_snd=_addr(params.autotune_snd),
+        autotune_rcv=_addr(params.autotune_rcv),
+        rr_next=_addr(hosts.rr_next), em_valid=_addr(em.valid),
+        em_blk=_addr(em.blk), gates=_addr(gates), err=_addr(state.err),
+        min_latency=params.min_latency_ns, slots=s, e=e, pc=pc,
+        qdisc=int(params.qdisc))
+
+
+# ---------------------------------------------------------------------------
 # K_DELIVER
 # ---------------------------------------------------------------------------
 
 
-def deliver_plain(state, params, app, tick_t, active, window_end, bw_dn,
-                  aux0):
+def deliver_plain(state, params, app, em, tick_t, active, window_end,
+                  bw_dn, aux0):
     """Plain version: engine._rx_phase.  Returns
-    (state, delivered_n, t_post)."""
-    return engine._rx_phase(state, params, tick_t, active, app, window_end,
-                            bw_dn, aux_bound=aux0)
+    (state, em, delivered_n, t_post)."""
+    return engine._rx_phase(state, params, em, tick_t, active, app,
+                            window_end, bw_dn, aux_bound=aux0)
 
 
 class _DeliverArgs(ctypes.Structure):
@@ -257,10 +334,12 @@ def _deliver_struct(state, params, app, bw_dn, window_end=0, tick_t=None,
         pds_trail=int(bool(params.pds_trail)))
 
 
-def deliver_kernel(state, params, app, tick_t, active, window_end, bw_dn,
-                   aux0):
-    """Launch csrc/deliver.cu: _rx_phase with one thread per host.
-    Updates the inbox, hosts and socket tensors in place."""
+def deliver_kernel(state, params, app, em, tick_t, active, window_end,
+                   bw_dn, aux0):
+    """Launch csrc/deliver.cu: _rx_phase with one thread per host (in TCP
+    worlds one cooperative grid, process_arrivals included, replies into
+    `em`).  Updates the inbox, hosts, socket tensors, err and `em` in
+    place; returns (state, em, delivered_n, t_post)."""
     from . import _build
     h = state.hosts.num_hosts
     rx_batch = max(1, int(getattr(app, "rx_batch", 1)))
@@ -275,18 +354,30 @@ def deliver_kernel(state, params, app, tick_t, active, window_end, bw_dn,
     t_post = torch.empty((h,), dtype=I64, device=dev)
     a = _deliver_struct(state, params, app, bw_dn, window_end, tick_t,
                         active, aux0, delivered_n, t_post)
+    tcp = None
+    if engine._uses_tcp(app):
+        gates = torch.empty((rx_batch,), dtype=I32, device=dev)
+        tcp = _tcp_struct(state, params, em, gates)
     lib = _build.load("deliver")
-    _raise_on(lib.deliver_launch(ctypes.byref(a), _stream()), "deliver")
+    rc = lib.deliver_launch(ctypes.byref(a),
+                            None if tcp is None else ctypes.byref(tcp),
+                            _stream())
+    if rc == -1:
+        raise RuntimeError(
+            f"K_DELIVER (TCP) runs as one cooperative grid, and "
+            f"{_n_blocks(h)} blocks for {h} hosts do not fit on the card "
+            f"at once (or it cannot launch cooperative kernels)")
+    _raise_on(rc, "deliver")
     LAUNCHES["deliver"] += 1
-    return state, delivered_n, t_post
+    return state, em, delivered_n, t_post
 
 
-def deliver_call(state, params, app, tick_t, active, window_end, bw_dn,
+def deliver_call(state, params, app, em, tick_t, active, window_end, bw_dn,
                  aux0):
     if _on_cuda(tick_t):
-        return deliver_kernel(state, params, app, tick_t, active,
+        return deliver_kernel(state, params, app, em, tick_t, active,
                               window_end, bw_dn, aux0)
-    return deliver_plain(state, params, app, tick_t, active, window_end,
+    return deliver_plain(state, params, app, em, tick_t, active, window_end,
                          bw_dn, aux0)
 
 
@@ -295,11 +386,15 @@ def deliver_call(state, params, app, tick_t, active, window_end, bw_dn,
 # ---------------------------------------------------------------------------
 
 
-def transport_plain(state, params, em, tick_t, t_post, active, bw_up,
+def transport_plain(state, params, app, em, tick_t, t_post, active, bw_up,
                     delivered_n, t_app):
-    """Plain version: staging, parked-TX drain (the staging refill makes
-    the drain's own refill a no-op), CPU accounting, post-step scan and
-    the step counters.  Returns (state, th, gmin)."""
+    """Plain version: tcp.transmit (TCP worlds), staging, parked-TX drain
+    (the staging refill makes the drain's own refill a no-op), CPU
+    accounting, post-step scan and the step counters.  Returns
+    (state, th, gmin)."""
+    uses_tcp = engine._uses_tcp(app)
+    if uses_tcp:
+        state, em = tcp.transmit(state, params, em, t_post, active)
     state, _placed = engine._stage_emissions(state, params, em, t_post,
                                              active, bw_up)
     state = engine._tx_drain_body(state, params, t_post, active, bw_up,
@@ -308,6 +403,8 @@ def transport_plain(state, params, em, tick_t, t_post, active, bw_up,
                                         delivered_n, em.valid)
     h = state.hosts.num_hosts
     aux = torch.minimum(state.hosts.t_resume, t_app)
+    if uses_tcp:
+        aux = torch.minimum(aux, tcp.timer_min(state.socks))
     th = engine._cpu_clamp(state, params, torch.minimum(
         engine._inbox_next(state.inbox, h), aux))
     state = state.replace(n_steps=state.n_steps + 1,
@@ -403,12 +500,13 @@ def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
         pds_trail=int(bool(params.pds_trail)), n_blocks=n_blocks)
 
 
-def transport_kernel(state, params, em, tick_t, t_post, active, bw_up,
+def transport_kernel(state, params, app, em, tick_t, t_post, active, bw_up,
                      delivered_n, t_app):
-    """Launch csrc/transport.cu: staging + drain + CPU accounting + scan
-    with one thread per host, then the fixed-order reduction of the
-    per-block partials into gmin / n_events / n_steps / err.  Updates
-    the pool, hosts and state scalars in place."""
+    """Launch csrc/transport.cu: transmit (TCP worlds) + staging + drain
+    + CPU accounting + scan with one thread per host, then the
+    fixed-order reduction of the per-block partials into gmin / n_events
+    / n_steps / err.  Updates the pool, hosts, socket tensors, state
+    scalars and the TX lanes of `em` in place."""
     from . import _build
     h = state.hosts.num_hosts
     pc = state.pool.blk.shape[1]
@@ -430,19 +528,22 @@ def transport_kernel(state, params, em, tick_t, t_post, active, bw_up,
     a = _transport_struct(state, params, em.valid, em.blk, e, bw_up, tick_t,
                           t_post, active, delivered_n, t_app, th, blk_ev,
                           blk_min, blk_err, gmin, nb)
+    tcp = _tcp_struct(state, params, em) if engine._uses_tcp(app) else None
     lib = _build.load("transport")
-    _raise_on(lib.transport_launch(ctypes.byref(a), _stream()), "transport")
+    _raise_on(lib.transport_launch(
+        ctypes.byref(a), None if tcp is None else ctypes.byref(tcp),
+        _stream()), "transport")
     LAUNCHES["transport"] += 1
     return state, th, gmin
 
 
-def transport_call(state, params, em, tick_t, t_post, active, bw_up,
+def transport_call(state, params, app, em, tick_t, t_post, active, bw_up,
                    delivered_n, t_app):
     if _on_cuda(tick_t):
-        return transport_kernel(state, params, em, tick_t, t_post, active,
-                                bw_up, delivered_n, t_app)
-    return transport_plain(state, params, em, tick_t, t_post, active, bw_up,
-                           delivered_n, t_app)
+        return transport_kernel(state, params, app, em, tick_t, t_post,
+                                active, bw_up, delivered_n, t_app)
+    return transport_plain(state, params, app, em, tick_t, t_post, active,
+                           bw_up, delivered_n, t_app)
 
 
 # ---------------------------------------------------------------------------
@@ -463,17 +564,20 @@ def microstep_fused(state, params, app, t_h, window_end: int, ctx=None):
         # the kernel does not carry app state, so it rides in per host.
         aux0 = (engine._aux_times(state, params, app) if d_rounds > 1
                 else None)
-    with _phase("microstep.deliver"):
-        state, delivered_n, t_post = deliver_call(
-            state, params, app, tick_t, active, window_end, bw_dn, aux0)
-    with _phase("microstep.app_tick"):
         em = emit.empty(h, engine._n_lanes(app), state.pool.blk.shape[1],
                         state.device)
+    with _phase("microstep.deliver"):
+        state, em, delivered_n, t_post = deliver_call(
+            state, params, app, em, tick_t, active, window_end, bw_dn, aux0)
+    if engine._uses_tcp(app):
+        with _phase("microstep.timers"):
+            state, em = tcp.run_timers(state, params, em, t_post, active)
+    with _phase("microstep.app_tick"):
         state, em = engine._app_tick(state, params, app, em, t_post, active,
                                      window_end)
         t_app = app.next_time(state)
     with _phase("microstep.transport"):
-        return transport_call(state, params, em, tick_t, t_post, active,
+        return transport_call(state, params, app, em, tick_t, t_post, active,
                               bw_up, delivered_n, t_app)
 
 
@@ -496,7 +600,7 @@ def window_plain(state, params, app, t_target):
 class _ExchangeArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "pool_blk", "pool_stage", "pool_time", "pool_status", "ib_blk",
-        "ib_stage", "ib_status", "cnt", "fill", "start", "lst")] + [
+        "ib_stage", "ib_status", "cnt", "fill", "start", "lst", "gate")] + [
         ("p0", ctypes.c_int64), ("pc", ctypes.c_int32),
         ("ic", ctypes.c_int32), ("ki", ctypes.c_int32),
         ("h", ctypes.c_int32), ("pds_trail", ctypes.c_int32)]

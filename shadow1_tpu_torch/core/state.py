@@ -59,6 +59,24 @@ ERR_POOL_OVERFLOW = 1 << 0
 ERR_SOCKET_OVERFLOW = 1 << 1
 ERR_UDPQ_OVERFLOW = 1 << 2
 
+TCP_FLAG_FIN = 1
+TCP_FLAG_SYN = 2
+TCP_FLAG_RST = 4
+TCP_FLAG_PSH = 8   # the zero-window probe marker (forces an ACK)
+TCP_FLAG_ACK = 16
+
+TCPS_CLOSED = 0
+TCPS_LISTEN = 1
+TCPS_SYNSENT = 2
+TCPS_SYNRECEIVED = 3
+TCPS_ESTABLISHED = 4
+TCPS_FINWAIT1 = 5
+TCPS_FINWAIT2 = 6
+TCPS_CLOSING = 7
+TCPS_TIMEWAIT = 8
+TCPS_CLOSEWAIT = 9
+TCPS_LASTACK = 10
+
 I32 = torch.int32
 I64 = torch.int64
 F32 = torch.float32
@@ -214,8 +232,8 @@ _SOCK_U32 = frozenset({
 
 @dataclasses.dataclass
 class SocketTable(Tree):
-    """[H, S] socket slots.  The TCP fields ride along untouched in this
-    UDP-only slice (they are part of the state the tests compare)."""
+    """[H, S] socket slots: the UDP ring and the TCP machine's fields
+    (transport/tcp.py)."""
 
     U32_FIELDS = _SOCK_U32
 

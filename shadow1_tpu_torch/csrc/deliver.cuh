@@ -1,14 +1,20 @@
 // K_DELIVER's per-host body as a device function, shared by the per-phase
 // kernel of deliver.cu and by K_WINDOW (window.cu).
 //
-// What it computes (engine._rx_phase, UDP branch): router enqueue of the
-// host's due inbox arrivals, then `rx_batch` delivery rounds, each taking
-// the earliest candidate in (time, pkt_id) order through the NIC rx token
-// bucket and CoDel, into the UDP socket ring.  Every access is row-local
-// by the megakernel's blocking contract (megakernel.py:30-37): a host
-// touches only its own inbox slab, host row and socket rows.
+// What it computes (engine._rx_phase): router enqueue of the host's due
+// inbox arrivals, then `rx_batch` delivery rounds, each taking the
+// earliest candidate in (time, pkt_id) order through the NIC rx token
+// bucket and CoDel, into the UDP socket ring or, in TCP worlds, through
+// tcp.process_arrivals (tcp.cuh), whose reply goes into lane
+// SLOT_RX_REPLY (round 0) or NUM_SLOTS + r - 1.  Every access is
+// row-local by the megakernel's blocking contract (megakernel.py:30-37):
+// a host touches only its own inbox slab, host row, socket rows and
+// emission lanes.  The one cross-host value is each round's pair of
+// scoreboard gates (tcp.cuh), which the caller's `gate` ORs over the
+// grid; every thread of the grid, host or not, calls it once per round.
 #pragma once
 #include "common.cuh"
+#include "tcp.cuh"
 
 namespace s1 {
 
@@ -120,137 +126,175 @@ struct DeliverOut {
   int64_t t_post;
 };
 
+// The gate of UDP worlds: never called (no TCP branch runs).
+struct NoGate {
+  __device__ int32_t operator()(int, int32_t bits) const { return bits; }
+};
+
 // _rx_phase for host hh at tick `tick` (active or not); `aux0` is the
-// rx_batch bound at batch start (read only when rx_batch > 1).
-__device__ __forceinline__ DeliverOut deliver_host(const DeliverArgs& a,
-                                                   int hh, int64_t tick,
-                                                   bool act, int64_t aux0,
-                                                   int64_t window_end) {
+// rx_batch bound at batch start (read only when rx_batch > 1).  `tcp` is
+// null in UDP worlds.  A thread with no host (`valid` false) touches no
+// memory but runs the same rounds, so that every thread of the block
+// reaches the one `gate` call of each round at the same place (a
+// barrier must not be reached from divergent call sites).  The
+// socket-overflow error bits of the TCP branch are OR-ed into `err`.
+template <class Gate>
+__device__ __forceinline__ DeliverOut deliver_host(
+    const DeliverArgs& a, const TcpArgs* tcp, const Gate& gate, int hh,
+    bool valid, int64_t tick, bool act, int64_t aux0, int64_t window_end,
+    int32_t& err) {
   const int ki = a.ki, ic = a.ic, S = a.slots;
   const int64_t base = (int64_t)hh * ki;
-
-  // Router enqueue: due wire arrivals join the router queue.
-  int32_t rxq = a.rx_queued[hh];
-  for (int k = 0; k < ki; ++k) {
-    const int64_t slot = base + k;
-    const int32_t* row = a.ib_blk + slot * ic;
-    if (act && a.ib_stage[slot] == STAGE_IN_FLIGHT &&
-        dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]) <= tick) {
-      a.ib_stage[slot] = STAGE_RX_QUEUED;
-      if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
-      ++rxq;
+  int32_t rxq = 0;
+  bool boot = false;
+  int64_t rate = 0, tokens = 0, last = 0, bound = tick, t_resume = INV;
+  int64_t dropped_router = 0, pkts_recv = 0, bytes_recv = 0;
+  Codel cd{0, false, 0, 0};
+  if (valid) {
+    // Router enqueue: due wire arrivals join the router queue.
+    rxq = a.rx_queued[hh];
+    for (int k = 0; k < ki && act; ++k) {
+      const int64_t slot = base + k;
+      if (a.ib_stage[slot] != STAGE_IN_FLIGHT) continue;
+      const int32_t* row = a.ib_blk + slot * ic;
+      if (dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]) <= tick) {
+        a.ib_stage[slot] = STAGE_RX_QUEUED;
+        if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
+        ++rxq;
+      }
     }
+    boot = tick < a.bootstrap_end;
+    rate = a.bw_dn[hh];
+    tokens = a.tokens_rx[hh];
+    last = a.last_refill_rx[hh];
+    refill(tokens, last, rate, tick, act);
+    if (a.rx_batch > 1) {
+      bound = imin(aux0, tick + ONE_MS);
+      bound = imin(bound, window_end - 1);
+    }
+    cd = Codel{a.codel_count[hh], a.codel_dropping[hh] != 0,
+               a.codel_first_above[hh], a.codel_drop_next[hh]};
+    t_resume = a.t_resume[hh];
+    dropped_router = a.pkts_dropped_router[hh];
+    pkts_recv = a.pkts_recv[hh];
+    bytes_recv = a.bytes_recv[hh];
   }
-
-  const bool boot = tick < a.bootstrap_end;
-  const int64_t rate = a.bw_dn[hh];
-  int64_t tokens = a.tokens_rx[hh], last = a.last_refill_rx[hh];
-  refill(tokens, last, rate, tick, act);
-  int64_t bound = tick;
-  if (a.rx_batch > 1) {
-    bound = imin(aux0, tick + ONE_MS);
-    bound = imin(bound, window_end - 1);
-  }
-  Codel cd{a.codel_count[hh], a.codel_dropping[hh] != 0,
-           a.codel_first_above[hh], a.codel_drop_next[hh]};
-  int64_t t_resume = a.t_resume[hh];
-  int64_t dropped_router = a.pkts_dropped_router[hh];
-  int64_t pkts_recv = a.pkts_recv[hh], bytes_recv = a.bytes_recv[hh];
   int32_t delivered = 0;
   int64_t t_post = tick;
 
   for (int r = 0; r < a.rx_batch; ++r) {
-    const int64_t limit = r == 0 ? tick : bound;
-    // Earliest candidate by (time, pkt_id), lowest slot on a full tie.
-    int64_t tmin = INV, kmin = INV;
-    int col = ki;
-    for (int k = 0; k < ki; ++k) {
-      const int64_t slot = base + k;
-      const int32_t st = a.ib_stage[slot];
-      const int32_t* row = a.ib_blk + slot * ic;
-      const int64_t t = dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]);
-      const bool cand = act && (st == STAGE_RX_QUEUED ||
-                                (r > 0 && st == STAGE_IN_FLIGHT &&
-                                 t <= limit));
-      if (!cand) continue;
-      const int64_t key = ((int64_t)row[ICOL_SRC] << 40) |
-                          dec_i64(row[ICOL_CTR_LO], row[ICOL_CTR_HI]);
-      if (t < tmin || (t == tmin && key < kmin)) {
-        tmin = t;
-        kmin = key;
-        col = k;
-      }
-    }
-    const bool have = act && col < ki && tmin <= limit;
-    if (col > ki - 1) col = ki - 1;
-    const int64_t slot = base + col;
-    const bool was_queued = have && a.ib_stage[slot] == STAGE_RX_QUEUED;
-    const int64_t t_eff = imax(tick, have ? tmin : 0);
-    const int32_t* row = a.ib_blk + slot * ic;
-    const int32_t p_src = row[ICOL_SRC], p_proto = row[ICOL_PROTO];
-    const int32_t p_len = row[ICOL_LEN];
-    const int64_t p_time = have ? tmin : 0;
-
-    if (r > 0) refill(tokens, last, rate, t_eff, have);
-    const int64_t size = wire_size(p_proto, p_len);
-    const bool loop = p_src == hh;
-    const bool free_pass = loop || boot;
-    const bool funded = have && (free_pass || tokens >= size);
-    const int64_t sojourn = imax(t_eff - p_time, 0);
-    const int32_t backlog_after = rxq - (was_queued ? 1 : 0);
-    const bool drop = cd.dequeue(funded && !loop, t_eff, sojourn,
-                                 backlog_after, a.rsqrt_tab);
-    const bool deliver = funded && !drop;
-    if (funded && !free_pass) tokens -= size;
-    if (funded) {
-      a.ib_stage[slot] = STAGE_FREE;
-      if (a.pds_trail) {
-        a.ib_status[slot] |= drop ? (PDS_ROUTER_ENQUEUED | PDS_ROUTER_DROPPED)
-                                  : (PDS_ROUTER_ENQUEUED |
-                                     PDS_RCV_SOCKET_PROCESSED);
-      }
-    }
-    if (funded && was_queued) --rxq;
-    if (drop) ++dropped_router;
-    if (r == a.rx_batch - 1) {
-      const int64_t t_res =
-          (have && !funded) ? tick + time_until(size - tokens, rate)
-                            : ((funded && rxq > 0) ? tick : INV);
-      t_resume = imin(t_resume, t_res);
-    }
-
-    if (deliver && p_proto == PROTO_UDP) {
-      // udp.lookup_socket: connected beats wildcard, lowest slot on ties.
-      const int32_t p_sport = row[ICOL_SPORT], p_dport = row[ICOL_DPORT];
-      int best = 0, sl = 0;
-      for (int s = 0; s < S; ++s) {
-        const int64_t i = (int64_t)hh * S + s;
-        const bool port_ok = a.stype[i] == SOCK_UDP &&
-                             a.local_port[i] == p_dport;
-        const int score =
-            !port_ok ? 0
-            : (a.peer_host[i] == p_src && a.peer_port[i] == p_sport) ? 2
-            : (a.peer_host[i] == -1 ? 1 : 0);
-        if (score > best) {
-          best = score;
-          sl = s;
+    bool have = false, deliver = false;
+    int32_t p_proto = 0, p_len = 0;
+    int64_t t_eff = tick, kmin = INV;
+    const int32_t* row = a.ib_blk;
+    if (valid) {
+      const int64_t limit = r == 0 ? tick : bound;
+      // Earliest candidate by (time, pkt_id), lowest slot on a full tie.
+      int64_t tmin = INV;
+      int col = ki;
+      for (int k = 0; k < ki && act; ++k) {
+        // The stage column first: a row is read only for a live slot.
+        const int64_t slot = base + k;
+        const int32_t st = a.ib_stage[slot];
+        if (st != STAGE_RX_QUEUED && (r == 0 || st != STAGE_IN_FLIGHT))
+          continue;
+        const int32_t* rk = a.ib_blk + slot * ic;
+        const int64_t t = dec_i64(rk[ICOL_TIME_LO], rk[ICOL_TIME_HI]);
+        if (st == STAGE_IN_FLIGHT && t > limit) continue;
+        const int64_t key = ((int64_t)rk[ICOL_SRC] << 40) |
+                            dec_i64(rk[ICOL_CTR_LO], rk[ICOL_CTR_HI]);
+        if (t < tmin || (t == tmin && key < kmin)) {
+          tmin = t;
+          kmin = key;
+          col = k;
         }
       }
-      if (best > 0) {
-        // udp.push_ring: append unless the ring is full.
-        const int64_t i = (int64_t)hh * S + sl;
-        const int32_t cnt = a.udp_count[i];
-        if (cnt < UDP_RING) {
-          const int32_t pos = (a.udp_head[i] + cnt) % UDP_RING;
-          const int64_t j = i * UDP_RING + pos;
-          a.udp_src[j] = p_src;
-          a.udp_sport[j] = p_sport;
-          a.udp_len[j] = p_len;
-          a.udp_payload[j] = row[ICOL_PAYLOAD];
-          a.udp_count[i] = cnt + 1;
-          a.sock_bytes_recv[i] += p_len;
+      have = act && col < ki && tmin <= limit;
+      if (col > ki - 1) col = ki - 1;
+      const int64_t slot = base + col;
+      const bool was_queued = have && a.ib_stage[slot] == STAGE_RX_QUEUED;
+      t_eff = imax(tick, have ? tmin : 0);
+      row = a.ib_blk + slot * ic;
+      const int32_t p_src = row[ICOL_SRC];
+      p_proto = row[ICOL_PROTO];
+      p_len = row[ICOL_LEN];
+      const int64_t p_time = have ? tmin : 0;
+
+      if (r > 0) refill(tokens, last, rate, t_eff, have);
+      const int64_t size = wire_size(p_proto, p_len);
+      const bool loop = p_src == hh;
+      const bool free_pass = loop || boot;
+      const bool funded = have && (free_pass || tokens >= size);
+      const int64_t sojourn = imax(t_eff - p_time, 0);
+      const int32_t backlog_after = rxq - (was_queued ? 1 : 0);
+      const bool drop = cd.dequeue(funded && !loop, t_eff, sojourn,
+                                   backlog_after, a.rsqrt_tab);
+      deliver = funded && !drop;
+      if (funded && !free_pass) tokens -= size;
+      if (funded) {
+        a.ib_stage[slot] = STAGE_FREE;
+        if (a.pds_trail) {
+          a.ib_status[slot] |= drop ? (PDS_ROUTER_ENQUEUED |
+                                       PDS_ROUTER_DROPPED)
+                                    : (PDS_ROUTER_ENQUEUED |
+                                       PDS_RCV_SOCKET_PROCESSED);
         }
       }
+      if (funded && was_queued) --rxq;
+      if (drop) ++dropped_router;
+      if (r == a.rx_batch - 1) {
+        const int64_t t_res =
+            (have && !funded) ? tick + time_until(size - tokens, rate)
+                              : ((funded && rxq > 0) ? tick : INV);
+        t_resume = imin(t_resume, t_res);
+      }
+
+      if (deliver && p_proto == PROTO_UDP) {
+        // udp.lookup_socket: connected beats wildcard, lowest slot on
+        // ties.
+        const int32_t p_sport = row[ICOL_SPORT], p_dport = row[ICOL_DPORT];
+        int best = 0, sl = 0;
+        for (int s = 0; s < S; ++s) {
+          const int64_t i = (int64_t)hh * S + s;
+          const bool port_ok = a.stype[i] == SOCK_UDP &&
+                               a.local_port[i] == p_dport;
+          const int score =
+              !port_ok ? 0
+              : (a.peer_host[i] == p_src && a.peer_port[i] == p_sport) ? 2
+              : (a.peer_host[i] == -1 ? 1 : 0);
+          if (score > best) {
+            best = score;
+            sl = s;
+          }
+        }
+        if (best > 0) {
+          // udp.push_ring: append unless the ring is full.
+          const int64_t i = (int64_t)hh * S + sl;
+          const int32_t cnt = a.udp_count[i];
+          if (cnt < UDP_RING) {
+            const int32_t pos = (a.udp_head[i] + cnt) % UDP_RING;
+            const int64_t j = i * UDP_RING + pos;
+            a.udp_src[j] = p_src;
+            a.udp_sport[j] = p_sport;
+            a.udp_len[j] = p_len;
+            a.udp_payload[j] = row[ICOL_PAYLOAD];
+            a.udp_count[i] = cnt + 1;
+            a.sock_bytes_recv[i] += p_len;
+          }
+        }
+      }
+    }
+    if (tcp != nullptr) {
+      // tcp.process_arrivals, split at the round's grid-wide gates.
+      Arrival ar;
+      ar.gate_bits = 0;
+      if (valid)
+        err |= tcp_arrival_begin(*tcp, ar, hh, row, have ? kmin : 0, t_eff,
+                                 deliver && p_proto == PROTO_TCP);
+      const int32_t g = gate(r, ar.gate_bits);
+      if (valid)
+        tcp_arrival_finish(*tcp, ar, hh, g,
+                           r == 0 ? SLOT_RX_REPLY : NUM_SLOTS + r - 1);
     }
     if (deliver) {
       ++pkts_recv;
@@ -264,17 +308,19 @@ __device__ __forceinline__ DeliverOut deliver_host(const DeliverArgs& a,
     }
   }
 
-  a.rx_queued[hh] = rxq;
-  a.tokens_rx[hh] = tokens;
-  a.last_refill_rx[hh] = last;
-  a.codel_count[hh] = cd.count;
-  a.codel_dropping[hh] = cd.dropping ? 1 : 0;
-  a.codel_first_above[hh] = cd.first_above;
-  a.codel_drop_next[hh] = cd.drop_next;
-  a.t_resume[hh] = t_resume;
-  a.pkts_dropped_router[hh] = dropped_router;
-  a.pkts_recv[hh] = pkts_recv;
-  a.bytes_recv[hh] = bytes_recv;
+  if (valid) {
+    a.rx_queued[hh] = rxq;
+    a.tokens_rx[hh] = tokens;
+    a.last_refill_rx[hh] = last;
+    a.codel_count[hh] = cd.count;
+    a.codel_dropping[hh] = cd.dropping ? 1 : 0;
+    a.codel_first_above[hh] = cd.first_above;
+    a.codel_drop_next[hh] = cd.drop_next;
+    a.t_resume[hh] = t_resume;
+    a.pkts_dropped_router[hh] = dropped_router;
+    a.pkts_recv[hh] = pkts_recv;
+    a.bytes_recv[hh] = bytes_recv;
+  }
   return DeliverOut{delivered, t_post};
 }
 

@@ -2,18 +2,23 @@
 // shared by the per-phase kernels of transport.cu and by K_WINDOW
 // (window.cu).
 //
-// What transport_host computes (UDP branch): engine._stage_emissions
-// (pkt_id assignment, route_blk lookup, keyed loss draw, merge into free
-// outbox slots either IN_FLIGHT or parked TX_QUEUED under the tx token
-// bucket), _tx_drain_body (one parked departure per host), the
+// What transport_host computes: in TCP worlds tcp.transmit first
+// (tcp.cuh: up to TX_SLOTS segments of one socket into the emission
+// lanes, back-pressured by the free outbox slots counted before staging),
+// then engine._stage_emissions (pkt_id assignment, route_blk lookup,
+// keyed loss draw, merge into free outbox slots either IN_FLIGHT or
+// parked TX_QUEUED under the tx token bucket; full-width rows carry the
+// TS send stamp), _tx_drain_body (one parked departure per host), the
 // virtual-CPU accounting, and the post-step scan (scan_host: _scan_all
-// on the host's slab plus the app wake time carried in).  Every access is
-// row-local; route_blk and host_vertex are replicated read-only tables.
+// on the host's slab plus the app wake time and, in TCP worlds, the
+// earliest socket timer).  Every access is row-local; route_blk and
+// host_vertex are replicated read-only tables.
 // The r-th surviving emission takes the r-th free outbox slot in
 // ascending order: slots are filled in that order, so the next free slot
 // is always the first still-FREE one at or after the previous pick.
 #pragma once
 #include "common.cuh"
+#include "tcp.cuh"
 
 namespace s1 {
 
@@ -121,10 +126,12 @@ __device__ __forceinline__ HostOut block_reduce(HostOut o) {
   return out;
 }
 
-// Staging + drain + CPU accounting + post-step scan for host hh: `tick`
-// is its tick_t, `tp` its t_post, `delivered` K_DELIVER's count and
-// `t_app` the app's wake time after the tick.
+// Transmit (TCP) + staging + drain + CPU accounting + post-step scan for
+// host hh: `tick` is its tick_t, `tp` its t_post, `delivered` K_DELIVER's
+// count and `t_app` the app's wake time after the tick; `tcp` is null in
+// UDP worlds.
 __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
+                                                  const TcpArgs* tcp,
                                                   int hh, int64_t tick,
                                                   int64_t tp, bool act,
                                                   int32_t delivered,
@@ -143,6 +150,8 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   const int32_t txq0 = a.tx_queued[hh];
   int n_free = 0;
   for (int k = 0; k < ko; ++k) n_free += a.pool_stage[pbase + k] == STAGE_FREE;
+  int64_t t_resume = a.t_resume[hh];
+  if (tcp != nullptr) tcp_transmit(*tcp, hh, tp, act, n_free, t_resume);
   const int32_t vs = a.host_vertex[hh];
   int nvalid = 0, nlive = 0, cursor = 0;
   int64_t prefix = 0, spent = 0, t_park = INV;
@@ -202,6 +211,11 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
     pr[ICOL_TIME_HI] = enc_hi(time_v);
     pr[ICOL_CTR_LO] = enc_lo(ctr2);
     pr[ICOL_CTR_HI] = enc_hi(ctr2);
+    if (xb >= ICOLS) {                      // full-width TCP row
+      pr[ICOL_TS_LO] = enc_lo(send_t);
+      pr[ICOL_TS_HI] = enc_hi(send_t);
+      for (int c = ICOL_TSE_LO; c < ICOLS; ++c) pr[c] = er[c];
+    }
     pr[xb + OEXT_DST] = dst;
     pr[xb + OEXT_LAT_LO] = enc_lo(lat);
     pr[xb + OEXT_LAT_HI] = enc_hi(lat);
@@ -216,7 +230,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   }
   tokens -= spent;
   int32_t txq = txq0 + parked_n;
-  int64_t t_resume = imin(a.t_resume[hh], t_park);
+  t_resume = imin(t_resume, t_park);
   a.send_ctr[hh] = ctr + nvalid;
   a.pkts_sent[hh] += placed_n;
   a.bytes_sent[hh] += sent_bytes;
@@ -227,10 +241,10 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   // ---- _tx_drain_body (skip_refill: staging refilled at this instant) ----
   int64_t tmin = INV;
   int jsel = ko;
-  for (int k = 0; k < ko; ++k) {
+  for (int k = 0; k < ko && act; ++k) {
+    if (a.pool_stage[pbase + k] != STAGE_TX_QUEUED) continue;
     const int64_t t = a.pool_time[pbase + k];
-    if (act && a.pool_stage[pbase + k] == STAGE_TX_QUEUED && t <= tp &&
-        t < tmin) {
+    if (t <= tp && t < tmin) {
       tmin = t;
       jsel = k;
     }
@@ -267,8 +281,9 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   }
 
   // ---- post-step scan: inbox arrivals, re-ticks, app, CPU clamp ----------
-  const int64_t th = scan_host(a, hh, imin(t_resume, t_app), cpu_ns,
-                               cpu_avail);
+  int64_t aux = imin(t_resume, t_app);
+  if (tcp != nullptr) aux = imin(aux, timer_min(*tcp, hh));
+  const int64_t th = scan_host(a, hh, aux, cpu_ns, cpu_avail);
   return HostOut{th, events, overflow ? 1 : 0};
 }
 

@@ -140,8 +140,8 @@ __global__ void __launch_bounds__(kBlock) k_window(WindowArgs a) {
   HostOut o{INV, 0, 0};
   for (int64_t dd = gtid; dd < h; dd += gstride) {
     const int d = (int)dd;
-    int32_t total, n_free;
-    ex_place_dest(a.x, d, total, n_free);
+    int32_t total, total_prot, n_free;
+    ex_place_dest(a.x, d, total, total_prot, n_free);
     if (total > n_free) {
       a.t.pkts_dropped_pool[d] += total - n_free;
       o.err |= ERR_POOL_OVERFLOW;
@@ -179,12 +179,14 @@ __global__ void __launch_bounds__(kBlock) k_window(WindowArgs a) {
       const int64_t tick = act ? th0 : we;
       if (act) a.d.t_resume[hh] = INV;
       const int64_t aux0 = imin(a.d.t_resume[hh], app_next(a.p, hh));
-      const DeliverOut dl = deliver_host(a.d, hh, tick, act, aux0, we);
+      int32_t no_tcp_err = 0;
+      const DeliverOut dl = deliver_host(a.d, nullptr, NoGate{}, hh, true,
+                                         tick, act, aux0, we, no_tcp_err);
       phold_tick(a.p, a.d, hh, dl.t_post, act, we,
                  a.em_valid + (int64_t)hh * e,
                  a.em_blk + (int64_t)hh * e * pc, e, pc);
-      const HostOut t = transport_host(a.t, hh, tick, dl.t_post, act,
-                                       dl.delivered, app_next(a.p, hh));
+      const HostOut t = transport_host(a.t, nullptr, hh, tick, dl.t_post,
+                                       act, dl.delivered, app_next(a.p, hh));
       a.t_h[hh] = t.th;
       s.th = imin(s.th, t.th);
       s.events += t.events;

@@ -1,7 +1,8 @@
 """The port's kernel build keys (shadow1_tpu_torch/core/_build.py), on the
 CPU: no nvcc runs here.  A library's name is keyed by the hash of its
 `.cu` and of every header it includes, so an edit to a shared phase
-header (csrc/*.cuh) rebuilds every kernel that includes it."""
+header (csrc/*.cuh, the TCP machine's tcp.cuh among them) rebuilds every
+kernel that includes it."""
 
 import shutil
 
@@ -13,9 +14,10 @@ def test_sources_follow_includes():
     assert names["window"][0] == "window.cu"
     assert set(names["window"]) == {
         "window.cu", "exchange.cuh", "deliver.cuh", "transport.cuh",
-        "phold_tick.cuh", "common.cuh"}
+        "phold_tick.cuh", "tcp.cuh", "common.cuh"}
     for n in ("exchange", "deliver", "transport"):
-        assert set(names[n]) == {f"{n}.cu", f"{n}.cuh", "common.cuh"}
+        assert set(names[n]) == {f"{n}.cu", f"{n}.cuh", "tcp.cuh",
+                                 "common.cuh"}
 
 
 def test_header_edit_changes_the_key(tmp_path, monkeypatch):
@@ -28,3 +30,17 @@ def test_header_edit_changes_the_key(tmp_path, monkeypatch):
     after = {n: _build.lib_path(n) for n in _build.NAMES}
     changed = {n for n in _build.NAMES if before[n] != after[n]}
     assert changed == {"deliver", "window"}
+
+
+def test_tcp_header_edit_rebuilds_every_kernel(tmp_path, monkeypatch):
+    """The TCP machine (csrc/tcp.cuh) is one copy of device code that the
+    exchange, K_DELIVER, K_TRANSPORT and K_WINDOW all include."""
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    before = {n: _build.lib_path(n) for n in _build.NAMES}
+    with open(src / "tcp.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.lib_path(n) for n in _build.NAMES}
+    assert {n for n in _build.NAMES if before[n] != after[n]} == \
+        set(_build.NAMES)

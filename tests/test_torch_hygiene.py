@@ -29,8 +29,9 @@ def _modules():
                 mod = rel[:-3].replace(os.sep, ".")
                 names.append(mod[:-len(".__init__")]
                              if mod.endswith(".__init__") else mod)
-    assert "shadow1_tpu_torch.core.engine" in names
-    assert "shadow1_tpu_torch.core.megakernel" in names
+    for m in ("core.engine", "core.megakernel", "transport.tcp",
+              "transport.cong", "apps.bulk"):
+        assert f"shadow1_tpu_torch.{m}" in names
     return sorted(names)
 
 
@@ -79,6 +80,7 @@ def _entry_points():
     from shadow1_tpu_torch.core import params, state
     return {
         "sim.build_phold": lambda: sim.build_phold(num_hosts=4),
+        "sim.build_bulk": lambda: sim.build_bulk(num_hosts=4),
         "convert.state_from_jax": lambda: convert.state_from_jax({}),
         "convert.params_from_jax": lambda: convert.params_from_jax({}, {}),
         "params.make_net_params": lambda: params.make_net_params(
@@ -87,7 +89,7 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["sim.build_phold",
+@pytest.mark.parametrize("name", ["sim.build_phold", "sim.build_bulk",
                                   "convert.state_from_jax",
                                   "convert.params_from_jax",
                                   "params.make_net_params",
