@@ -40,17 +40,25 @@ Phases, each reported on its own line:
    width) on the card through its warm-up and into the transfer: the TCP
    branches of the exchange (at a window boundary, and on crafted
    slab-overflow inputs that shed pure ACKs), K_DELIVER and K_TRANSPORT
-   (at the arrival-heaviest of a window's micro-steps) against their
-   plain versions, torch.equal on every output leaf, timed and bounded as
-   in phase 3.  Then a lossy 16-host bulk world to 3 s through the
-   per-phase kernels and through the plain versions, leaf for leaf, with
-   retransmissions reached.
-7. TCP main path -- BULK with persistent=False (Bulk has no device tick)
-   through run_until / run_chunked from 0 to BULK_RUN_NS, counters zeroed
-   just before and read just after; the trajectory must equal the JAX
-   package's and the launches its windows and micro-steps.  Then one
-   window under torch.profiler, as in phase 5.
-8. kernels line -- one JSON object with each kernel's numbers (ms is
+   (at the arrival-heaviest of a window's micro-steps) and K_WINDOW's TCP
+   kernel (the whole window at that boundary) against their plain
+   versions, torch.equal on every output leaf, timed and bounded as in
+   phase 3.  Then a lossy 16-host bulk world to 3 s through K_WINDOW,
+   through the per-phase kernels and through the plain versions, leaf for
+   leaf, with retransmissions reached.
+7. TCP per-phase path -- BULK with persistent=False through run_until /
+   run_chunked from 0 to BULK_RUN_NS, counters zeroed just before and
+   read just after; the trajectory must equal the JAX package's and the
+   launches its windows and micro-steps.  Then one window under
+   torch.profiler, as in phase 5.
+8. TCP main path, persistent -- BULK with sim.build_bulk's defaults (one
+   K_WINDOW TCP launch per window), the same schedule, counters zeroed
+   just before and read just after: the trajectory must equal the JAX
+   package's, the launches one window launch per window and nothing else,
+   and the final state the per-phase path's, leaf for leaf.  Then a few
+   windows again with CUDA events around each K_WINDOW call: device time
+   per window and the device's busy share.
+9. kernels line -- one JSON object with each kernel's numbers (ms is
    the device time, call_ms the call time); each kernel's launches come
    from the run of its own path; the TCP branches are rows of their own.
 
@@ -140,11 +148,21 @@ REPLACES = {
 }
 PER_PHASE = ("exchange", "deliver", "transport")
 TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
-            "transport_tcp": "transport"}
+            "transport_tcp": "transport", "window_tcp": "window"}
+# Windows of the persistent TCP main path timed again with CUDA events.
+BUSY_WINDOWS = 8
+
+
+_T0 = time.perf_counter()
 
 
 def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: {msg}")
+
+
+def _phase_done(name: str) -> None:
+    print(f"phase {name}: done at {time.perf_counter() - _T0:.1f} s",
+          flush=True)
 
 
 def summary(state) -> dict:
@@ -403,18 +421,50 @@ def tick_bound(st, out, em, active) -> tuple[int, int]:
     return read + written, draws * 80 + n_act * (ki * 4 + 40)
 
 
+def tcp_tick_bound(st, out, em, active) -> tuple[int, int]:
+    """(bytes, operations) of run_timers plus bulk's tick: every active
+    host's four timers per socket and the fired socket's row; every host's
+    socket type, state and receive pointers (the sink consumes and closes
+    on the whole table); the running clients' socket rows and every active
+    host's app state read; the changed elements and the timer lane's rows
+    written.  Operations: ~8 per timer compared, ~6 per socket of the sink,
+    ~200 per fired timer or client step."""
+    from shadow1_tpu_torch.core import emit
+    h = st.hosts.num_hosts
+    s = st.socks.slots
+    n_act = int(active.sum())
+    fired = int((out.socks.t_rto != st.socks.t_rto).any(dim=1).sum()
+                + (out.socks.t_delack != st.socks.t_delack).any(dim=1).sum()
+                + (out.socks.t_tw != st.socks.t_tw).any(dim=1).sum()
+                + (out.socks.t_persist != st.socks.t_persist).any(dim=1)
+                .sum())
+    running = int((active & st.app.is_client
+                   & ((st.app.phase == 1) | (out.app.phase != st.app.phase)))
+                  .sum())
+    row = sock_row_bytes(st.socks)
+    n_timer = int(em.valid[:, emit.SLOT_TIMER].sum())
+    read = (n_act * s * 4 * 8 + h * s * (4 + 4 + 8 + 8)
+            + (fired + running) * row + n_act * (1 + 4 + 4 + 8 * 3))
+    written = changed_bytes(st, out) + n_timer * (em.blk.shape[-1] * 4 + 1)
+    return read + written, (n_act * s * 4 * 8 + h * s * 6
+                            + (fired + running) * 200)
+
+
 def window_bound(state, params, app, t_target) -> tuple[int, int, int]:
     """(bytes, operations, micro-steps) of one K_WINDOW call on `state`:
     the sum of what its phases must move and do, counted from this
     window's data by replaying it phase by phase through the per-phase
     kernels -- the exchange, the scan, per micro-step the tick setup,
-    K_DELIVER, the tick and K_TRANSPORT, and the closing outbox scan."""
+    K_DELIVER, (TCP) run_timers, the tick and K_TRANSPORT, and the
+    closing outbox scan."""
     from shadow1_tpu_torch.core import emit, engine
     from shadow1_tpu_torch.core import megakernel as mk
     from shadow1_tpu_torch.core.state import STAGE_IN_FLIGHT
+    from shadow1_tpu_torch.transport import tcp as tcp_mod
     clone = engine.clone_state
     h = state.hosts.num_hosts
     ki = state.inbox.capacity // h
+    tcp = engine._uses_tcp(app)
     bw_up, bw_dn = engine._window_ctx(state, params)
     b, ops = exchange_bound(state)
     st = engine._exchange(clone(state), params, fused=True)
@@ -436,18 +486,21 @@ def window_bound(state, params, app, t_target) -> tuple[int, int, int]:
                         st.device)
         st, em, dn, tp = mk.deliver_kernel(st, params, app, em, tick_t,
                                            active, we, bw_dn, aux0)
-        b += deliver_bytes(s_in, st, dn, active, app)
-        ops += deliver_ops(s_in, dn, active, app)
+        b += deliver_bytes(s_in, st, dn, active, app, em if tcp else None)
+        ops += deliver_ops(s_in, dn, active, app, tcp)
         s_in = clone(st)
+        if tcp:
+            st, em = tcp_mod.run_timers(st, params, em, tp, active)
         st, em = engine._app_tick(st, params, app, em, tp, active, we)
-        tb, to = tick_bound(s_in, st, em, active)
+        tb, to = (tcp_tick_bound if tcp else tick_bound)(s_in, st, em,
+                                                         active)
         b, ops = b + tb, ops + to
         t_app = app.next_time(st)
         s_in = clone(st)
         st, t_h, gmin = mk.transport_kernel(st, params, app, em, tick_t, tp,
                                             active, bw_up, dn, t_app)
-        b += transport_bytes(s_in, st, em, active, params)
-        ops += transport_ops(s_in, em, active)
+        b += transport_bytes(s_in, st, em, active, params, tcp)
+        ops += transport_ops(s_in, em, active, tcp)
     # Window close: the pool's stage column and its in-flight times.
     n_out = int((st.pool.stage == STAGE_IN_FLIGHT).sum())
     b += st.pool.stage.numel() * 4 + n_out * 8 + 5 * 8
@@ -694,16 +747,18 @@ def check_kernels(state, params, app, dev):
     return times, bounds, errs
 
 
-def check_window(state, params, app):
-    """K_WINDOW against window_plain on clones of the bench world at a
-    window boundary three windows after `state`: every leaf of the state
-    and t_h / gmin / ws / we / outbox pending must be equal.  Returns
-    ((kernel (device ms, call ms), plain (device ms, call ms)),
-    (bytes, operations) bound, max |kernel - plain|)."""
+def check_window(state, params, app, advance=3, label="kernels: window",
+                 kernel="k_window", plain_reps=7):
+    """K_WINDOW (`kernel`) against window_plain on clones of `state`
+    advanced by `advance` windows, at a window boundary: every leaf of the
+    state and t_h / gmin / ws / we / outbox pending must be equal; the
+    plain version is timed over `plain_reps` calls.  Returns ((kernel
+    (device ms, call ms), plain (device ms, call ms)), (bytes, operations)
+    bound, max |kernel - plain|)."""
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     params = params.replace(persistent=True)
-    for _ in range(3):
+    for _ in range(advance):
         state = engine.run_until(state, params, app,
                                  int(state.now) + params.min_latency_ns)
 
@@ -711,12 +766,12 @@ def check_window(state, params, app):
         return engine.clone_state(s), params, app, params.stop_time
     out_k = mk.window_kernel(*args())
     out_p = mk.window_plain(*args())
-    err = require_equal(out_k, out_p, "window")
+    err = require_equal(out_k, out_p, label)
     b, ops, steps = window_bound(state, params, app, params.stop_time)
-    times = (time_call(mk.window_kernel, args, kernel="k_window"),
-             time_call(mk.window_plain, args))
+    times = (time_call(mk.window_kernel, args, kernel=kernel),
+             time_call(mk.window_plain, args, reps=plain_reps))
     (kd, kc), (pd, pc) = times
-    print(f"kernels: window equal ({steps} micro-steps, window "
+    print(f"{label} equal ({steps} micro-steps, window "
           f"{out_k[2][1].item()}..{out_k[2][2].item()} ns); kernel device "
           f"{kd:.4f} ms (call {kc:.4f} ms), plain device {pd:.4f} ms (call "
           f"{pc:.4f} ms), bound {b} bytes, {ops} operations", flush=True)
@@ -947,45 +1002,64 @@ def check_tcp_kernels(state, params, app, dev):
 
 
 def check_lossy_tcp(dev) -> str:
-    """The lossy 16-host bulk world to LOSSY_NS through the per-phase
-    kernels and through the plain versions: equal leaf for leaf, with
-    retransmissions reached.  Returns a printable line."""
+    """The lossy 16-host bulk world to LOSSY_NS through K_WINDOW's TCP
+    kernel, through the per-phase kernels and through the plain versions:
+    equal leaf for leaf, with retransmissions reached.  Returns a
+    printable line."""
     from shadow1_tpu_torch import sim
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     finals = {}
-    for path, fused in (("kernels", True), ("plain", False)):
+    for path, (fused, persist, want) in (
+            ("K_WINDOW", (True, True, {"window"})),
+            ("per-phase", (True, False, set(PER_PHASE))),
+            ("plain", (False, False, set()))):
         s0, p0, a0 = sim.build_bulk(**LOSSY, megakernel=fused,
-                                    persistent=False, device=dev)
+                                    persistent=persist, device=dev)
         mk.reset_launches()
         finals[path] = engine.run_until(s0, p0, a0, LOSSY_NS)
         used = {k for k, v in mk.LAUNCHES.items() if v > 0}
-        if used != (set(PER_PHASE) if fused else set()):
+        if used != want:
             _fail(f"lossy TCP world, {path} path: launches {mk.LAUNCHES}")
-    require_equal(finals["kernels"], finals["plain"], "lossy TCP world")
+    require_equal(finals["K_WINDOW"], finals["plain"],
+                  "lossy TCP world, K_WINDOW")
+    require_equal(finals["per-phase"], finals["plain"],
+                  "lossy TCP world, per-phase kernels")
     out = finals["plain"]
     retx = int(out.socks.retx_segs.sum())
     if retx <= 0:
         _fail("lossy TCP world: no retransmission reached")
     return (f"tcp kernels: lossy world (H={LOSSY['num_hosts']}, "
             f"{LOSSY_NS // MS} ms, reliability {LOSSY['reliability']}) equal "
-            f"through the per-phase kernels and the plain versions; "
-            f"{int(out.n_steps)} micro-steps, {retx} retransmitted segments, "
+            f"through K_WINDOW, the per-phase kernels and the plain "
+            f"versions; {int(out.n_steps)} micro-steps, "
+            f"{int(out.n_windows)} windows, {retx} retransmitted segments, "
             f"{int(out.hosts.pkts_dropped_inet.sum())} segments lost, "
             f"{int((out.app.phase == 2).sum())} transfers done")
 
 
-def drive_tcp(dev):
-    """BULK from 0 to BULK_RUN_NS on the per-phase path (warm-up with
-    run_until, then run_chunked), every launch counter zeroed just before
-    and read just after; the trajectory must equal the JAX package's.
-    Returns (final state, params, app, launches, wall seconds)."""
+def drive_tcp(dev, persistent: bool):
+    """BULK from 0 to BULK_RUN_NS (warm-up with run_until, then
+    run_chunked), every launch counter zeroed just before and read just
+    after; the trajectory must equal the JAX package's, and the launches
+    one K_WINDOW per window (persistent, sim.build_bulk's default) or one
+    exchange per window and one K_DELIVER and K_TRANSPORT per micro-step
+    (persistent=False).  Returns (final state, warm state, params, app,
+    launches, wall seconds of the timed part)."""
     import torch
     from shadow1_tpu_torch import sim
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
-    state, params, app = sim.build_bulk(**BULK, persistent=False,
-                                        device=dev)
+    if persistent:
+        state, params, app = sim.build_bulk(**BULK, device=dev)
+        if not (params.megakernel and params.persistent):
+            _fail("sim.build_bulk's defaults are not megakernel + "
+                  "persistent")
+        label = "tcp main path (persistent)"
+    else:
+        state, params, app = sim.build_bulk(**BULK, persistent=False,
+                                            device=dev)
+        label = "tcp per-phase path"
     torch.cuda.synchronize()
     mk.reset_launches()
     t0 = time.perf_counter()
@@ -998,28 +1072,77 @@ def drive_tcp(dev):
     launches = dict(mk.LAUNCHES)
     w, f = tcp_summary(warm), tcp_summary(out)
     if w != JAX_BULK_WARM:
-        _fail(f"TCP main path: warm-up trajectory {w} != JAX {JAX_BULK_WARM}")
+        _fail(f"{label}: warm-up trajectory {w} != JAX {JAX_BULK_WARM}")
     if f != JAX_BULK_FINAL:
-        _fail(f"TCP main path: trajectory {f} != JAX {JAX_BULK_FINAL}")
-    if launches["window"] or launches["exchange"] != f["n_windows"] or \
+        _fail(f"{label}: trajectory {f} != JAX {JAX_BULK_FINAL}")
+    if persistent:
+        bad = launches["window"] != f["n_windows"] or \
+            any(launches[k] for k in PER_PHASE)
+    else:
+        bad = launches["window"] or \
+            launches["exchange"] != f["n_windows"] or \
             launches["deliver"] != f["n_steps"] or \
-            launches["transport"] != f["n_steps"]:
-        _fail(f"TCP main path launches {launches} do not match its windows "
-              f"/ micro-steps")
+            launches["transport"] != f["n_steps"]
+    if bad:
+        _fail(f"{label}: launches {launches} do not match its windows / "
+              f"micro-steps")
     wall = t2 - t1
     windows = f["n_windows"] - w["n_windows"]
+    steps = f["n_steps"] - w["n_steps"]
     events = f["n_events"] - w["n_events"]
-    print(f"tcp main path: n_steps {f['n_steps'] - w['n_steps']} n_windows "
-          f"{windows} n_events {events} events/s {events / wall:.1f} wall "
-          f"{wall:.4f} s ({wall / windows * 1e3:.4f} ms per window, "
-          f"{wall / (f['n_steps'] - w['n_steps']) * 1e3:.4f} ms per "
-          f"micro-step; warm-up {t1 - t0:.4f} s); bytes received "
-          f"{f['bytes_recv']}, {f['done']} transfers done, err {f['err']} "
+    print(f"{label}: n_steps {steps} n_windows {windows} n_events {events} "
+          f"events/s {events / wall:.1f} wall {wall:.4f} s "
+          f"({wall / windows * 1e3:.4f} ms per window, "
+          f"{wall / steps * 1e3:.4f} ms per micro-step; warm-up "
+          f"{t1 - t0:.4f} s); bytes received {f['bytes_recv']}, "
+          f"{f['done']} transfers done, err {f['err']} "
           f"({int(out.hosts.pkts_dropped_pool.sum())} segments over a full "
           f"slab, {int(out.hosts.acks_thinned.sum())} acks shed, "
           f"{int(out.socks.retx_segs.sum())} retransmitted); launches "
           f"{launches}; trajectory equals the JAX package's", flush=True)
-    return out, params, app, launches, wall
+    return out, warm, params, app, launches, wall
+
+
+def busy_windows(warm, params, app, n: int) -> tuple[str, float]:
+    """The first `n` windows after `warm` on the persistent path again,
+    with CUDA events around each K_WINDOW call (the engine's own loop,
+    megakernel.window_call wrapped): device ms per window (min, median,
+    max) and the device's busy share of the wall.  Returns (printable
+    line, mean device ms per launch)."""
+    import torch
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    call, marks = mk.window_call, []
+
+    def timed(*a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = call(*a)
+        e1.record()
+        marks.append((e0, e1))
+        return out
+    st = engine.clone_state(warm)
+    t_end = int(st.now) + n * params.min_latency_ns
+    torch.cuda.synchronize()
+    mk.window_call = timed
+    try:
+        w0 = time.perf_counter()
+        st = engine.run_until_impl(st, params, app, t_end)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    finally:
+        mk.window_call = call
+    ms = [e0.elapsed_time(e1) for e0, e1 in marks]
+    steps = int(st.n_steps) - int(warm.n_steps)
+    busy = sum(ms) / 1e3 / wall
+    return (f"tcp main path (persistent): {len(ms)} windows ({steps} "
+            f"micro-steps) again with CUDA events: wall {wall:.4f} s, "
+            f"K_WINDOW device {statistics.mean(ms):.4f} ms per window (min "
+            f"{min(ms):.4f}, median {statistics.median(ms):.4f}, max "
+            f"{max(ms):.4f}), {sum(ms) / max(steps, 1):.4f} ms per "
+            f"micro-step; device busy {100 * busy:.1f} %"), \
+        statistics.mean(ms)
 
 
 def main() -> int:
@@ -1048,6 +1171,8 @@ def main() -> int:
     print(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
+    _phase_done("1")
+
     # ---- 2. build -------------------------------------------------------
     from shadow1_tpu_torch.core import _build
     t0 = time.perf_counter()
@@ -1064,6 +1189,8 @@ def main() -> int:
         print(f"build: {name} ptxas: " + " | ".join(
             f"{f}: {a}; {b}" for f, a, b in zip(fns, use[0::2],
                                                 use[1::2])), flush=True)
+
+    _phase_done("2")
 
     # ---- 3. kernels against their plain versions ------------------------
     dev = torch.device("cuda")
@@ -1135,6 +1262,8 @@ def main() -> int:
           flush=True)
     del finals
 
+    _phase_done("3")
+
     # ---- 4. main path: the defaults, one K_WINDOW launch per window -----
     state, params, app = sim.build_phold(**BENCH, device=dev)
     if not (params.megakernel and params.persistent):
@@ -1146,6 +1275,8 @@ def main() -> int:
               f"{JAX_FINAL['n_windows']} and no per-phase launch")
     line, window_dev_ms = profile_persistent(warm, params, app, RUN_NS)
     print(line, flush=True)
+
+    _phase_done("4")
 
     # ---- 5. the per-phase path (persistent=False) ------------------------
     state, params, app = sim.build_phold(**BENCH, persistent=False,
@@ -1163,6 +1294,8 @@ def main() -> int:
     for line in profile_window(out_pp, params, app):
         print(line, flush=True)
 
+    _phase_done("5")
+
     # ---- 6. TCP kernels against their plain versions --------------------
     state, params, app = sim.build_bulk(**BULK, persistent=False,
                                         device=dev)
@@ -1171,18 +1304,36 @@ def main() -> int:
     times.update(t_times)
     bounds.update(t_bounds)
     errs.update(t_errs)
+    times["window_tcp"], bounds["window_tcp"], errs["window_tcp"] = \
+        check_window(state, params, app, advance=0,
+                     label="tcp kernels: window (TCP)", kernel="k_window_tcp",
+                     plain_reps=1)
     del state
     for line in check_ack_shed(dev):
         print(f"tcp kernels: {line}", flush=True)
     print(check_lossy_tcp(dev), flush=True)
 
-    # ---- 7. TCP main path: the bulk world, per-phase kernels -----------
-    out_tcp, params, app, launches_tcp, _ = drive_tcp(dev)
+    _phase_done("6")
+
+    # ---- 7. TCP per-phase path: the bulk world, per-phase kernels ------
+    out_tcp, _, params, app, launches_tcp, _ = drive_tcp(dev, False)
     for line in profile_window(out_tcp, params, app):
         print(f"tcp {line}", flush=True)
-    del out_tcp
 
-    # ---- 8. kernels line ------------------------------------------------
+    _phase_done("7")
+
+    # ---- 8. TCP main path: the defaults, one K_WINDOW launch per window -
+    out_tp, warm_tp, params, app, launches_tp, _ = drive_tcp(dev, True)
+    require_equal(out_tp, out_tcp, "tcp persistent path vs per-phase path")
+    print("tcp main path (persistent): final state equal to the per-phase "
+          "path's", flush=True)
+    del out_tcp, out_tp
+    line, window_tcp_ms = busy_windows(warm_tp, params, app, BUSY_WINDOWS)
+    print(line, flush=True)
+
+    _phase_done("8")
+
+    # ---- 9. kernels line ------------------------------------------------
     rows = []
     for name in (*PER_PHASE, "window", *TCP_ROWS):
         b, ops = bounds[name]
@@ -1190,6 +1341,7 @@ def main() -> int:
         ops_ms = ops / F32_OPS_PER_S * 1e3
         base = TCP_ROWS.get(name, name)
         n = launches[name] if name == "window" else \
+            launches_tp["window"] if name == "window_tcp" else \
             launches_tcp[base] if name in TCP_ROWS else launches_pp[name]
         rows.append({
             "name": name, "route": "cuda",
@@ -1201,7 +1353,8 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None})
     print(f"K_WINDOW in the main path's profile: {window_dev_ms:.4f} ms "
-          f"device per launch", flush=True)
+          f"device per launch; K_WINDOW (TCP) on the bulk main path: "
+          f"{window_tcp_ms:.4f} ms device per window", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,14 @@ its layout module for module (`core/state.py`, `core/engine.py`, ...) and
 holds every leaf bitwise against it.  It imports torch and numpy only --
 never jax, flax or anything of `shadow1_tpu`.
 
-Scope so far: the UDP-only phold world on a uniform full mesh, driven
-through `sim.build_phold` and `core.engine.run_until` / `run_chunked`,
-with every Pallas kernel of the JAX package as a hand-written CUDA kernel
-for sm_90a (`csrc/`): K_WINDOW, one cooperative launch per window with
-phold's tick as device code (the default, `persistent`), and the
-per-phase window-boundary exchange, K_DELIVER and K_TRANSPORT.  Blocks of
+Scope so far: the UDP phold world and the TCP (Reno) bulk world on a
+uniform full mesh, driven through `sim.build_phold` / `sim.build_bulk`
+and `core.engine.run_until` / `run_chunked`, with every Pallas kernel of
+the JAX package as a hand-written CUDA kernel for sm_90a (`csrc/`):
+K_WINDOW, one cooperative launch per window with the app's tick as device
+code (the default, `persistent`; phold's tick, or bulk's with the TCP
+timers), and the per-phase window-boundary exchange, K_DELIVER and
+K_TRANSPORT.  Blocks of
 `SimState` the port does not carry yet (log, cap, lineage, nm, fr, tr,
 scope, sentinel, dg) are refused by name wherever they would be needed.
 

@@ -2,9 +2,12 @@
 open a connection to a server, stream `total` bytes, close, and record
 when their FIN is acknowledged; every host consumes what it receives.
 
-On the per-phase path `on_tick` runs as plain torch between K_DELIVER
-and K_TRANSPORT, as in the JAX package's per-phase graph.  Bulk has no
-device tick, so K_WINDOW (params.persistent) refuses it by name."""
+On the persistent path (params.persistent, the default) K_WINDOW runs
+the tick on the card: its device copy is csrc/bulk_tick.cuh
+(`device_tick = "bulk"`), which this module's `on_tick` and `next_time`
+are the plain versions of.  On the per-phase path `on_tick` runs as plain
+torch between K_DELIVER and K_TRANSPORT, as in the JAX package's
+per-phase graph."""
 
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ class Bulk:
     uses_tcp = True
     may_loopback = False
     rx_batch = 4
-    device_tick = None
+    device_tick = "bulk"
 
     def __init__(self, server_port: int = SERVER_PORT,
                  client_slot: int = CLIENT_SLOT):

@@ -103,7 +103,7 @@ def check_supported(state: SimState, params, app) -> None:
         raise NotImplementedError(
             f"params.persistent runs each window as K_WINDOW, with the app "
             f"tick on the card, and {type(app).__name__} has no device tick "
-            f"(only Phold has one); build with persistent=False")
+            f"(Phold and Bulk have one); build with persistent=False")
 
 
 # ---------------------------------------------------------------------------

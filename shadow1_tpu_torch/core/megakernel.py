@@ -16,10 +16,12 @@ sm_90a in `csrc/` and built by core/_build.py:
   scan;
 * window    (csrc/window.cu)    <- window_fused's K_WINDOW,
   megakernel.py:391-424, body engine._window_body_ref: the exchange, the
-  scan, the window bounds and the whole micro-step loop with phold's tick
-  as device code (csrc/phold_tick.cuh), one cooperative launch per
-  window.  The three phases are one copy of device code (csrc/*.cuh)
-  that the per-phase kernels share.
+  scan, the window bounds and the whole micro-step loop with the app's
+  tick as device code, one cooperative launch per window -- k_window for
+  UDP worlds with phold's tick (csrc/phold_tick.cuh), k_window_tcp for
+  TCP worlds with tcp.run_timers (csrc/tcp.cuh) and bulk's tick
+  (csrc/bulk_tick.cuh).  The three phases are one copy of device code
+  (csrc/*.cuh) that the per-phase kernels share.
 
 Dispatch rule, the same for every wrapper: a CUDA tensor launches the
 kernel (or raises); a CPU tensor runs the plain version, which is built
@@ -29,10 +31,11 @@ and no fallback.  The kernels update the state's tensors in place
 tensors.  Each wrapper counts its launches in `LAUNCHES`.
 
 With `params.persistent` (the default, as in the JAX package) every
-window is one K_WINDOW launch (UDP worlds with phold's tick only).
-Without it, the app tick (and in TCP worlds tcp.run_timers before it)
-runs between K_DELIVER and K_TRANSPORT as plain torch on the state's
-device, as it runs between the Pallas kernels in the JAX per-phase graph.
+window is one K_WINDOW launch, for every app with a device tick (Phold
+and Bulk: `app.device_tick`).  Without it, the app tick (and in TCP
+worlds tcp.run_timers before it) runs between K_DELIVER and K_TRANSPORT
+as plain torch on the state's device, as it runs between the Pallas
+kernels in the JAX per-phase graph.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import ctypes
 import torch
 
 from . import emit, engine, rng, xlamath
-from ..transport import tcp
+from ..transport import cong, tcp
 from .state import I32, I64, ICOLS, SACK_RANGES, SSACK_RANGES
 
 INV = engine.INV
@@ -615,12 +618,19 @@ class _PholdArgs(ctypes.Structure):
         ("n_hosts", ctypes.c_int32)]
 
 
+class _BulkArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "is_client", "dst", "total", "start_t", "phase", "finish_t")] + [
+        ("server_port", ctypes.c_int32), ("client_slot", ctypes.c_int32)]
+
+
 class _WindowArgs(ctypes.Structure):
     _fields_ = [("x", _ExchangeArgs), ("d", _DeliverArgs),
-                ("t", _TransportArgs), ("p", _PholdArgs)] + [
+                ("t", _TransportArgs), ("p", _PholdArgs),
+                ("tcp", _TcpArgs), ("b", _BulkArgs)] + [
         (n, ctypes.c_void_p) for n in (
             "t_h", "part_min", "part_ev", "part_err", "now", "n_windows",
-            "win", "em_valid", "em_blk")] + [
+            "win", "em_valid", "em_blk", "acks_thinned")] + [
         ("t_target", ctypes.c_int64), ("min_latency", ctypes.c_int64),
         ("max_steps", ctypes.c_int64), ("n_blocks", ctypes.c_int32)]
 
@@ -628,13 +638,24 @@ class _WindowArgs(ctypes.Structure):
 _GRID: dict = {}
 
 
-def _window_grid(lib, h: int) -> int:
+def _window_grid(lib, h: int, tcp: bool) -> int:
     """Blocks of K_WINDOW's cooperative grid for h hosts (cached per
-    device and h).  Raises if the card cannot launch cooperatively."""
-    key = (torch.cuda.current_device(), h)
+    device, kernel and h).  Raises if the card cannot launch
+    cooperatively, or, for the TCP kernel (one resident thread per host),
+    if h exceeds what the card holds at once."""
+    key = (torch.cuda.current_device(), h, tcp)
     if key not in _GRID:
         g = ctypes.c_int(0)
-        rc = lib.window_grid(h, ctypes.byref(g))
+        if tcp:
+            cap = ctypes.c_int(0)
+            rc = lib.window_tcp_grid(h, ctypes.byref(g), ctypes.byref(cap))
+            if rc == -2:
+                raise RuntimeError(
+                    f"K_WINDOW (TCP) runs one resident thread per host, and "
+                    f"this card holds at most {cap.value} at once (blocks "
+                    f"per SM x SMs x {_BLOCK}); the world has {h} hosts")
+        else:
+            rc = lib.window_grid(h, ctypes.byref(g))
         if rc == -1:
             raise RuntimeError("K_WINDOW: the device cannot launch "
                                "cooperative kernels (or the kernel does "
@@ -644,56 +665,15 @@ def _window_grid(lib, h: int) -> int:
     return _GRID[key]
 
 
-def window_kernel(state, params, app, t_target):
-    """Launch csrc/window.cu: one whole window (exchange, scan, bounds,
-    the micro-step loop with phold's tick) as one cooperative kernel.
-    Updates the state's tensors in place; returns (state, t_h, win) with
-    win = i64[5] (gmin, ws, we, outbox pending, status) on the card."""
-    from . import _build
-    if getattr(app, "device_tick", None) != "phold":
-        raise NotImplementedError(
-            f"K_WINDOW runs the app tick on the card; "
-            f"{type(app).__name__} has no device tick (only Phold has one)")
-    pool, ib, hosts, a_st = state.pool, state.inbox, state.hosts, state.app
+def _phold_struct(state, params, app) -> _PholdArgs:
+    a_st, hosts = state.app, state.hosts
     h = hosts.num_hosts
-    p0, pc = pool.blk.shape
-    p1, ic = ib.blk.shape
-    if ic >= ICOLS:
-        raise NotImplementedError("K_WINDOW takes the narrow (UDP) inbox "
-                                  "only")
-    if p0 % h or p1 % h:
-        raise ValueError("pool and inbox capacities must be multiples of h")
-    _check(ib.status, I32, (p1,), "inbox.status")
     _check(hosts.rng_ctr, I64, (h,), "hosts.rng_ctr")
     for name, dt in (("next_send", I64), ("pending", I32), ("sent", I64),
                      ("recv", I64)):
         _check(getattr(a_st, name), dt, (h,), f"app.{name}")
-    for name in ("now", "n_windows"):
-        _check(getattr(state, name), I64, (), name)
-    lib = _build.load("window")
-    grid = _window_grid(lib, h)
-    dev = pool.blk.device
-    e = engine._n_lanes(app)
-    bw_up, bw_dn = engine._window_ctx(state, params)
-    scratch = torch.empty((3 * h + 1,), dtype=I32, device=dev)
-    lst = torch.empty((p0,), dtype=I32, device=dev)
-    t_h = torch.empty((h,), dtype=I64, device=dev)
-    part_min = torch.empty((2 * grid,), dtype=I64, device=dev)
-    part_ev = torch.empty((2 * grid,), dtype=I64, device=dev)
-    part_err = torch.empty((2 * grid,), dtype=I32, device=dev)
-    win = torch.empty((5,), dtype=I64, device=dev)
-    em_valid = torch.empty((h * e,), dtype=torch.bool, device=dev)
-    em_blk = torch.empty((h * e * pc,), dtype=I32, device=dev)
-    x = _ExchangeArgs(
-        pool_blk=_addr(pool.blk), pool_stage=_addr(pool.stage),
-        pool_time=_addr(pool.time), pool_status=_addr(pool.status),
-        ib_blk=_addr(ib.blk), ib_stage=_addr(ib.stage),
-        ib_status=_addr(ib.status), cnt=_addr(scratch),
-        fill=_addr(scratch) + 4 * h, start=_addr(scratch) + 8 * h,
-        lst=_addr(lst), p0=p0, pc=pc, ic=ic, ki=p1 // h, h=h,
-        pds_trail=int(bool(params.pds_trail)))
     k0, k1 = params.purpose_words[rng.PURPOSE_HOST_APP]
-    p = _PholdArgs(
+    return _PholdArgs(
         next_send=_addr(a_st.next_send), pending=_addr(a_st.pending),
         sent=_addr(a_st.sent), recv=_addr(a_st.recv),
         rng_ctr=_addr(hosts.rng_ctr), mean_delay_ns=app.mean_delay_ns,
@@ -701,16 +681,101 @@ def window_kernel(state, params, app, t_target):
         rx_batch=max(1, int(app.rx_batch)),
         lanes=max(1, int(app.app_tx_lanes)),
         n_hosts=params.global_hosts())
+
+
+def _bulk_struct(state, app) -> _BulkArgs:
+    a_st = state.app
+    h = state.hosts.num_hosts
+    for name, dt in (("is_client", torch.bool), ("dst", I32),
+                     ("total", I64), ("start_t", I64), ("phase", I32),
+                     ("finish_t", I64)):
+        _check(getattr(a_st, name), dt, (h,), f"app.{name}")
+    return _BulkArgs(
+        is_client=_addr(a_st.is_client), dst=_addr(a_st.dst),
+        total=_addr(a_st.total), start_t=_addr(a_st.start_t),
+        phase=_addr(a_st.phase), finish_t=_addr(a_st.finish_t),
+        server_port=app.server_port, client_slot=app.client_slot)
+
+
+# The device ticks K_WINDOW carries, by the apps' `device_tick` name:
+# (kernel is TCP, inbox is full width).
+_DEVICE_TICKS = {"phold": False, "bulk": True}
+
+
+def window_kernel(state, params, app, t_target):
+    """Launch csrc/window.cu: one whole window (exchange, scan, bounds,
+    the micro-step loop with the app's tick on the card; in TCP worlds
+    run_timers and the TCP machine too) as one cooperative kernel --
+    k_window for phold, k_window_tcp for bulk.  Updates the state's
+    tensors in place; returns (state, t_h, win) with win = i64[5] (gmin,
+    ws, we, outbox pending, status) on the card."""
+    from . import _build
+    tick = getattr(app, "device_tick", None)
+    if tick not in _DEVICE_TICKS:
+        raise NotImplementedError(
+            f"K_WINDOW runs the app tick on the card; "
+            f"{type(app).__name__} has no device tick (Phold and Bulk "
+            f"have one)")
+    tcp_on = _DEVICE_TICKS[tick]
+    pool, ib, hosts = state.pool, state.inbox, state.hosts
+    h = hosts.num_hosts
+    p0, pc = pool.blk.shape
+    p1, ic = ib.blk.shape
+    if (ic >= ICOLS) != tcp_on:
+        raise ValueError(f"K_WINDOW runs {type(app).__name__} with a "
+                         f"{'full-width' if tcp_on else 'narrow'} inbox; "
+                         f"this one has {ic} columns")
+    if tcp_on:
+        cong.validate(params.cong)
+    if p0 % h or p1 % h:
+        raise ValueError("pool and inbox capacities must be multiples of h")
+    _check(ib.status, I32, (p1,), "inbox.status")
+    _check(hosts.acks_thinned, I64, (h,), "hosts.acks_thinned")
+    for name in ("now", "n_windows"):
+        _check(getattr(state, name), I64, (), name)
+    lib = _build.load("window")
+    grid = _window_grid(lib, h, tcp_on)
+    dev = pool.blk.device
+    e = engine._n_lanes(app)
+    bw_up, bw_dn = engine._window_ctx(state, params)
+    scratch = torch.empty((3 * h + 3,), dtype=I32, device=dev)
+    lst = torch.empty((p0,), dtype=I32, device=dev)
+    t_h = torch.empty((h,), dtype=I64, device=dev)
+    part_min = torch.empty((2 * grid,), dtype=I64, device=dev)
+    part_ev = torch.empty((2 * grid,), dtype=I64, device=dev)
+    part_err = torch.empty((2 * grid,), dtype=I32, device=dev)
+    win = torch.empty((5,), dtype=I64, device=dev)
+    em = emit.Emissions(
+        valid=torch.empty((h, e), dtype=torch.bool, device=dev),
+        blk=torch.empty((h, e, pc), dtype=I32, device=dev))
+    x = _ExchangeArgs(
+        pool_blk=_addr(pool.blk), pool_stage=_addr(pool.stage),
+        pool_time=_addr(pool.time), pool_status=_addr(pool.status),
+        ib_blk=_addr(ib.blk), ib_stage=_addr(ib.stage),
+        ib_status=_addr(ib.status), cnt=_addr(scratch),
+        fill=_addr(scratch) + 4 * h, start=_addr(scratch) + 8 * h,
+        lst=_addr(lst), gate=_addr(scratch) + 4 * (3 * h + 1) if tcp_on
+        else 0, p0=p0, pc=pc, ic=ic, ki=p1 // h, h=h,
+        pds_trail=int(bool(params.pds_trail)))
+    if tcp_on:
+        rx_batch = max(1, int(getattr(app, "rx_batch", 1)))
+        gates = torch.empty((2 * rx_batch,), dtype=I32, device=dev)
+        app_args = dict(tcp=_tcp_struct(state, params, em, gates),
+                        b=_bulk_struct(state, app))
+    else:
+        app_args = dict(p=_phold_struct(state, params, app))
     args = _WindowArgs(
         x=x, d=_deliver_struct(state, params, app, bw_dn),
-        t=_transport_struct(state, params, em_valid, em_blk, e, bw_up),
-        p=p, t_h=_addr(t_h), part_min=_addr(part_min),
+        t=_transport_struct(state, params, em.valid, em.blk, e, bw_up),
+        **app_args, t_h=_addr(t_h), part_min=_addr(part_min),
         part_ev=_addr(part_ev), part_err=_addr(part_err),
         now=_addr(state.now), n_windows=_addr(state.n_windows),
-        win=_addr(win), em_valid=_addr(em_valid), em_blk=_addr(em_blk),
+        win=_addr(win), em_valid=_addr(em.valid), em_blk=_addr(em.blk),
+        acks_thinned=_addr(hosts.acks_thinned),
         t_target=int(t_target), min_latency=params.min_latency_ns,
         max_steps=MAX_STEPS, n_blocks=grid)
-    _raise_on(lib.window_launch(ctypes.byref(args), _stream()), "window")
+    launch = lib.window_tcp_launch if tcp_on else lib.window_launch
+    _raise_on(launch(ctypes.byref(args), _stream()), "window")
     LAUNCHES["window"] += 1
     return state, t_h, win
 

@@ -39,11 +39,8 @@
 // size the launch itself dominates.  In the bulk TCP world the server's
 // thread walks a 3,200-slot slab once per round and matches each
 // segment against 204 sockets; that one thread sets the kernel's time.
-#include <cooperative_groups.h>
-
 #include "deliver.cuh"
 
-namespace cg = cooperative_groups;
 using namespace s1;
 
 namespace {
@@ -61,21 +58,6 @@ __global__ void k_deliver(DeliverArgs a) {
   a.delivered_n[hh] = o.delivered;
   a.t_post[hh] = o.t_post;
 }
-
-// Round r's gate bits OR-ed over the whole grid: per block, then one
-// atomic OR per block into words[r] (zeroed by the launch), then a grid
-// barrier.  Every thread of the grid calls it once per round.
-struct GridGate {
-  int32_t* words;
-  __device__ int32_t operator()(int r, int32_t bits) const {
-    const int32_t b =
-        (__syncthreads_or(bits & GATE_SSACK) ? GATE_SSACK : 0) |
-        (__syncthreads_or(bits & GATE_RX) ? GATE_RX : 0);
-    if (threadIdx.x == 0 && b != 0) atomicOr(words + r, b);
-    cg::this_grid().sync();
-    return __ldcg(words + r);
-  }
-};
 
 __global__ void __launch_bounds__(kDeliverBlock)
     k_deliver_tcp(DeliverArgs a, TcpArgs t) {

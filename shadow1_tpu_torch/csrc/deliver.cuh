@@ -13,6 +13,8 @@
 // scoreboard gates (tcp.cuh), which the caller's `gate` ORs over the
 // grid; every thread of the grid, host or not, calls it once per round.
 #pragma once
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "tcp.cuh"
 
@@ -129,6 +131,21 @@ struct DeliverOut {
 // The gate of UDP worlds: never called (no TCP branch runs).
 struct NoGate {
   __device__ int32_t operator()(int, int32_t bits) const { return bits; }
+};
+
+// Round r's gate bits OR-ed over the whole cooperative grid: per block,
+// then one atomic OR per block into words[r] (zero before the round),
+// then a grid barrier.  Every thread of the grid calls it once per round.
+struct GridGate {
+  int32_t* words;
+  __device__ int32_t operator()(int r, int32_t bits) const {
+    const int32_t b =
+        (__syncthreads_or(bits & GATE_SSACK) ? GATE_SSACK : 0) |
+        (__syncthreads_or(bits & GATE_RX) ? GATE_RX : 0);
+    if (threadIdx.x == 0 && b != 0) atomicOr(words + r, b);
+    cooperative_groups::this_grid().sync();
+    return __ldcg(words + r);
+  }
 };
 
 // _rx_phase for host hh at tick `tick` (active or not); `aux0` is the

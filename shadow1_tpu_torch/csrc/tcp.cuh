@@ -1,14 +1,18 @@
 // The TCP machine's per-host device functions, shared by the TCP branches
-// of K_DELIVER (deliver.cuh: arrival processing) and K_TRANSPORT
-// (transport.cuh: transmit and the timer term of the post-step scan).
+// of K_DELIVER (deliver.cuh: arrival processing), K_TRANSPORT
+// (transport.cuh: transmit and the timer term of the post-step scan) and
+// K_WINDOW (window.cu: all of these, plus run_timers and the socket API
+// that the apps' device ticks call, e.g. bulk_tick.cuh).
 //
 // What they compute: shadow1_tpu/transport/tcp.py, rule for rule and in
 // the same order -- process_arrivals (socket match, passive open, RST,
 // handshake, ACK clocking with NewReno (Reno hooks of cong.py), the
 // sender SACK scoreboard, RTT/RTO, reassembly, FIN, delayed ACKs, the
-// reply segment) and transmit (one socket per host, up to TX_SLOTS
-// segments, outbox back-pressure, the re-tick).  The plain torch version
-// is shadow1_tpu_torch/transport/tcp.py.
+// reply segment), run_timers (one due timer per host: SYN / SYN-ACK /
+// RTO back-off, delayed ACK, TIME_WAIT, persist), the socket API
+// (connect_v, write_v, close_v, consume_all) and transmit (one socket per
+// host, up to TX_SLOTS segments, outbox back-pressure, the re-tick).  The
+// plain torch version is shadow1_tpu_torch/transport/tcp.py.
 //
 // Layout: one thread per host.  A host's socket is gathered into
 // registers (struct Sock: ~45 scalars and 24 range words), updated in
@@ -50,8 +54,8 @@ constexpr int ERR_SOCKET_OVERFLOW = 1 << 1;
 constexpr int QDISC_RR = 1;
 
 // Emission lanes (core/emit.py) and the full-width row's TCP columns.
-constexpr int SLOT_RX_REPLY = 0, SLOT_TX_BASE = 3, TX_SLOTS = 4,
-              NUM_SLOTS = 7;
+constexpr int SLOT_RX_REPLY = 0, SLOT_TIMER = 1, SLOT_TX_BASE = 3,
+              TX_SLOTS = 4, NUM_SLOTS = 7;
 constexpr int ICOL_FLAGS = 4, ICOL_SEQ = 5, ICOL_ACK = 6, ICOL_WND = 7;
 constexpr int ICOL_TS_LO = 14, ICOL_TS_HI = 15, ICOL_TSE_LO = 16,
               ICOL_TSE_HI = 17, ICOL_SACK0_LO = 18;
@@ -88,7 +92,9 @@ __device__ __forceinline__ bool sendable_state(int32_t s) {
 
 // The socket table ([h, slots] per field; ranges [h, slots, R]) and the
 // per-host params the TCP branches read.  Mirrored field for field by
-// the ctypes.Structure in shadow1_tpu_torch/core/megakernel.py.
+// the ctypes.Structure in shadow1_tpu_torch/core/megakernel.py.  `gates`
+// is K_DELIVER's [rx_batch] words, or K_WINDOW's [2][rx_batch] (by
+// micro-step parity).
 struct TcpArgs {
   int32_t* stype;
   int32_t* tcp_state;
@@ -144,7 +150,7 @@ struct TcpArgs {
   int32_t* rr_next;
   uint8_t* em_valid;     // [h, e] emission lanes
   int32_t* em_blk;       // [h, e, pc]
-  int32_t* gates;        // [rx_batch] grid-wide gate words (K_DELIVER)
+  int32_t* gates;        // grid-wide gate words (see above)
   int32_t* err;          // state.err (K_DELIVER ORs socket overflow in)
   int64_t min_latency;
   int32_t slots, e, pc, qdisc;
@@ -339,6 +345,57 @@ __device__ __forceinline__ Sock sock_defaults(const TcpArgs& t, int hh) {
   for (int r = 0; r < SACK_RANGES; ++r) v.sack_lo[r] = v.sack_hi[r] = 0;
   for (int r = 0; r < SSACK_RANGES; ++r) v.ssack_lo[r] = v.ssack_hi[r] = 0;
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// Socket API on a gathered socket (tcp.connect_v, write_v, close_v) and
+// consume_all over a host's table, for the apps' device ticks
+// ---------------------------------------------------------------------------
+
+// tcp.connect_v: every TCP field of the slot back to its default (the
+// ranges too), then an active open whose SYN leaves when the RTO timer
+// armed at `now` fires.
+__device__ __forceinline__ void sock_connect(Sock& v, const TcpArgs& t,
+                                             int hh, int32_t dst_host,
+                                             int32_t dst_port,
+                                             int32_t local_port,
+                                             int64_t now) {
+  v = sock_defaults(t, hh);
+  v.stype = SOCK_TCP;
+  v.tcp_state = TCPS_SYNSENT;
+  v.local_port = local_port;
+  v.peer_host = dst_host;
+  v.peer_port = dst_port;
+  v.t_rto = now;
+}
+
+// tcp.write_v: snd_end advances toward `target_end` (exclusive), bounded
+// by snd_una + snd_buf_cap; a write into a zero window with no timer
+// armed arms the persist timer.
+__device__ __forceinline__ void sock_write(Sock& v, uint32_t target_end,
+                                           int64_t now) {
+  const uint32_t cap_end = v.snd_una + (uint32_t)v.snd_buf_cap;
+  const uint32_t new_end = seq_lt(target_end, cap_end) ? target_end
+                                                        : cap_end;
+  if (!seq_lt(v.snd_end, new_end)) return;
+  v.snd_end = new_end;
+  if (v.snd_wnd == 0 && v.t_persist == INV && v.t_rto == INV &&
+      sendable_state(v.tcp_state))
+    v.t_persist = now + v.rto;
+}
+
+// tcp.close_v: FIN at the end of the stream.
+__device__ __forceinline__ void sock_close(Sock& v) {
+  if (v.stype == SOCK_TCP) v.app_closed = true;
+}
+
+// tcp.consume_all for host hh: every received byte of every TCP socket
+// is read (an infinite consumer).
+__device__ __forceinline__ void tcp_consume_all(const TcpArgs& t, int hh) {
+  for (int s = 0; s < t.slots; ++s) {
+    const int64_t i = (int64_t)hh * t.slots + s;
+    if (t.stype[i] == SOCK_TCP) t.rcv_read[i] = t.rcv_nxt[i];
+  }
 }
 
 // tcp.recv_window.
@@ -1041,6 +1098,121 @@ __device__ __forceinline__ int64_t timer_min(const TcpArgs& t, int hh) {
                      imin(t.t_delack[i], t.t_tw[i])));
   }
   return m;
+}
+
+// ---------------------------------------------------------------------------
+// Timers (tcp.run_timers), between the arrivals and the app tick
+// ---------------------------------------------------------------------------
+
+constexpr int K_RTO = 0, K_DELACK = 1, K_TW = 2, K_PERSIST = 3;
+
+// run_timers for host hh at `tick` (its t_post): fires at most one due
+// timer -- the earliest, ties to the lowest flat index slot * 4 + kind
+// over (RTO, delayed ACK, TIME_WAIT, persist) -- and emits into lane
+// SLOT_TIMER.  The JAX package runs the body under lax.cond(any(due))
+// over all hosts; that gate is exact per host, because with nothing due
+// on a host every write of the body to it (the socket scatter and the
+// emission) is masked off.  So each thread decides for its own host and
+// the timers need no grid barrier.  Reno's timeout hook only (CUBIC is
+// refused before any kernel runs).
+__device__ __forceinline__ void tcp_run_timers(const TcpArgs& t, int hh,
+                                               int64_t tick, bool act) {
+  if (!act) return;
+  const int S = t.slots;
+  int64_t tmin = INV;
+  int pick = -1;
+  for (int s = 0; s < S; ++s) {
+    const int64_t i = (int64_t)hh * S + s;
+    const int64_t c[4] = {t.t_rto[i], t.t_delack[i], t.t_tw[i],
+                          t.t_persist[i]};
+    for (int k = 0; k < 4; ++k) {
+      if (c[k] <= tick && c[k] < tmin) {
+        tmin = c[k];
+        pick = s * 4 + k;
+      }
+    }
+  }
+  if (pick < 0) return;
+  const int slot = pick / 4, kind = pick % 4;
+  Sock v = sock_load(t, hh, slot);
+
+  // RTO: the first SYN, SYN / SYN-ACK back-off (or give up), or an
+  // established retransmission timeout.
+  const bool rto_f = kind == K_RTO;
+  const bool syn_first = rto_f && v.tcp_state == TCPS_SYNSENT &&
+                         v.snd_nxt == 0;
+  if (syn_first) {
+    v.snd_nxt = 1;
+    v.t_rto = tick + v.rto;
+  }
+  const bool syn_re = rto_f && v.tcp_state == TCPS_SYNSENT && !syn_first;
+  const bool synack_re = rto_f && v.tcp_state == TCPS_SYNRECEIVED;
+  const bool timed_out = (syn_re || synack_re) && v.rto >= RTO_MAX;
+  if (timed_out) {
+    v.tcp_state = TCPS_CLOSED;
+    v.stype = SOCK_FREE;
+    v.error = 110;
+    v.t_rto = v.t_delack = v.t_tw = v.t_persist = INV;
+  } else if (syn_re || synack_re) {
+    v.rto = imin(v.rto * 2, RTO_MAX);
+    v.t_rto = tick + v.rto;
+  }
+  const int32_t flight = sdiff(v.snd_nxt, v.snd_una);
+  const bool est_rto = rto_f && sendable_state(v.tcp_state) && flight > 0;
+  if (est_rto) {
+    v.ssthresh = imax32(flight / 2, 2 * TCP_MSS);     // cong.py Reno
+    v.cwnd = TCP_MSS;
+    v.retrans_nxt = v.snd_una;
+    v.retrans_end = v.snd_nxt;
+    v.in_recovery = false;
+    v.dup_acks = 0;
+    v.rto = imin(v.rto * 2, RTO_MAX);
+    for (int r = 0; r < SSACK_RANGES; ++r) v.ssack_lo[r] = v.ssack_hi[r] = 0;
+    v.t_rto = tick + v.rto;
+  }
+  if (rto_f && !syn_first && !syn_re && !synack_re && !est_rto)
+    v.t_rto = INV;
+
+  // Delayed ACK.
+  const bool send_ack = kind == K_DELACK && v.delack_pending > 0;
+  if (kind == K_DELACK) {
+    v.t_delack = INV;
+    v.delack_pending = 0;
+  }
+
+  // TIME_WAIT expiry.
+  if (kind == K_TW && v.tcp_state == TCPS_TIMEWAIT) {
+    v.tcp_state = TCPS_CLOSED;
+    v.stype = SOCK_FREE;
+    v.t_rto = v.t_delack = v.t_tw = v.t_persist = INV;
+  } else if (kind == K_TW) {
+    v.t_tw = INV;
+  }
+
+  // Zero-window persist probe.
+  const bool data_pend = sdiff(v.snd_end, v.snd_nxt) > 0 || v.app_closed;
+  const bool send_probe = kind == K_PERSIST && sendable_state(v.tcp_state) &&
+                          v.snd_wnd == 0 && data_pend;
+  if (send_probe) {
+    v.t_persist = tick + v.rto;
+  } else if (kind == K_PERSIST) {
+    v.t_persist = INV;
+  }
+  sock_store(t, hh, slot, v);
+
+  const bool syn_emit = syn_first || syn_re;
+  if (!syn_emit && !synack_re && !send_ack && !send_probe) return;
+  const int32_t flags =
+      synack_re ? (TCP_FLAG_SYN | TCP_FLAG_ACK)
+      : syn_emit ? TCP_FLAG_SYN
+      : send_probe ? (TCP_FLAG_ACK | TCP_FLAG_PSH) : TCP_FLAG_ACK;
+  const uint32_t zero3[SACK_BLOCKS] = {0, 0, 0};
+  em_put_tcp(t, hh, SLOT_TIMER, v.peer_host, v.local_port, v.peer_port, flags,
+             (syn_emit || synack_re) ? 0u : v.snd_nxt,
+             (syn_emit && !synack_re) ? 0u : v.rcv_nxt,
+             recv_window(v.rcv_nxt, v.rcv_read, v.rcv_buf_cap), 0,
+             send_ack ? v.ts_recent : 0, 0, send_ack ? v.sack_lo : zero3,
+             send_ack ? v.sack_hi : zero3);
 }
 
 }  // namespace s1

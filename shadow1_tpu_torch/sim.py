@@ -81,8 +81,9 @@ def build_bulk(num_hosts: int,
     """Bulk TCP transfers: every host but `server` sends
     `bytes_per_client` to the server over a uniform full mesh of
     `num_hosts` vertices; same arguments and result as the JAX
-    build_bulk, on `device` (None = the CUDA card).  Bulk has no device
-    tick, so run it with persistent=False (K_WINDOW refuses it)."""
+    build_bulk, on `device` (None = the CUDA card).  With the defaults
+    each window is one K_WINDOW launch (the TCP kernel, with bulk's tick
+    on the card); persistent=False runs the per-phase kernels."""
     dev = resolve_device(device)
     lat, rel = uniform_full_mesh(num_hosts, latency_ns, reliability)
     params = make_net_params(

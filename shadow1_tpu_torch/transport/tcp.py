@@ -21,9 +21,10 @@ per host; they are kept as `any()` branches because on the card they
 spare the per-phase path hundreds of launches.
 
 This module is the plain version of the TCP branches of K_DELIVER
-(`process_arrivals`) and K_TRANSPORT (`transmit`); `run_timers` runs
-between the kernels, where the JAX package also keeps it.  Their CUDA
-counterparts are csrc/tcp.cuh.
+(`process_arrivals`) and K_TRANSPORT (`transmit`), and of what K_WINDOW's
+TCP kernel runs besides: `run_timers` and the socket API the apps' ticks
+call.  On the per-phase path `run_timers` runs between the kernels, where
+the JAX package also keeps it.  Their CUDA counterparts are csrc/tcp.cuh.
 """
 
 from __future__ import annotations
@@ -654,7 +655,7 @@ def process_arrivals(state, params, em, tick_t, pkt, mask,
 
 
 # ---------------------------------------------------------------------------
-# Timers: plain torch between K_DELIVER and the app tick
+# Timers: between K_DELIVER and the app tick (tcp.cuh tcp_run_timers)
 # ---------------------------------------------------------------------------
 
 _K_RTO, _K_DELACK, _K_TW, _K_PERSIST = 0, 1, 2, 3

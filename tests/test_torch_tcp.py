@@ -23,7 +23,8 @@ the port's plain torch counterpart, and every output leaf must be equal:
 * (slow) a micro-step of that world through the JAX microstep_fused
   kernels and the port's microstep_fused (K_DELIVER, run_timers, the
   tick, K_TRANSPORT; their plain versions on the CPU);
-* `check_supported` refusing CUBIC, K_WINDOW for Bulk, Echo and Tgen.
+* `check_supported` refusing CUBIC, Echo and Tgen, and admitting Bulk on
+  the persistent path (K_WINDOW's TCP kernel).
 
 (slow) The bulk bench world of chip_smoke.py: the JAX package's
 trajectory equals the constants chip_smoke.py holds the card to, and the
@@ -552,8 +553,6 @@ def _refusal_cases():
     return {
         "cubic": (ts, tp.replace(cong="cubic", persistent=False), ta,
                   NotImplementedError, "cubic"),
-        "persistent": (ts, tp, ta, NotImplementedError,
-                       "Bulk has no device tick"),
         "echo": (ts, tp.replace(persistent=False), EchoServer(),
                  NotImplementedError, "EchoServer is not ported"),
         "tgen": (ts, tp.replace(persistent=False), Tgen(),
@@ -561,13 +560,25 @@ def _refusal_cases():
     }
 
 
-@pytest.mark.parametrize("case", ["cubic", "persistent", "echo", "tgen"])
+@pytest.mark.parametrize("case", ["cubic", "echo", "tgen"])
 def test_check_supported_refuses_by_name(case):
     ts, tp, app, exc, msg = _refusal_cases()[case]
     with pytest.raises(exc, match=msg):
         teng.run_until(ts, tp, app, 10 * MS)
     with pytest.raises(exc, match=msg):
         teng.run_chunked(ts, tp, app, 10 * MS)
+
+
+def test_persistent_bulk_is_admitted():
+    """Bulk has a device tick (csrc/bulk_tick.cuh), so the default
+    persistent path takes it: check_supported admits it, and its first
+    window runs through window_call (window_plain on the CPU)."""
+    ts, tp, ta = tsim.build_bulk(**WORLD, reliability=0.97, device="cpu")
+    assert tp.persistent and ta.device_tick == "bulk"
+    teng.check_supported(ts, tp, ta)
+    assert tmk.persistent_enabled(ts, tp, ta)
+    out = teng.run_until(ts, tp, ta, 10 * MS)
+    assert int(out.n_windows) == 1 and int(out.n_steps) > 0
 
 
 # ---------------------------------------------------------------------------
