@@ -64,6 +64,11 @@ Phases, each reported on its own line:
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
+
+    python3 chip_smoke.py --phase-clocks
+
+runs phases 1 and 2, then only BULK's first windows through K_WINDOW's
+clocked build (the phase split of its TCP kernel, see phase_trace).
 """
 
 from __future__ import annotations
@@ -1103,12 +1108,11 @@ def drive_tcp(dev, persistent: bool):
     return out, warm, params, app, launches, wall
 
 
-def busy_windows(warm, params, app, n: int) -> tuple[str, float]:
-    """The first `n` windows after `warm` on the persistent path again,
-    with CUDA events around each K_WINDOW call (the engine's own loop,
-    megakernel.window_call wrapped): device ms per window (min, median,
-    max) and the device's busy share of the wall.  Returns (printable
-    line, mean device ms per launch)."""
+def _timed_windows(warm, params, app, n: int):
+    """The first `n` windows after `warm` through the engine's persistent
+    loop, with CUDA events around each K_WINDOW call
+    (megakernel.window_call wrapped).  Returns (final state, wall seconds,
+    device ms of each window)."""
     import torch
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
@@ -1133,7 +1137,15 @@ def busy_windows(warm, params, app, n: int) -> tuple[str, float]:
         wall = time.perf_counter() - w0
     finally:
         mk.window_call = call
-    ms = [e0.elapsed_time(e1) for e0, e1 in marks]
+    return st, wall, [e0.elapsed_time(e1) for e0, e1 in marks]
+
+
+def busy_windows(warm, params, app, n: int):
+    """The first `n` windows after `warm` on the persistent path again,
+    with CUDA events around each K_WINDOW call: device ms per window (min,
+    median, max) and the device's busy share of the wall.  Returns
+    (printable line, mean device ms per launch, final state)."""
+    st, wall, ms = _timed_windows(warm, params, app, n)
     steps = int(st.n_steps) - int(warm.n_steps)
     busy = sum(ms) / 1e3 / wall
     return (f"tcp main path (persistent): {len(ms)} windows ({steps} "
@@ -1142,7 +1154,67 @@ def busy_windows(warm, params, app, n: int) -> tuple[str, float]:
             f"{min(ms):.4f}, median {statistics.median(ms):.4f}, max "
             f"{max(ms):.4f}), {sum(ms) / max(steps, 1):.4f} ms per "
             f"micro-step; device busy {100 * busy:.1f} %"), \
-        statistics.mean(ms)
+        statistics.mean(ms), st
+
+
+# K_WINDOW's traced phases (csrc/common.cuh ClkPhase), in kernel order.
+CLK_PHASES = [(0, "window open"), (1, "router enqueue")] + [
+    (2 + 4 * r + i, f"round {r} {part}") for r in range(4)
+    for i, part in enumerate(("select/NIC", "begin", "gate", "finish"))] + [
+    (18, "run_timers"), (19, "tick"), (20, "transmit+staging"),
+    (21, "TX drain"), (22, "post-step scan"), (23, "step close"),
+    (24, "window close")]
+
+
+def phase_trace(warm, params, app, n: int, host: int = 0):
+    """The first `n` windows after `warm` through K_WINDOW's clocked build
+    (-DS1_PHASE_CLOCKS): the cycles the thread (or warp) of host `host`
+    spends in each phase, its barrier waits among them.  The phase shares
+    of those cycles times the windows' device time (CUDA events) give ms.
+    Returns (printable lines, final state)."""
+    import torch
+    from shadow1_tpu_torch.core import megakernel as mk
+    buf = torch.zeros(mk.CLK_WORDS, dtype=torch.int64,
+                      device=warm.pool.stage.device)
+    mk.set_phase_clocks(buf, host)
+    try:
+        st, wall, ms = _timed_windows(warm, params, app, n)
+    finally:
+        mk.set_phase_clocks(None)
+    cyc = buf.cpu().tolist()
+    traced = max(cyc[31], 1)
+    total = sum(cyc[i] for i, _ in CLK_PHASES)
+    dev_ms = sum(ms)
+    steps = int(st.n_steps) - int(warm.n_steps)
+    rows = [(name, cyc[i]) for i, name in CLK_PHASES if cyc[i]]
+    lines = [f"phase trace: host {host}, {len(ms)} windows, {steps} "
+             f"micro-steps ({cyc[31]} traced), K_WINDOW device {dev_ms:.4f} "
+             f"ms, {total} cycles traced ({total / dev_ms / 1e3:.1f} MHz); "
+             f"wall {wall:.4f} s"]
+    lines += [f"phase trace: {name}: {c / total * 100:.2f} %, "
+              f"{c / traced:.1f} cycles and {dev_ms * c / total / traced * 1e3:.3f}"
+              f" us per micro-step" for name, c in rows]
+    gate = sum(c for name, c in rows if name.endswith("gate")
+               or name == "step close")
+    lines.append(f"phase trace: grid barriers (gates + step close) "
+                 f"{gate / total * 100:.2f} % of the traced host's cycles")
+    return lines, st
+
+
+def trace_only(dev) -> None:
+    """`--phase-clocks`: BULK's warm-up on the persistent path, then its
+    first BUSY_WINDOWS windows through the clocked and the normal build
+    (equal final states); prints the phase split."""
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core import engine
+    state, params, app = sim.build_bulk(**BULK, device=dev)
+    warm = engine.run_until(state, params, app, WARM_NS)
+    line, _, busy_st = busy_windows(warm, params, app, BUSY_WINDOWS)
+    print(line, flush=True)
+    lines, trace_st = phase_trace(warm, params, app, BUSY_WINDOWS)
+    for line in lines:
+        print(line, flush=True)
+    require_equal(trace_st, busy_st, "phase trace vs the untraced windows")
 
 
 def main() -> int:
@@ -1191,6 +1263,9 @@ def main() -> int:
                                                 use[1::2])), flush=True)
 
     _phase_done("2")
+    if "--phase-clocks" in sys.argv[1:]:
+        trace_only(torch.device("cuda"))
+        return 0
 
     # ---- 3. kernels against their plain versions ------------------------
     dev = torch.device("cuda")
@@ -1328,8 +1403,14 @@ def main() -> int:
     print("tcp main path (persistent): final state equal to the per-phase "
           "path's", flush=True)
     del out_tcp, out_tp
-    line, window_tcp_ms = busy_windows(warm_tp, params, app, BUSY_WINDOWS)
+    line, window_tcp_ms, busy_st = busy_windows(warm_tp, params, app,
+                                                BUSY_WINDOWS)
     print(line, flush=True)
+    lines, trace_st = phase_trace(warm_tp, params, app, BUSY_WINDOWS)
+    for line in lines:
+        print(line, flush=True)
+    require_equal(trace_st, busy_st, "phase trace vs the untraced windows")
+    del busy_st, trace_st
 
     _phase_done("8")
 

@@ -4,7 +4,8 @@ library with a plain C interface, loaded with ctypes).
 Each `csrc/<name>.cu` builds into `shadow1_tpu_torch/_build/` under a
 name keyed by the hash of its sources (the .cu and every header it
 includes) and flags, at first use, from the sources in the checkout
-only.  `build_all` starts one nvcc per source at once.  Flags: sm_90a,
+only.  `build_all` starts one nvcc per library at once (VARIANTS are
+libraries built from another's source with extra flags).  Flags: sm_90a,
 -O3, --fmad=false (no multiply-add contraction, so every float op rounds
 as the JAX package's does), never fast math.
 """
@@ -24,6 +25,10 @@ PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NAMES = ("exchange", "deliver", "transport", "window")
+# Libraries built from another one's source with extra flags: K_WINDOW
+# with its per-phase cycle counters (csrc/common.cuh Clk), which
+# chip_smoke.py loads for its phase trace.
+VARIANTS = {"window_clk": ("window", ("-DS1_PHASE_CLOCKS",))}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,15 +74,21 @@ def _sources(name: str) -> list[Path]:
     return out
 
 
+def _recipe(name: str) -> tuple[str, tuple]:
+    """(source name, extra flags) of library `name`."""
+    return VARIANTS.get(name, (name, ()))
+
+
 def lib_path(name: str) -> Path:
+    src, extra = _recipe(name)
     h = hashlib.sha256()
-    for p in _sources(name):
+    for p in _sources(src):
         h.update(p.read_bytes())
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join(FLAGS + extra).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=NAMES) -> dict:
+def build_all(names=NAMES + tuple(VARIANTS)) -> dict:
     """Compile every missing library, one nvcc per source, all at once.
     Returns {name: seconds} (0.0 for a library already built)."""
     BUILD_DIR.mkdir(exist_ok=True)
@@ -89,7 +100,9 @@ def build_all(names=NAMES) -> dict:
             out[name] = 0.0
             continue
         tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        src, extra = _recipe(name)
+        cmd = [nvcc(), *FLAGS, *extra, "-o", str(tmp),
+               str(SRC_DIR / f"{src}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
@@ -115,7 +128,7 @@ def load(name: str):
         if not target.exists():
             build_all((name,))
         lib = ctypes.CDLL(str(target))
-        for sym, argtypes in _ARGTYPES[name].items():
+        for sym, argtypes in _ARGTYPES[_recipe(name)[0]].items():
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

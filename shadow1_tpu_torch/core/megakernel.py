@@ -630,9 +630,26 @@ class _WindowArgs(ctypes.Structure):
                 ("tcp", _TcpArgs), ("b", _BulkArgs)] + [
         (n, ctypes.c_void_p) for n in (
             "t_h", "part_min", "part_ev", "part_err", "now", "n_windows",
-            "win", "em_valid", "em_blk", "acks_thinned")] + [
+            "win", "em_valid", "em_blk", "acks_thinned", "clk")] + [
         ("t_target", ctypes.c_int64), ("min_latency", ctypes.c_int64),
-        ("max_steps", ctypes.c_int64), ("n_blocks", ctypes.c_int32)]
+        ("max_steps", ctypes.c_int64), ("n_blocks", ctypes.c_int32),
+        ("clk_host", ctypes.c_int32)]
+
+
+# K_WINDOW's phase trace: while `buf` is set, TCP windows launch the
+# clocked build (core/_build.py VARIANTS "window_clk") and add host
+# `host`'s cycles per phase into it (csrc/common.cuh Clk).
+_PHASE_CLOCKS = {"buf": None, "host": 0}
+CLK_WORDS = 32
+
+
+def set_phase_clocks(buf=None, host: int = 0) -> None:
+    """Trace host `host`'s phases of K_WINDOW's TCP kernel into `buf`
+    (int64 [CLK_WORDS] on the card, accumulated across launches); None
+    stops tracing."""
+    if buf is not None:
+        _check(buf, I64, (CLK_WORDS,), "phase clock buffer")
+    _PHASE_CLOCKS.update(buf=buf, host=int(host))
 
 
 _GRID: dict = {}
@@ -643,7 +660,7 @@ def _window_grid(lib, h: int, tcp: bool) -> int:
     device, kernel and h).  Raises if the card cannot launch
     cooperatively, or, for the TCP kernel (one resident thread per host),
     if h exceeds what the card holds at once."""
-    key = (torch.cuda.current_device(), h, tcp)
+    key = (torch.cuda.current_device(), id(lib), h, tcp)
     if key not in _GRID:
         g = ctypes.c_int(0)
         if tcp:
@@ -733,7 +750,8 @@ def window_kernel(state, params, app, t_target):
     _check(hosts.acks_thinned, I64, (h,), "hosts.acks_thinned")
     for name in ("now", "n_windows"):
         _check(getattr(state, name), I64, (), name)
-    lib = _build.load("window")
+    clk = _PHASE_CLOCKS["buf"] if tcp_on else None
+    lib = _build.load("window" if clk is None else "window_clk")
     grid = _window_grid(lib, h, tcp_on)
     dev = pool.blk.device
     e = engine._n_lanes(app)
@@ -771,9 +789,10 @@ def window_kernel(state, params, app, t_target):
         part_ev=_addr(part_ev), part_err=_addr(part_err),
         now=_addr(state.now), n_windows=_addr(state.n_windows),
         win=_addr(win), em_valid=_addr(em.valid), em_blk=_addr(em.blk),
-        acks_thinned=_addr(hosts.acks_thinned),
+        acks_thinned=_addr(hosts.acks_thinned), clk=_addr(clk),
         t_target=int(t_target), min_latency=params.min_latency_ns,
-        max_steps=MAX_STEPS, n_blocks=grid)
+        max_steps=MAX_STEPS, n_blocks=grid,
+        clk_host=_PHASE_CLOCKS["host"])
     launch = lib.window_tcp_launch if tcp_on else lib.window_launch
     _raise_on(launch(ctypes.byref(args), _stream()), "window")
     LAUNCHES["window"] += 1

@@ -45,6 +45,62 @@ constexpr int64_t CODEL_TARGET_NS = 10000000LL;
 constexpr int64_t CODEL_INTERVAL_NS = 100000000LL;
 constexpr int64_t ONE_MS = 1000000LL;
 
+// Per-phase cycle counters of K_WINDOW's TCP kernel, compiled in only
+// under -DS1_PHASE_CLOCKS (core/_build.py builds that variant as a library
+// of its own, "window_clk"; the normal build carries none of it).  One
+// thread -- the one that runs the traced host -- adds the clock64() cycles
+// since its previous mark to acc[phase].  Phases: the window's opening,
+// the router enqueue, per delivery round r (at most 4 traced) its
+// select/NIC, begin, gate and finish, then run_timers, the app tick,
+// transmit and staging, the TX drain, the post-step scan, the step's
+// closing barrier and fold, and the window's close; CLK_STEPS counts the
+// traced micro-steps.
+enum ClkPhase {
+  CLK_OPEN = 0, CLK_ENQUEUE = 1, CLK_ROUND = 2,   // + 4 * r + part
+  CLK_SELECT = 0, CLK_BEGIN = 1, CLK_GATE = 2, CLK_FINISH = 3,
+  CLK_TIMERS = 18, CLK_TICK = 19, CLK_TRANSMIT = 20, CLK_DRAIN = 21,
+  CLK_SCAN = 22, CLK_CLOSE = 23, CLK_WCLOSE = 24, CLK_STEPS = 31,
+  CLK_WORDS = 32
+};
+
+struct Clk {
+#ifdef S1_PHASE_CLOCKS
+  long long* acc;
+  long long t;
+  bool on;
+  __device__ void start() {
+    if (on) t = clock64();
+  }
+  __device__ void mark(int phase) {
+    if (!on) return;
+    const long long n = clock64();
+    acc[phase] += n - t;
+    t = n;
+  }
+  __device__ void count_step() {
+    if (on) acc[CLK_STEPS] += 1;
+  }
+#else
+  __device__ void start() {}
+  __device__ void mark(int) {}
+  __device__ void count_step() {}
+#endif
+  __device__ void round(int r, int part) {
+    mark(CLK_ROUND + 4 * (r < 3 ? r : 3) + part);
+  }
+};
+
+// A Clk that traces when `on` (and the build has the counters).
+__device__ __forceinline__ Clk make_clk(long long* acc, bool on) {
+  Clk c;
+#ifdef S1_PHASE_CLOCKS
+  c.acc = acc;
+  c.t = 0;
+  c.on = on && acc != nullptr;
+#endif
+  return c;
+}
+
 __device__ __forceinline__ int64_t dec_i64(int32_t lo, int32_t hi) {
   return ((int64_t)hi << 31) | (int64_t)lo;
 }

@@ -51,10 +51,11 @@ __global__ void k_deliver(DeliverArgs a) {
   const int hh = blockIdx.x * blockDim.x + threadIdx.x;
   if (hh >= a.h) return;
   int32_t err = 0;
+  Clk clk = make_clk(nullptr, false);
   const DeliverOut o = deliver_host(a, nullptr, NoGate{}, hh, true,
                                     a.tick_t[hh], a.active[hh] != 0,
                                     a.rx_batch > 1 ? a.aux0[hh] : INV,
-                                    a.window_end, err);
+                                    a.window_end, err, clk);
   a.delivered_n[hh] = o.delivered;
   a.t_post[hh] = o.t_post;
 }
@@ -64,10 +65,11 @@ __global__ void __launch_bounds__(kDeliverBlock)
   const int hh = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = hh < a.h;
   int32_t err = 0;
+  Clk clk = make_clk(nullptr, false);
   const DeliverOut o = deliver_host(
       a, &t, GridGate{t.gates}, hh, valid, valid ? a.tick_t[hh] : 0,
       valid && a.active[hh] != 0,
-      (valid && a.rx_batch > 1) ? a.aux0[hh] : INV, a.window_end, err);
+      (valid && a.rx_batch > 1) ? a.aux0[hh] : INV, a.window_end, err, clk);
   if (valid) {
     a.delivered_n[hh] = o.delivered;
     a.t_post[hh] = o.t_post;

@@ -159,7 +159,7 @@ template <class Gate>
 __device__ __forceinline__ DeliverOut deliver_host(
     const DeliverArgs& a, const TcpArgs* tcp, const Gate& gate, int hh,
     bool valid, int64_t tick, bool act, int64_t aux0, int64_t window_end,
-    int32_t& err) {
+    int32_t& err, Clk& clk) {
   const int ki = a.ki, ic = a.ic, S = a.slots;
   const int64_t base = (int64_t)hh * ki;
   int32_t rxq = 0;
@@ -198,6 +198,7 @@ __device__ __forceinline__ DeliverOut deliver_host(
   }
   int32_t delivered = 0;
   int64_t t_post = tick;
+  clk.mark(CLK_ENQUEUE);
 
   for (int r = 0; r < a.rx_batch; ++r) {
     bool have = false, deliver = false;
@@ -301,6 +302,7 @@ __device__ __forceinline__ DeliverOut deliver_host(
         }
       }
     }
+    clk.round(r, CLK_SELECT);
     if (tcp != nullptr) {
       // tcp.process_arrivals, split at the round's grid-wide gates.
       Arrival ar;
@@ -308,10 +310,13 @@ __device__ __forceinline__ DeliverOut deliver_host(
       if (valid)
         err |= tcp_arrival_begin(*tcp, ar, hh, row, have ? kmin : 0, t_eff,
                                  deliver && p_proto == PROTO_TCP);
+      clk.round(r, CLK_BEGIN);
       const int32_t g = gate(r, ar.gate_bits);
+      clk.round(r, CLK_GATE);
       if (valid)
         tcp_arrival_finish(*tcp, ar, hh, g,
                            r == 0 ? SLOT_RX_REPLY : NUM_SLOTS + r - 1);
+      clk.round(r, CLK_FINISH);
     }
     if (deliver) {
       ++pkts_recv;

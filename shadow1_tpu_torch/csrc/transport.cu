@@ -41,9 +41,10 @@ __global__ void k_transport(TransportArgs a, TcpArgs t, int tcp_on) {
   const int hh = blockIdx.x * kBlock + threadIdx.x;
   HostOut o{INV, 0, 0};
   if (hh < a.h) {
+    Clk clk = make_clk(nullptr, false);
     o = transport_host(a, tcp_on ? &t : nullptr, hh, a.tick_t[hh],
                        a.t_post[hh], a.active[hh] != 0, a.delivered_n[hh],
-                       a.t_app[hh]);
+                       a.t_app[hh], clk);
     a.th[hh] = o.th;
   }
   const HostOut b = block_reduce(o);

@@ -135,7 +135,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
                                                   int hh, int64_t tick,
                                                   int64_t tp, bool act,
                                                   int32_t delivered,
-                                                  int64_t t_app) {
+                                                  int64_t t_app, Clk& clk) {
   const int e = a.e, pc = a.pc, ko = a.ko;
   const int xb = pc - OEXT_COLS;                // extension base column
   const bool boot = tp < a.bootstrap_end;
@@ -237,6 +237,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   a.pkts_dropped_inet[hh] += dropped_n;
   a.pkts_dropped_pool[hh] += pool_drop_n;
   a.last_refill_tx[hh] = last;
+  clk.mark(CLK_TRANSMIT);
 
   // ---- _tx_drain_body (skip_refill: staging refilled at this instant) ----
   int64_t tmin = INV;
@@ -270,6 +271,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   a.tokens_tx[hh] = tokens;
   a.tx_queued[hh] = txq;
   a.t_resume[hh] = t_resume;
+  clk.mark(CLK_DRAIN);
 
   // ---- virtual-CPU accounting (at tick_t, as the JAX kernel does) --------
   const int64_t events = (int64_t)delivered + nvalid;
@@ -284,6 +286,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   int64_t aux = imin(t_resume, t_app);
   if (tcp != nullptr) aux = imin(aux, timer_min(*tcp, hh));
   const int64_t th = scan_host(a, hh, aux, cpu_ns, cpu_avail);
+  clk.mark(CLK_SCAN);
   return HostOut{th, events, overflow ? 1 : 0};
 }
 

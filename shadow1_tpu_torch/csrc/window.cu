@@ -105,10 +105,12 @@ struct WindowArgs {
   uint8_t* em_valid;   // [h * e] staging scratch
   int32_t* em_blk;     // [h * e * pc]
   int64_t* acks_thinned;
+  long long* clk;      // [CLK_WORDS] phase cycles (S1_PHASE_CLOCKS builds)
   int64_t t_target;
   int64_t min_latency;
   int64_t max_steps;
   int32_t n_blocks;
+  int32_t clk_host;    // the host whose phases are traced
 };
 
 namespace {
@@ -295,14 +297,16 @@ __global__ void __launch_bounds__(kBlock) k_window(WindowArgs a) {
       if (act) a.d.t_resume[hh] = INV;
       const int64_t aux0 = PholdTick::aux(a, hh);
       int32_t no_tcp_err = 0;
+      Clk no_clk = make_clk(nullptr, false);
       const DeliverOut dl = deliver_host(a.d, nullptr, NoGate{}, hh, true,
-                                         tick, act, aux0, we, no_tcp_err);
+                                         tick, act, aux0, we, no_tcp_err,
+                                         no_clk);
       phold_tick(a.p, a.d, hh, dl.t_post, act, we,
                  a.em_valid + (int64_t)hh * e,
                  a.em_blk + (int64_t)hh * e * pc, e, pc);
       const HostOut t = transport_host(a.t, nullptr, hh, tick, dl.t_post,
                                        act, dl.delivered,
-                                       PholdTick::next(a, hh));
+                                       PholdTick::next(a, hh), no_clk);
       a.t_h[hh] = t.th;
       s.th = imin(s.th, t.th);
       s.events += t.events;
@@ -323,9 +327,12 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
   const int64_t gtid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
   const int64_t gstride = (int64_t)gridDim.x * kBlock;
   int32_t* const gates = a.tcp.gates;            // [2][rb] by step parity
+  Clk clk = make_clk(a.clk, gtid == a.clk_host);
+  clk.start();
   for (int64_t i = gtid; i < 2 * rb; i += gstride) gates[i] = 0;
   int64_t ws, we;
   int64_t gmin = window_open<Tick>(a, grid, ws, we);
+  clk.mark(CLK_OPEN);
 
   const bool valid = gtid < h;
   const int hh = valid ? (int)gtid : 0;
@@ -360,19 +367,24 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
     int32_t sock_err = 0;
     const DeliverOut dl = deliver_host(a.d, &a.tcp, GridGate{gates + buf * rb},
                                        hh, valid, tick, act, aux0, we,
-                                       sock_err);
+                                       sock_err, clk);
     if (valid) {
       tcp_run_timers(a.tcp, hh, dl.t_post, act);
+      clk.mark(CLK_TIMERS);
       Tick::tick(a, hh, dl.t_post, act);
+      clk.mark(CLK_TICK);
       s = transport_host(a.t, &a.tcp, hh, tick, dl.t_post, act, dl.delivered,
-                         Tick::next(a, hh));
+                         Tick::next(a, hh), clk);
       a.t_h[hh] = s.th;
       s.err |= sock_err;
     }
     gmin = step_close(a, grid, buf, s);
+    clk.mark(CLK_CLOSE);
+    clk.count_step();
     ++steps;
   }
   window_close(a, grid, buf, gmin, ws, we, status);
+  clk.mark(CLK_WCLOSE);
 }
 
 __global__ void __launch_bounds__(kBlock, 1) k_window_tcp(WindowArgs a) {
