@@ -7,9 +7,10 @@ Phases, each reported on its own line:
 
 1. device  -- a CUDA card must be present; prints nvidia-smi's name and
    power limit.
-2. build   -- builds the four kernels from shadow1_tpu_torch/csrc with
-   nvcc (one process per source, in parallel); prints K_WINDOW's
-   registers and spills from ptxas.
+2. build   -- builds the four kernels from shadow1_tpu_torch/csrc, and
+   K_WINDOW's phase-clock variant (-DS1_PHASE_CLOCKS), with nvcc (one
+   process per library, in parallel); prints every kernel's registers,
+   stack and spills from ptxas.
 3. kernels -- builds the bench phold world on the card and runs it
    through the 10 ms warm-up plus a few windows.  On cloned inputs taken
    at a window boundary (exchange, K_WINDOW) and at a mid-window
@@ -55,20 +56,22 @@ Phases, each reported on its own line:
    K_WINDOW TCP launch per window), the same schedule, counters zeroed
    just before and read just after: the trajectory must equal the JAX
    package's, the launches one window launch per window and nothing else,
-   and the final state the per-phase path's, leaf for leaf.  Then a few
-   windows again with CUDA events around each K_WINDOW call: device time
-   per window and the device's busy share.
-9. kernels line -- one JSON object with each kernel's numbers (ms is
+   and the final state the per-phase path's, leaf for leaf.  Then the
+   timed part again, and its first BUSY_WINDOWS windows, with CUDA events
+   around each K_WINDOW call (device time per window, the device's busy
+   share); those windows through K_WINDOW's phase-clock build (the split
+   of the server's micro-step by phase, final state equal to the untraced
+   run's), and their bound (window_bound over each).
+9. pairs world -- PAIRS_H = 40,000 hosts in client -> server pairs to
+   100 ms on both paths, counters zeroed just before and read just
+   after, final states equal leaf for leaf; k_window_tcp against
+   window_plain on its heaviest window.
+10. kernels line -- one JSON object with each kernel's numbers (ms is
    the device time, call_ms the call time); each kernel's launches come
    from the run of its own path; the TCP branches are rows of their own.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
-
-    python3 chip_smoke.py --phase-clocks
-
-runs phases 1 and 2, then only BULK's first windows through K_WINDOW's
-clocked build (the phase split of its TCP kernel, see phase_trace).
 """
 
 from __future__ import annotations
@@ -154,8 +157,14 @@ REPLACES = {
 PER_PHASE = ("exchange", "deliver", "transport")
 TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
             "transport_tcp": "transport", "window_tcp": "window"}
-# Windows of the persistent TCP main path timed again with CUDA events.
+# Windows of the persistent TCP main path timed again with CUDA events,
+# traced by phase and bounded.
 BUSY_WINDOWS = 8
+
+# The "pairs" TCP world (pairs_world): 20,000 client -> server pairs, more
+# hosts than one resident thread each would fit on the card, to 100 ms.
+PAIRS_H = 40_000
+PAIRS_NS = 100 * MS
 
 
 _T0 = time.perf_counter()
@@ -455,13 +464,14 @@ def tcp_tick_bound(st, out, em, active) -> tuple[int, int]:
                             + (fired + running) * 200)
 
 
-def window_bound(state, params, app, t_target) -> tuple[int, int, int]:
+def window_bound(state, params, app, t_target, keep=False):
     """(bytes, operations, micro-steps) of one K_WINDOW call on `state`:
     the sum of what its phases must move and do, counted from this
     window's data by replaying it phase by phase through the per-phase
     kernels -- the exchange, the scan, per micro-step the tick setup,
     K_DELIVER, (TCP) run_timers, the tick and K_TRANSPORT, and the
-    closing outbox scan."""
+    closing outbox scan.  With `keep`, the state after the window comes
+    fourth (now = we, one more window), to count the next one."""
     from shadow1_tpu_torch.core import emit, engine
     from shadow1_tpu_torch.core import megakernel as mk
     from shadow1_tpu_torch.core.state import STAGE_IN_FLIGHT
@@ -510,6 +520,24 @@ def window_bound(state, params, app, t_target) -> tuple[int, int, int]:
     n_out = int((st.pool.stage == STAGE_IN_FLIGHT).sum())
     b += st.pool.stage.numel() * 4 + n_out * 8 + 5 * 8
     ops += st.pool.stage.numel() * 2
+    if keep:
+        st = st.replace(now=st.now.new_tensor(we),
+                        n_windows=st.n_windows + 1)
+        return b, ops, steps, st
+    return b, ops, steps
+
+
+def windows_bound(warm, params, app, n: int) -> tuple[int, int, int]:
+    """(bytes, operations, micro-steps) of the first `n` windows after
+    `warm` on the persistent path (the schedule of busy_windows): the sum
+    of window_bound over them."""
+    from shadow1_tpu_torch.core import engine
+    st = engine.clone_state(warm)
+    t_end = int(st.now) + n * params.min_latency_ns
+    b = ops = steps = 0
+    for _ in range(n):
+        wb, wo, ws, st = window_bound(st, params, app, t_end, keep=True)
+        b, ops, steps = b + wb, ops + wo, steps + ws
     return b, ops, steps
 
 
@@ -1108,11 +1136,11 @@ def drive_tcp(dev, persistent: bool):
     return out, warm, params, app, launches, wall
 
 
-def _timed_windows(warm, params, app, n: int):
+def _timed_windows(warm, params, app, n: int | None):
     """The first `n` windows after `warm` through the engine's persistent
-    loop, with CUDA events around each K_WINDOW call
-    (megakernel.window_call wrapped).  Returns (final state, wall seconds,
-    device ms of each window)."""
+    loop (n None: the main path's run_chunked to BULK_RUN_NS), with CUDA
+    events around each K_WINDOW call (megakernel.window_call wrapped).
+    Returns (final state, wall seconds, device ms of each window)."""
     import torch
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
@@ -1127,12 +1155,15 @@ def _timed_windows(warm, params, app, n: int):
         marks.append((e0, e1))
         return out
     st = engine.clone_state(warm)
-    t_end = int(st.now) + n * params.min_latency_ns
     torch.cuda.synchronize()
     mk.window_call = timed
     try:
         w0 = time.perf_counter()
-        st = engine.run_until_impl(st, params, app, t_end)
+        if n is None:
+            st = engine.run_chunked(st, params, app, BULK_RUN_NS)
+        else:
+            st = engine.run_until_impl(
+                st, params, app, int(st.now) + n * params.min_latency_ns)
         torch.cuda.synchronize()
         wall = time.perf_counter() - w0
     finally:
@@ -1140,16 +1171,23 @@ def _timed_windows(warm, params, app, n: int):
     return st, wall, [e0.elapsed_time(e1) for e0, e1 in marks]
 
 
-def busy_windows(warm, params, app, n: int):
-    """The first `n` windows after `warm` on the persistent path again,
-    with CUDA events around each K_WINDOW call: device ms per window (min,
-    median, max) and the device's busy share of the wall.  Returns
-    (printable line, mean device ms per launch, final state)."""
+def bound_ms(b: int, ops: int) -> float:
+    """The least card time for `b` bytes and `ops` operations (ms)."""
+    return max(b / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+
+
+def busy_windows(warm, params, app, n: int | None):
+    """The first `n` windows after `warm` on the persistent path again
+    (n None: the whole timed part), with CUDA events around each K_WINDOW
+    call: device ms per window (min, median, max) and the device's busy
+    share of the wall.  Returns (printable line, mean device ms per
+    launch, final state)."""
     st, wall, ms = _timed_windows(warm, params, app, n)
     steps = int(st.n_steps) - int(warm.n_steps)
     busy = sum(ms) / 1e3 / wall
     return (f"tcp main path (persistent): {len(ms)} windows ({steps} "
-            f"micro-steps) again with CUDA events: wall {wall:.4f} s, "
+            f"micro-steps{'' if n else ', the whole timed part'}) again "
+            f"with CUDA events: wall {wall:.4f} s, "
             f"K_WINDOW device {statistics.mean(ms):.4f} ms per window (min "
             f"{min(ms):.4f}, median {statistics.median(ms):.4f}, max "
             f"{max(ms):.4f}), {sum(ms) / max(steps, 1):.4f} ms per "
@@ -1201,20 +1239,120 @@ def phase_trace(warm, params, app, n: int, host: int = 0):
     return lines, st
 
 
-def trace_only(dev) -> None:
-    """`--phase-clocks`: BULK's warm-up on the persistent path, then its
-    first BUSY_WINDOWS windows through the clocked and the normal build
-    (equal final states); prints the phase split."""
-    from shadow1_tpu_torch import sim
+def pairs_world(dev, h: int, persistent: bool):
+    """The "pairs" TCP world on `dev`: host 2i+1 sends 64 KiB to host 2i
+    over a uniform 10 ms full mesh of min(h, 256) vertices (host i on
+    vertex i mod 256, as build_phold maps its hosts), Reno, rx_batch 4,
+    sized by the JAX package's assembler rule for fan-in 1
+    (config/assemble.py: 6 socket slots, 128-slot slabs), built with the
+    API the two packages share (tests/test_torch_window_tcp.py holds its
+    shape against the JAX package)."""
+    import torch
+    from shadow1_tpu_torch.apps import bulk
+    from shadow1_tpu_torch.core.params import make_net_params
+    from shadow1_tpu_torch.core.state import make_sim_state
+    from shadow1_tpu_torch.routing.synthetic import uniform_full_mesh
+    v = min(h, 256)
+    lat, rel = uniform_full_mesh(v, 10 * MS, 1.0)
+    ids = torch.arange(h)
+    is_server = ids % 2 == 0
+    params = make_net_params(
+        latency_ns=lat, reliability=rel, host_vertex=ids % v,
+        bw_up_Bps=torch.full((h,), 1 << 30),
+        bw_down_Bps=torch.full((h,), 1 << 30), seed=1, stop_time=60 * SEC,
+        persistent=persistent, device=dev)
+    state = make_sim_state(h, sock_slots=6, pool_capacity=h * 128,
+                           uses_tcp=True, device=dev)
+    state = state.replace(
+        socks=bulk.setup_servers(state.socks, is_server.to(dev)),
+        app=bulk.init_state(h, is_client=~is_server, dst=ids - ids % 2,
+                            total_bytes=torch.where(is_server, 0, 64 * 1024),
+                            start_t=MS, device=dev))
+    return state, params, bulk.Bulk()
+
+
+def run_pairs(dev) -> tuple:
+    """The pairs world (PAIRS_H hosts) to PAIRS_NS on both of the port's
+    paths, each with its launch counters zeroed just before and read just
+    after (one K_WINDOW per window; one exchange per window and one
+    K_DELIVER and K_TRANSPORT per micro-step): the final states must be
+    equal leaf for leaf.  Then k_window_tcp against window_plain on the
+    window with the most events, timed.  Returns that window's ((kernel
+    (device ms, call ms), plain (device ms, call ms)), max |diff|)."""
+    import torch
     from shadow1_tpu_torch.core import engine
-    state, params, app = sim.build_bulk(**BULK, device=dev)
-    warm = engine.run_until(state, params, app, WARM_NS)
-    line, _, busy_st = busy_windows(warm, params, app, BUSY_WINDOWS)
-    print(line, flush=True)
-    lines, trace_st = phase_trace(warm, params, app, BUSY_WINDOWS)
-    for line in lines:
-        print(line, flush=True)
-    require_equal(trace_st, busy_st, "phase trace vs the untraced windows")
+    from shadow1_tpu_torch.core import megakernel as mk
+    finals = {}
+    for persistent in (True, False):
+        state, params, app = pairs_world(dev, PAIRS_H, persistent)
+        label = (f"pairs world (H={PAIRS_H}, "
+                 f"{'persistent' if persistent else 'per-phase'} path)")
+        torch.cuda.synchronize()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        out = engine.run_chunked(state, params, app, PAIRS_NS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(mk.LAUNCHES)
+        f = tcp_summary(out)
+        if persistent:
+            bad = launches["window"] != f["n_windows"] or \
+                any(launches[k] for k in PER_PHASE)
+        else:
+            bad = launches["window"] or \
+                launches["exchange"] != f["n_windows"] or \
+                launches["deliver"] != f["n_steps"] or \
+                launches["transport"] != f["n_steps"]
+        if bad:
+            _fail(f"{label}: launches {launches} do not match its windows "
+                  f"/ micro-steps")
+        if f["done"] != PAIRS_H // 2:
+            _fail(f"{label}: {f['done']} of {PAIRS_H // 2} transfers done")
+        print(f"{label}: n_steps {f['n_steps']} n_windows {f['n_windows']} "
+              f"n_events {f['n_events']} events/s {f['n_events'] / wall:.1f} "
+              f"wall {wall:.4f} s ({wall / f['n_steps'] * 1e3:.4f} ms per "
+              f"micro-step); bytes received {f['bytes_recv']}, "
+              f"{f['done']} transfers done, err {f['err']}; launches "
+              f"{launches}", flush=True)
+        finals[persistent] = out
+    require_equal(finals[True], finals[False],
+                  "pairs world, persistent vs per-phase path")
+    print("pairs world: final states of the two paths equal", flush=True)
+    del finals
+
+    # The window with the most events, found on a third (untimed) run.
+    state, params, app = pairs_world(dev, PAIRS_H, True)
+    call, best = mk.window_call, [None, -1]
+
+    def probe(st, p, a, t_target):
+        before = (engine.clone_state(st), int(st.n_events))
+        out = call(st, p, a, t_target)
+        n = int(out[0].n_events) - before[1]
+        if n > best[1]:
+            best[:] = [(before[0], t_target), n]
+        return out
+    mk.window_call = probe
+    try:
+        engine.run_chunked(state, params, app, PAIRS_NS)
+    finally:
+        mk.window_call = call
+    (heavy, t_target), n_ev = best
+
+    def args():
+        return engine.clone_state(heavy), params, app, t_target
+    out_k = mk.window_kernel(*args())
+    out_p = mk.window_plain(*args())
+    err = require_equal(out_k, out_p, "pairs world: heaviest window")
+    times = (time_call(mk.window_kernel, args, kernel="k_window_tcp"),
+             time_call(mk.window_plain, args, reps=1))
+    (kd, kc), (pd, pc) = times
+    steps = int(out_k[0].n_steps) - int(heavy.n_steps)
+    print(f"pairs world: k_window_tcp equal to window_plain on the "
+          f"heaviest window ({n_ev} events, {steps} micro-steps, window "
+          f"{out_k[2][1].item()}..{out_k[2][2].item()} ns); kernel device "
+          f"{kd:.4f} ms (call {kc:.4f} ms), plain device {pd:.4f} ms (call "
+          f"{pc:.4f} ms)", flush=True)
+    return times, err
 
 
 def main() -> int:
@@ -1252,7 +1390,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})",
           flush=True)
-    for name in _build.NAMES:
+    for name in (*_build.NAMES, *_build.VARIANTS):
         log = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
         fns = [kernel_name(ln.split("'")[1]) for ln in log
                if "Compiling entry" in ln]
@@ -1263,9 +1401,6 @@ def main() -> int:
                                                 use[1::2])), flush=True)
 
     _phase_done("2")
-    if "--phase-clocks" in sys.argv[1:]:
-        trace_only(torch.device("cuda"))
-        return 0
 
     # ---- 3. kernels against their plain versions ------------------------
     dev = torch.device("cuda")
@@ -1403,18 +1538,30 @@ def main() -> int:
     print("tcp main path (persistent): final state equal to the per-phase "
           "path's", flush=True)
     del out_tcp, out_tp
-    line, window_tcp_ms, busy_st = busy_windows(warm_tp, params, app,
-                                                BUSY_WINDOWS)
+    line, window_tcp_ms, _ = busy_windows(warm_tp, params, app, None)
+    print(line, flush=True)
+    line, first_ms, busy_st = busy_windows(warm_tp, params, app,
+                                           BUSY_WINDOWS)
     print(line, flush=True)
     lines, trace_st = phase_trace(warm_tp, params, app, BUSY_WINDOWS)
     for line in lines:
         print(line, flush=True)
     require_equal(trace_st, busy_st, "phase trace vs the untraced windows")
     del busy_st, trace_st
+    b8, o8, s8 = windows_bound(warm_tp, params, app, BUSY_WINDOWS)
+    print(f"tcp main path (persistent): the first {BUSY_WINDOWS} windows "
+          f"({s8} micro-steps) must move {b8} bytes and do {o8} operations: "
+          f"bound {bound_ms(b8, o8):.6f} ms, K_WINDOW device "
+          f"{first_ms * BUSY_WINDOWS:.4f} ms", flush=True)
 
     _phase_done("8")
 
-    # ---- 9. kernels line ------------------------------------------------
+    # ---- 9. the pairs world: more hosts than one thread each would fit --
+    run_pairs(dev)
+
+    _phase_done("9")
+
+    # ---- 10. kernels line -----------------------------------------------
     rows = []
     for name in (*PER_PHASE, "window", *TCP_ROWS):
         b, ops = bounds[name]

@@ -40,9 +40,8 @@ _ARGTYPES = {
                   _P, _P, _P, _P, _P, _P]},
     "deliver": {"deliver_launch": [_P, _P, _P]},
     "transport": {"transport_launch": [_P, _P, _P]},
-    "window": {"window_launch": [_P, _P], "window_grid": [_I, _P],
-               "window_tcp_launch": [_P, _P],
-               "window_tcp_grid": [_I, _P, _P],
+    "window": {"window_launch": [_P, _P], "window_tcp_launch": [_P, _P],
+               "window_occupancy": [_I, _P, _P],
                "log1p_probe_launch": [_P, _P, _I64, _P]},
 }
 

@@ -23,6 +23,11 @@ sm_90a in `csrc/` and built by core/_build.py:
   (csrc/bulk_tick.cuh).  The three phases are one copy of device code
   (csrc/*.cuh) that the per-phase kernels share.
 
+The TCP kernels of K_DELIVER and K_WINDOW run one warp per host, hosts
+walked warp-stride over a cooperative grid sized from the occupancy
+query, so no host count is refused; the other kernels run one thread per
+host (csrc/common.cuh, the Solo and Warp teams).
+
 Dispatch rule, the same for every wrapper: a CUDA tensor launches the
 kernel (or raises); a CPU tensor runs the plain version, which is built
 from the reference functions of core/engine.py.  There is no third path
@@ -211,16 +216,17 @@ class _TcpArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n, _d, _r in _TCP_SOCK_FIELDS] + [
         (n, ctypes.c_void_p) for n in (
             "def_snd_buf", "def_rcv_buf", "autotune_snd", "autotune_rcv",
-            "rr_next", "em_valid", "em_blk", "gates", "err")] + [
+            "rr_next", "em_valid", "em_blk", "gates", "err", "carry")] + [
         ("min_latency", ctypes.c_int64), ("slots", ctypes.c_int32),
         ("e", ctypes.c_int32), ("pc", ctypes.c_int32),
         ("qdisc", ctypes.c_int32)]
 
 
-def _tcp_struct(state, params, em, gates=None) -> _TcpArgs:
+def _tcp_struct(state, params, em, gates=None, carry=None) -> _TcpArgs:
     """The TCP branches' arguments, socket table and emission block
-    checked.  `gates` ([rx_batch] int32) is K_DELIVER's grid-wide gate
-    scratch; K_TRANSPORT leaves it None."""
+    checked.  `gates` (int32 words) and `carry` (`_carry_scratch`) are the
+    warp-per-host kernels' grid-wide gate words and per-host records
+    across them; K_TRANSPORT leaves both None."""
     socks, hosts = state.socks, state.hosts
     h, s = socks.num_hosts, socks.slots
     pc = state.pool.blk.shape[1]
@@ -248,8 +254,18 @@ def _tcp_struct(state, params, em, gates=None) -> _TcpArgs:
         autotune_rcv=_addr(params.autotune_rcv),
         rr_next=_addr(hosts.rr_next), em_valid=_addr(em.valid),
         em_blk=_addr(em.blk), gates=_addr(gates), err=_addr(state.err),
+        carry=_addr(carry),
         min_latency=params.min_latency_ns, slots=s, e=e, pc=pc,
         qdisc=int(params.qdisc))
+
+
+# Bytes of one host's record across the TCP kernels' gate barriers
+# (csrc/deliver.cuh HostCarry, HOST_CARRY_BYTES).
+CARRY_BYTES = 512
+
+
+def _carry_scratch(h: int, device) -> torch.Tensor:
+    return torch.empty((h, CARRY_BYTES // 8), dtype=I64, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -340,9 +356,10 @@ def _deliver_struct(state, params, app, bw_dn, window_end=0, tick_t=None,
 def deliver_kernel(state, params, app, em, tick_t, active, window_end,
                    bw_dn, aux0):
     """Launch csrc/deliver.cu: _rx_phase with one thread per host (in TCP
-    worlds one cooperative grid, process_arrivals included, replies into
-    `em`).  Updates the inbox, hosts, socket tensors, err and `em` in
-    place; returns (state, em, delivered_n, t_post)."""
+    worlds one cooperative grid of one warp per host, process_arrivals
+    included, replies into `em`).  Updates the inbox, hosts, socket
+    tensors, err and `em` in place; returns (state, em, delivered_n,
+    t_post)."""
     from . import _build
     h = state.hosts.num_hosts
     rx_batch = max(1, int(getattr(app, "rx_batch", 1)))
@@ -360,17 +377,12 @@ def deliver_kernel(state, params, app, em, tick_t, active, window_end,
     tcp = None
     if engine._uses_tcp(app):
         gates = torch.empty((rx_batch,), dtype=I32, device=dev)
-        tcp = _tcp_struct(state, params, em, gates)
+        carry = _carry_scratch(h, dev)
+        tcp = _tcp_struct(state, params, em, gates, carry)
     lib = _build.load("deliver")
-    rc = lib.deliver_launch(ctypes.byref(a),
-                            None if tcp is None else ctypes.byref(tcp),
-                            _stream())
-    if rc == -1:
-        raise RuntimeError(
-            f"K_DELIVER (TCP) runs as one cooperative grid, and "
-            f"{_n_blocks(h)} blocks for {h} hosts do not fit on the card "
-            f"at once (or it cannot launch cooperative kernels)")
-    _raise_on(rc, "deliver")
+    _raise_on(lib.deliver_launch(ctypes.byref(a),
+                                 None if tcp is None else ctypes.byref(tcp),
+                                 _stream()), "deliver")
     LAUNCHES["deliver"] += 1
     return state, em, delivered_n, t_post
 
@@ -652,34 +664,29 @@ def set_phase_clocks(buf=None, host: int = 0) -> None:
     _PHASE_CLOCKS.update(buf=buf, host=int(host))
 
 
-_GRID: dict = {}
+_OCCUPANCY: dict = {}
 
 
 def _window_grid(lib, h: int, tcp: bool) -> int:
-    """Blocks of K_WINDOW's cooperative grid for h hosts (cached per
-    device, kernel and h).  Raises if the card cannot launch
-    cooperatively, or, for the TCP kernel (one resident thread per host),
-    if h exceeds what the card holds at once."""
-    key = (torch.cuda.current_device(), id(lib), h, tcp)
-    if key not in _GRID:
-        g = ctypes.c_int(0)
-        if tcp:
-            cap = ctypes.c_int(0)
-            rc = lib.window_tcp_grid(h, ctypes.byref(g), ctypes.byref(cap))
-            if rc == -2:
-                raise RuntimeError(
-                    f"K_WINDOW (TCP) runs one resident thread per host, and "
-                    f"this card holds at most {cap.value} at once (blocks "
-                    f"per SM x SMs x {_BLOCK}); the world has {h} hosts")
-        else:
-            rc = lib.window_grid(h, ctypes.byref(g))
+    """Blocks of K_WINDOW's cooperative grid for h hosts: what the card
+    keeps resident (blocks per SM from the occupancy query, times SMs;
+    cached per device, library and kernel), and no more blocks than the
+    hosts fill -- one thread per host for k_window, one warp per host for
+    k_window_tcp.  The kernels walk hosts grid-stride, so any h runs.
+    Raises if the card cannot launch the kernel cooperatively."""
+    key = (torch.cuda.current_device(), id(lib), tcp)
+    if key not in _OCCUPANCY:
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.window_occupancy(int(tcp), ctypes.byref(per_sm),
+                                  ctypes.byref(sms))
         if rc == -1:
             raise RuntimeError("K_WINDOW: the device cannot launch "
                                "cooperative kernels (or the kernel does "
                                "not fit on one SM)")
         _raise_on(rc, "window (occupancy query)")
-        _GRID[key] = g.value
-    return _GRID[key]
+        _OCCUPANCY[key] = per_sm.value * sms.value
+    per_block = _BLOCK // 32 if tcp else _BLOCK
+    return min(-(-h // per_block), _OCCUPANCY[key])
 
 
 def _phold_struct(state, params, app) -> _PholdArgs:
@@ -778,7 +785,8 @@ def window_kernel(state, params, app, t_target):
     if tcp_on:
         rx_batch = max(1, int(getattr(app, "rx_batch", 1)))
         gates = torch.empty((2 * rx_batch,), dtype=I32, device=dev)
-        app_args = dict(tcp=_tcp_struct(state, params, em, gates),
+        carry = _carry_scratch(h, dev)
+        app_args = dict(tcp=_tcp_struct(state, params, em, gates, carry),
                         b=_bulk_struct(state, app))
     else:
         app_args = dict(p=_phold_struct(state, params, app))

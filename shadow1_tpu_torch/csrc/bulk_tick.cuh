@@ -1,5 +1,5 @@
-// Bulk's on_tick and next_time as device code, one host per thread, for
-// K_WINDOW's TCP kernel (window.cu).
+// Bulk's on_tick and next_time as device code, one host per team (a warp
+// in K_WINDOW's TCP kernel, window.cu).
 //
 // bulk_tick follows shadow1_tpu_torch/apps/bulk.py `on_tick` (itself the
 // JAX shadow1_tpu/apps/bulk.py:74-123) for one host: a due client opens
@@ -10,7 +10,9 @@
 // not, every TCP socket consumes what it received (consume_all) and
 // closes once its peer closed (CLOSEWAIT): the reference applies that
 // sink policy to the whole table each micro-step, with no `active` mask.
-// The socket calls are tcp.cuh's, on the client socket gathered once.
+// The socket calls are tcp.cuh's, on the client socket gathered once (in
+// every lane; the leader stores it); the sink is per socket, so the
+// team's lanes take the sockets.
 #pragma once
 #include "tcp.cuh"
 
@@ -37,7 +39,8 @@ __device__ __forceinline__ int64_t bulk_next(const BulkArgs& b, int hh) {
 }
 
 // on_tick for host hh at `tick` (its t_post).
-__device__ __forceinline__ void bulk_tick(const BulkArgs& b,
+template <class Team>
+__device__ __forceinline__ void bulk_tick(const Team& tm, const BulkArgs& b,
                                           const TcpArgs& t, int hh,
                                           int64_t tick, bool act) {
   const int cs = b.client_slot;
@@ -54,7 +57,8 @@ __device__ __forceinline__ void bulk_tick(const BulkArgs& b,
     const uint32_t target_end = 1u + (uint32_t)b.total[hh];
     sock_write(v, target_end, tick);
     if (v.snd_end == target_end) sock_close(v);
-    sock_store(t, hh, cs, v);
+    tm.sync();               // every lane has loaded the socket
+    if (tm.leader()) sock_store(t, hh, cs, v);
     const int32_t st = v.tcp_state;
     const bool closed = st == TCPS_FINWAIT2 || st == TCPS_TIMEWAIT ||
                         st == TCPS_CLOSED;
@@ -64,16 +68,19 @@ __device__ __forceinline__ void bulk_tick(const BulkArgs& b,
       phase = BULK_FAILED;
     } else if (closed && v.snd_una == target_end + 1u) {
       phase = BULK_DONE;
-      b.finish_t[hh] = tick;
+      if (tm.leader()) b.finish_t[hh] = tick;
     }
-    b.phase[hh] = phase;
+    if (tm.leader()) b.phase[hh] = phase;
+    tm.sync();
   }
-  tcp_consume_all(t, hh);
-  for (int s = 0; s < t.slots; ++s) {
+  // tcp.consume_all, then close-when-peer-closed, socket by socket.
+  for (int s = tm.lane(); s < t.slots; s += Team::W) {
     const int64_t i = (int64_t)hh * t.slots + s;
-    if (t.stype[i] == SOCK_TCP && t.tcp_state[i] == TCPS_CLOSEWAIT)
-      t.app_closed[i] = 1;
+    if (t.stype[i] != SOCK_TCP) continue;
+    t.rcv_read[i] = t.rcv_nxt[i];
+    if (t.tcp_state[i] == TCPS_CLOSEWAIT) t.app_closed[i] = 1;
   }
+  tm.sync();
 }
 
 }  // namespace s1

@@ -156,6 +156,105 @@ __device__ __forceinline__ int64_t time_until(int64_t deficit,
   return floordiv(deficit + r - 1, r);
 }
 
+// ---------------------------------------------------------------------------
+// Team-width policy of the per-host device code.  A host's scans (its inbox
+// and outbox slabs, its socket table) run on a team: Solo is one thread
+// (the per-phase kernels, phold's K_WINDOW), Warp is the 32 lanes of a
+// warp (K_WINDOW's TCP kernel and K_DELIVER's TCP kernel, one warp per
+// host).  A scan strides the lanes over the slab -- coalesced loads -- and
+// ends in a reduction that every lane gets; min, sum and OR of integers do
+// not depend on order, and a lexicographic min that ends in the slot
+// index picks the lowest slot on a full tie, as the serial walk does.  The
+// serial parts run on uniform values in every lane; a write that is not
+// the lane's own slot is made by the leader, with a `sync` before it (the
+// lanes have read what it overwrites) and after it (before the team's
+// next read).
+// ---------------------------------------------------------------------------
+
+struct Solo {
+  static constexpr int W = 1;
+  __device__ int lane() const { return 0; }
+  __device__ bool leader() const { return true; }
+  __device__ void sync() const {}
+  __device__ int32_t min32(int32_t x) const { return x; }
+  __device__ int32_t sum(int32_t x) const { return x; }
+  __device__ bool any(bool p) const { return p; }
+  __device__ uint32_t ballot(bool p) const { return p ? 1u : 0u; }
+  __device__ int64_t min64(int64_t x) const { return x; }
+  // Lexicographic mins: (a, b) and (a, b, c), in place.
+  __device__ void min2(int64_t&, int32_t&) const {}
+  __device__ void min3(int64_t&, int64_t&, int32_t&) const {}
+};
+
+struct Warp {
+  static constexpr int W = 32;
+  static constexpr unsigned FULL = 0xffffffffu;
+  __device__ int lane() const { return (int)(threadIdx.x & 31u); }
+  __device__ bool leader() const { return lane() == 0; }
+  __device__ void sync() const { __syncwarp(); }
+  __device__ int32_t min32(int32_t x) const {
+    return __reduce_min_sync(FULL, x);
+  }
+  __device__ int32_t sum(int32_t x) const {
+    return __reduce_add_sync(FULL, x);
+  }
+  __device__ bool any(bool p) const { return __any_sync(FULL, p) != 0; }
+  __device__ uint32_t ballot(bool p) const { return __ballot_sync(FULL, p); }
+  __device__ int64_t min64(int64_t x) const {
+    for (int o = 16; o > 0; o >>= 1) {
+      const int64_t y = __shfl_xor_sync(FULL, (long long)x, o);
+      x = y < x ? y : x;
+    }
+    return x;
+  }
+  __device__ void min2(int64_t& a, int32_t& b) const {
+    for (int o = 16; o > 0; o >>= 1) {
+      const int64_t a2 = __shfl_xor_sync(FULL, (long long)a, o);
+      const int32_t b2 = __shfl_xor_sync(FULL, b, o);
+      if (a2 < a || (a2 == a && b2 < b)) {
+        a = a2;
+        b = b2;
+      }
+    }
+  }
+  __device__ void min3(int64_t& a, int64_t& b, int32_t& c) const {
+    for (int o = 16; o > 0; o >>= 1) {
+      const int64_t a2 = __shfl_xor_sync(FULL, (long long)a, o);
+      const int64_t b2 = __shfl_xor_sync(FULL, (long long)b, o);
+      const int32_t c2 = __shfl_xor_sync(FULL, c, o);
+      if (a2 < a || (a2 == a && (b2 < b || (b2 == b && c2 < c)))) {
+        a = a2;
+        b = b2;
+        c = c2;
+      }
+    }
+  }
+};
+
+// Slots a lane walks at a time in a team's slab scan: a warp loads the
+// stages and rows of kWalk slots per lane (at indices clamped into the
+// slab, so every load is in bounds) before it tests any, so the lane has
+// kWalk rows in flight instead of one dependent chain per slot; Solo keeps
+// one slot at a time and reads a row only for a live slot.
+template <class Team>
+__device__ __forceinline__ constexpr int walk_width() {
+  return Team::W == 1 ? 1 : 4;
+}
+
+// The lowest index >= `from` (and < n) whose `stage` is STAGE_FREE, or n:
+// the team reads 32 stages at a time and takes the lowest set bit of the
+// ballot.
+template <class Team>
+__device__ __forceinline__ int next_free(const Team& tm, const int32_t* stage,
+                                         int from, int n) {
+  for (int c0 = from; c0 < n; c0 += Team::W) {
+    const int k = c0 + tm.lane();
+    const uint32_t m = tm.ballot(k < n && stage[k] == STAGE_FREE);
+    if (m != 0u) return c0 + __ffs((int)m) - 1;
+  }
+  return n;
+}
+
 // rng._mix32 and keyed_bits over three ids.
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;

@@ -8,37 +8,35 @@
 // the NIC rx token bucket and CoDel, into the UDP socket ring or through
 // tcp.process_arrivals (tcp.cuh) with its reply segment.
 //
-// Design: one thread per host (the body is deliver_host, deliver.cuh,
-// which K_WINDOW shares).  Every phase is row-local by the
-// megakernel's blocking contract (megakernel.py:30-37): a host touches
-// only its own inbox slab, host row and socket rows, so threads never
-// share a written word and need no synchronisation.  The inbox slab is
-// re-scanned from global memory each round (ki = 8 rows at the bench
-// world; L1 keeps them).
+// UDP worlds (k_deliver): one thread per host (deliver_host with the Solo
+// team, deliver.cuh, which phold's K_WINDOW shares).  Every phase is
+// row-local by the megakernel's blocking contract (megakernel.py:30-37):
+// a host touches only its own inbox slab, host row and socket rows, so
+// threads never share a written word and need no synchronisation.  The
+// inbox slab is re-scanned from global memory each round (ki = 8 rows at
+// the bench world; L1 keeps them).
 //
-// TCP worlds launch k_deliver_tcp cooperatively (all blocks resident):
-// the two scoreboard inserts of process_arrivals take a global gate per
-// round (tcp.cuh), so each round every block ORs its hosts' gate bits
-// into a word of `gates` and the grid synchronises once before the rest
-// of the round; OR does not depend on order.  The socket-overflow error
-// bit of a passive open that finds no free slot is OR-ed per block into
-// state.err.  A gathered socket is ~45 scalars plus 24 range words per
-// thread: the TCP kernel takes ~250 registers and a ~1 KB stack frame in
-// local memory (ptxas, printed by chip_smoke.py).  Every barrier of the
-// cooperative grid is reached from one call site by every thread (a
-// thread with no host runs the rounds with its work masked off): an
-// aligned barrier reached from divergent call sites hangs the grid.
+// TCP worlds (k_deliver_tcp): one warp per host, walked warp-stride over
+// a cooperative grid sized from the occupancy query, so any number of
+// hosts (deliver_tcp_warps, deliver.cuh, which K_WINDOW's TCP kernel
+// shares).  The two scoreboard inserts of process_arrivals take a global
+// gate per round (tcp.cuh): each round ends in a block OR, one atomic OR
+// per block into a word of `gates` and one grid sync, reached by every
+// thread from one call site; what a host carries across it is a record
+// of device scratch, not registers.  A host's slab and socket walks run
+// across the warp's lanes (coalesced loads, warp reductions).  The
+// socket-overflow error bit of a passive open that finds no free slot is
+// OR-ed per block into state.err.
 //
 // What bounds it on the H100: bytes.  Per launch it must read each
 // active host's slab stages, the times of its live slots and its rx
 // state, the rows it consumes and the receivers' socket rows, and write
 // back the fields it changes, the ring entries and two [H] outputs --
 // about 1 MB at the bench world's mid-window step (chip_smoke.py
-// deliver_bytes counts it), a fraction of a microsecond of HBM time.
-// The strided per-host slab reads are uncoalesced (448 B apart); at this
-// size the launch itself dominates.  In the bulk TCP world the server's
-// thread walks a 3,200-slot slab once per round and matches each
-// segment against 204 sockets; that one thread sets the kernel's time.
+// deliver_bytes counts it), a fraction of a microsecond of HBM time.  In
+// the bulk TCP world the server's 3,200-slot slab and 204 sockets set the
+// time: a warp walks them in ~100 coalesced steps a pass, then the TCP
+// machine runs serially on the matched socket.
 #include "deliver.cuh"
 
 using namespace s1;
@@ -50,58 +48,58 @@ constexpr int kDeliverBlock = 256;
 __global__ void k_deliver(DeliverArgs a) {
   const int hh = blockIdx.x * blockDim.x + threadIdx.x;
   if (hh >= a.h) return;
-  int32_t err = 0;
-  Clk clk = make_clk(nullptr, false);
-  const DeliverOut o = deliver_host(a, nullptr, NoGate{}, hh, true,
-                                    a.tick_t[hh], a.active[hh] != 0,
+  const DeliverOut o = deliver_host(a, Solo{}, hh, a.tick_t[hh],
+                                    a.active[hh] != 0,
                                     a.rx_batch > 1 ? a.aux0[hh] : INV,
-                                    a.window_end, err, clk);
+                                    a.window_end);
   a.delivered_n[hh] = o.delivered;
   a.t_post[hh] = o.t_post;
 }
 
-__global__ void __launch_bounds__(kDeliverBlock)
+__global__ void __launch_bounds__(kDeliverBlock, 2)
     k_deliver_tcp(DeliverArgs a, TcpArgs t) {
-  const int hh = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = hh < a.h;
-  int32_t err = 0;
   Clk clk = make_clk(nullptr, false);
-  const DeliverOut o = deliver_host(
-      a, &t, GridGate{t.gates}, hh, valid, valid ? a.tick_t[hh] : 0,
-      valid && a.active[hh] != 0,
-      (valid && a.rx_batch > 1) ? a.aux0[hh] : INV, a.window_end, err, clk);
-  if (valid) {
-    a.delivered_n[hh] = o.delivered;
-    a.t_post[hh] = o.t_post;
-  }
+  const int32_t err = deliver_tcp_warps(
+      a, t, t.gates, a.window_end, clk, -1,
+      [&](int hh, int64_t& tick, bool& act, int64_t& aux0) {
+        tick = a.tick_t[hh];
+        act = a.active[hh] != 0;
+        aux0 = a.rx_batch > 1 ? a.aux0[hh] : INV;
+      },
+      [&](int hh, const RxCarry&, const DeliverOut& o, bool) {
+        if (Warp{}.leader()) {
+          a.delivered_n[hh] = o.delivered;
+          a.t_post[hh] = o.t_post;
+        }
+      });
   if (__syncthreads_or(err & ERR_SOCKET_OVERFLOW) && threadIdx.x == 0)
     atomicOr(t.err, ERR_SOCKET_OVERFLOW);
 }
 
 }  // namespace
 
-// `tcp` is null in UDP worlds.  Returns a CUDA error code, or -1 when the
-// cooperative TCP grid cannot be resident on the card at once.
+// `tcp` is null in UDP worlds.  Returns a CUDA error code.  The TCP grid
+// is as many blocks as the card keeps resident (the occupancy query), at
+// most one warp per host.
 extern "C" int deliver_launch(const DeliverArgs* args, const TcpArgs* tcp,
                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int tb = kDeliverBlock;
-  const int nb = (args->h + tb - 1) / tb;
   if (tcp == nullptr) {
-    k_deliver<<<nb, tb, 0, st>>>(*args);
+    k_deliver<<<(args->h + tb - 1) / tb, tb, 0, st>>>(*args);
     return (int)cudaGetLastError();
   }
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_deliver_tcp,
                                                       tb, 0);
   if (e != cudaSuccess) return (int)e;
-  if (!coop || per_sm * sms < nb) return -1;
+  const int warps = tb / 32;
+  const int need = (args->h + warps - 1) / warps;
+  const int nb = need < per_sm * sms ? need : per_sm * sms;
   e = cudaMemsetAsync(tcp->gates, 0, sizeof(int32_t) * args->rx_batch, st);
   if (e != cudaSuccess) return (int)e;
   DeliverArgs a = *args;

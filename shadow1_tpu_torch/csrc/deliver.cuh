@@ -1,5 +1,5 @@
-// K_DELIVER's per-host body as a device function, shared by the per-phase
-// kernel of deliver.cu and by K_WINDOW (window.cu).
+// K_DELIVER's per-host body as device functions, shared by the per-phase
+// kernels of deliver.cu and by K_WINDOW (window.cu).
 //
 // What it computes (engine._rx_phase): router enqueue of the host's due
 // inbox arrivals, then `rx_batch` delivery rounds, each taking the
@@ -10,8 +10,12 @@
 // row-local by the megakernel's blocking contract (megakernel.py:30-37):
 // a host touches only its own inbox slab, host row, socket rows and
 // emission lanes.  The one cross-host value is each round's pair of
-// scoreboard gates (tcp.cuh), which the caller's `gate` ORs over the
-// grid; every thread of the grid, host or not, calls it once per round.
+// scoreboard gates (tcp.cuh), which GridGate ORs over the grid.
+//
+// The pieces (rx_open, rx_round, rx_close) take a team (common.cuh): the
+// UDP kernels run deliver_host on one thread per host, the TCP kernels
+// run deliver_tcp_warps, one warp per host, with each round split at its
+// gate barrier and the host's state parked in device scratch across it.
 #pragma once
 #include <cooperative_groups.h>
 
@@ -128,14 +132,10 @@ struct DeliverOut {
   int64_t t_post;
 };
 
-// The gate of UDP worlds: never called (no TCP branch runs).
-struct NoGate {
-  __device__ int32_t operator()(int, int32_t bits) const { return bits; }
-};
-
 // Round r's gate bits OR-ed over the whole cooperative grid: per block,
 // then one atomic OR per block into words[r] (zero before the round),
-// then a grid barrier.  Every thread of the grid calls it once per round.
+// then a grid barrier.  Every thread of the grid calls it once per round,
+// from one call site.
 struct GridGate {
   int32_t* words;
   __device__ int32_t operator()(int r, int32_t bits) const {
@@ -148,202 +148,341 @@ struct GridGate {
   }
 };
 
-// _rx_phase for host hh at tick `tick` (active or not); `aux0` is the
-// rx_batch bound at batch start (read only when rx_batch > 1).  `tcp` is
-// null in UDP worlds.  A thread with no host (`valid` false) touches no
-// memory but runs the same rounds, so that every thread of the block
-// reaches the one `gate` call of each round at the same place (a
-// barrier must not be reached from divergent call sites).  The
-// socket-overflow error bits of the TCP branch are OR-ed into `err`.
-template <class Gate>
-__device__ __forceinline__ DeliverOut deliver_host(
-    const DeliverArgs& a, const TcpArgs* tcp, const Gate& gate, int hh,
-    bool valid, int64_t tick, bool act, int64_t aux0, int64_t window_end,
-    int32_t& err, Clk& clk) {
-  const int ki = a.ki, ic = a.ic, S = a.slots;
+// One host's receive state across the delivery rounds of a micro-step:
+// registers in the one-thread kernels, a record of device scratch across
+// the TCP kernels' gate barriers.
+struct RxCarry {
+  int64_t tick, bound, rate, tokens, last, t_resume;
+  int64_t dropped_router, pkts_recv, bytes_recv, t_post;
+  Codel cd;
+  int32_t rxq, delivered;
+  bool act, boot;
+};
+
+// The candidate a round took, for the TCP arrival.
+struct RxPick {
+  const int32_t* row;
+  int64_t id, t_eff;
+  bool tcp;              // a TCP segment was delivered
+};
+
+// Router enqueue of host hh's due inbox arrivals (the team's lanes take
+// slots; the count is a sum) and the host's receive state, for a tick at
+// `tick` (active or not); `aux0` is the rx_batch bound at batch start
+// (read only when rx_batch > 1).
+template <class Team>
+__device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
+                                           const Team& tm, int hh,
+                                           int64_t tick, bool act,
+                                           int64_t aux0,
+                                           int64_t window_end) {
+  const int ki = a.ki, ic = a.ic;
   const int64_t base = (int64_t)hh * ki;
-  int32_t rxq = 0;
-  bool boot = false;
-  int64_t rate = 0, tokens = 0, last = 0, bound = tick, t_resume = INV;
-  int64_t dropped_router = 0, pkts_recv = 0, bytes_recv = 0;
-  Codel cd{0, false, 0, 0};
-  if (valid) {
-    // Router enqueue: due wire arrivals join the router queue.
-    rxq = a.rx_queued[hh];
-    for (int k = 0; k < ki && act; ++k) {
-      const int64_t slot = base + k;
-      if (a.ib_stage[slot] != STAGE_IN_FLIGHT) continue;
+  constexpr int U = walk_width<Team>();
+  int32_t n = 0;
+  for (int k0 = tm.lane(); k0 < ki && act; k0 += U * Team::W) {
+    int32_t st[U];
+    int64_t tt[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t slot = base + imin32(k0 + u * Team::W, ki - 1);
+      st[u] = a.ib_stage[slot];
       const int32_t* row = a.ib_blk + slot * ic;
-      if (dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]) <= tick) {
+      if (U > 1) tt[u] = dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * Team::W;
+      if (k >= ki) break;
+      if (st[u] != STAGE_IN_FLIGHT) continue;
+      const int64_t slot = base + k;
+      const int32_t* row = a.ib_blk + slot * ic;
+      const int64_t t =
+          U > 1 ? tt[u] : dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]);
+      if (t <= tick) {
         a.ib_stage[slot] = STAGE_RX_QUEUED;
         if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
-        ++rxq;
+        ++n;
       }
     }
-    boot = tick < a.bootstrap_end;
-    rate = a.bw_dn[hh];
-    tokens = a.tokens_rx[hh];
-    last = a.last_refill_rx[hh];
-    refill(tokens, last, rate, tick, act);
-    if (a.rx_batch > 1) {
-      bound = imin(aux0, tick + ONE_MS);
-      bound = imin(bound, window_end - 1);
-    }
-    cd = Codel{a.codel_count[hh], a.codel_dropping[hh] != 0,
+  }
+  RxCarry c;
+  c.rxq = a.rx_queued[hh] + tm.sum(n);
+  tm.sync();
+  c.tick = tick;
+  c.act = act;
+  c.boot = tick < a.bootstrap_end;
+  c.rate = a.bw_dn[hh];
+  c.tokens = a.tokens_rx[hh];
+  c.last = a.last_refill_rx[hh];
+  refill(c.tokens, c.last, c.rate, tick, act);
+  c.bound = tick;
+  if (a.rx_batch > 1) {
+    c.bound = imin(aux0, tick + ONE_MS);
+    c.bound = imin(c.bound, window_end - 1);
+  }
+  c.cd = Codel{a.codel_count[hh], a.codel_dropping[hh] != 0,
                a.codel_first_above[hh], a.codel_drop_next[hh]};
-    t_resume = a.t_resume[hh];
-    dropped_router = a.pkts_dropped_router[hh];
-    pkts_recv = a.pkts_recv[hh];
-    bytes_recv = a.bytes_recv[hh];
-  }
-  int32_t delivered = 0;
-  int64_t t_post = tick;
-  clk.mark(CLK_ENQUEUE);
+  c.t_resume = a.t_resume[hh];
+  c.dropped_router = a.pkts_dropped_router[hh];
+  c.pkts_recv = a.pkts_recv[hh];
+  c.bytes_recv = a.bytes_recv[hh];
+  c.delivered = 0;
+  c.t_post = tick;
+  return c;
+}
 
-  for (int r = 0; r < a.rx_batch; ++r) {
-    bool have = false, deliver = false;
-    int32_t p_proto = 0, p_len = 0;
-    int64_t t_eff = tick, kmin = INV;
-    const int32_t* row = a.ib_blk;
-    if (valid) {
-      const int64_t limit = r == 0 ? tick : bound;
-      // Earliest candidate by (time, pkt_id), lowest slot on a full tie.
-      int64_t tmin = INV;
-      int col = ki;
-      for (int k = 0; k < ki && act; ++k) {
-        // The stage column first: a row is read only for a live slot.
-        const int64_t slot = base + k;
-        const int32_t st = a.ib_stage[slot];
-        if (st != STAGE_RX_QUEUED && (r == 0 || st != STAGE_IN_FLIGHT))
-          continue;
-        const int32_t* rk = a.ib_blk + slot * ic;
-        const int64_t t = dec_i64(rk[ICOL_TIME_LO], rk[ICOL_TIME_HI]);
-        if (st == STAGE_IN_FLIGHT && t > limit) continue;
-        const int64_t key = ((int64_t)rk[ICOL_SRC] << 40) |
-                            dec_i64(rk[ICOL_CTR_LO], rk[ICOL_CTR_HI]);
-        if (t < tmin || (t == tmin && key < kmin)) {
-          tmin = t;
-          kmin = key;
-          col = k;
-        }
-      }
-      have = act && col < ki && tmin <= limit;
-      if (col > ki - 1) col = ki - 1;
-      const int64_t slot = base + col;
-      const bool was_queued = have && a.ib_stage[slot] == STAGE_RX_QUEUED;
-      t_eff = imax(tick, have ? tmin : 0);
-      row = a.ib_blk + slot * ic;
-      const int32_t p_src = row[ICOL_SRC];
-      p_proto = row[ICOL_PROTO];
-      p_len = row[ICOL_LEN];
-      const int64_t p_time = have ? tmin : 0;
-
-      if (r > 0) refill(tokens, last, rate, t_eff, have);
-      const int64_t size = wire_size(p_proto, p_len);
-      const bool loop = p_src == hh;
-      const bool free_pass = loop || boot;
-      const bool funded = have && (free_pass || tokens >= size);
-      const int64_t sojourn = imax(t_eff - p_time, 0);
-      const int32_t backlog_after = rxq - (was_queued ? 1 : 0);
-      const bool drop = cd.dequeue(funded && !loop, t_eff, sojourn,
-                                   backlog_after, a.rsqrt_tab);
-      deliver = funded && !drop;
-      if (funded && !free_pass) tokens -= size;
-      if (funded) {
-        a.ib_stage[slot] = STAGE_FREE;
-        if (a.pds_trail) {
-          a.ib_status[slot] |= drop ? (PDS_ROUTER_ENQUEUED |
-                                       PDS_ROUTER_DROPPED)
-                                    : (PDS_ROUTER_ENQUEUED |
-                                       PDS_RCV_SOCKET_PROCESSED);
-        }
-      }
-      if (funded && was_queued) --rxq;
-      if (drop) ++dropped_router;
-      if (r == a.rx_batch - 1) {
-        const int64_t t_res =
-            (have && !funded) ? tick + time_until(size - tokens, rate)
-                              : ((funded && rxq > 0) ? tick : INV);
-        t_resume = imin(t_resume, t_res);
-      }
-
-      if (deliver && p_proto == PROTO_UDP) {
-        // udp.lookup_socket: connected beats wildcard, lowest slot on
-        // ties.
-        const int32_t p_sport = row[ICOL_SPORT], p_dport = row[ICOL_DPORT];
-        int best = 0, sl = 0;
-        for (int s = 0; s < S; ++s) {
-          const int64_t i = (int64_t)hh * S + s;
-          const bool port_ok = a.stype[i] == SOCK_UDP &&
-                               a.local_port[i] == p_dport;
-          const int score =
-              !port_ok ? 0
-              : (a.peer_host[i] == p_src && a.peer_port[i] == p_sport) ? 2
-              : (a.peer_host[i] == -1 ? 1 : 0);
-          if (score > best) {
-            best = score;
-            sl = s;
-          }
-        }
-        if (best > 0) {
-          // udp.push_ring: append unless the ring is full.
-          const int64_t i = (int64_t)hh * S + sl;
-          const int32_t cnt = a.udp_count[i];
-          if (cnt < UDP_RING) {
-            const int32_t pos = (a.udp_head[i] + cnt) % UDP_RING;
-            const int64_t j = i * UDP_RING + pos;
-            a.udp_src[j] = p_src;
-            a.udp_sport[j] = p_sport;
-            a.udp_len[j] = p_len;
-            a.udp_payload[j] = row[ICOL_PAYLOAD];
-            a.udp_count[i] = cnt + 1;
-            a.sock_bytes_recv[i] += p_len;
-          }
-        }
+// Delivery round r of host hh: the earliest candidate by (time, pkt_id),
+// lowest slot on a full tie (a lexicographic min over the team's lanes),
+// through the NIC rx token bucket and CoDel, into the UDP socket ring
+// (udp.lookup_socket: connected beats wildcard, lowest slot on ties -- a
+// min over the lanes).  Returns the pick for tcp.process_arrivals.
+template <class Team>
+__device__ __forceinline__ RxPick rx_round(const DeliverArgs& a,
+                                           const Team& tm, RxCarry& c,
+                                           int hh, int r) {
+  const int ki = a.ki, ic = a.ic, S = a.slots;
+  const int64_t base = (int64_t)hh * ki;
+  const int64_t limit = r == 0 ? c.tick : c.bound;
+  constexpr int U = walk_width<Team>();
+  int64_t tmin = INV, kmin = INV;
+  int32_t col = ki;
+  for (int k0 = tm.lane(); k0 < ki && c.act; k0 += U * Team::W) {
+    int32_t st[U];
+    const int32_t* rk[U];
+    int64_t tt[U], kk[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t slot = base + imin32(k0 + u * Team::W, ki - 1);
+      st[u] = a.ib_stage[slot];
+      rk[u] = a.ib_blk + slot * ic;
+      if (U > 1) {
+        tt[u] = dec_i64(rk[u][ICOL_TIME_LO], rk[u][ICOL_TIME_HI]);
+        kk[u] = ((int64_t)rk[u][ICOL_SRC] << 40) |
+                dec_i64(rk[u][ICOL_CTR_LO], rk[u][ICOL_CTR_HI]);
       }
     }
-    clk.round(r, CLK_SELECT);
-    if (tcp != nullptr) {
-      // tcp.process_arrivals, split at the round's grid-wide gates.
-      Arrival ar;
-      ar.gate_bits = 0;
-      if (valid)
-        err |= tcp_arrival_begin(*tcp, ar, hh, row, have ? kmin : 0, t_eff,
-                                 deliver && p_proto == PROTO_TCP);
-      clk.round(r, CLK_BEGIN);
-      const int32_t g = gate(r, ar.gate_bits);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * Team::W;
+      if (k >= ki) break;
+      // The stage first: Solo reads a row only for a live slot.
+      const int32_t s_ = st[u];
+      if (s_ != STAGE_RX_QUEUED && (r == 0 || s_ != STAGE_IN_FLIGHT))
+        continue;
+      const int64_t t =
+          U > 1 ? tt[u] : dec_i64(rk[u][ICOL_TIME_LO], rk[u][ICOL_TIME_HI]);
+      if (s_ == STAGE_IN_FLIGHT && t > limit) continue;
+      const int64_t key =
+          U > 1 ? kk[u]
+                : (((int64_t)rk[u][ICOL_SRC] << 40) |
+                   dec_i64(rk[u][ICOL_CTR_LO], rk[u][ICOL_CTR_HI]));
+      if (t < tmin || (t == tmin && key < kmin)) {
+        tmin = t;
+        kmin = key;
+        col = k;
+      }
+    }
+  }
+  tm.min3(tmin, kmin, col);
+  const bool have = c.act && col < ki && tmin <= limit;
+  if (col > ki - 1) col = ki - 1;
+  const int64_t slot = base + col;
+  const bool was_queued = have && a.ib_stage[slot] == STAGE_RX_QUEUED;
+  const int64_t t_eff = imax(c.tick, have ? tmin : 0);
+  const int32_t* row = a.ib_blk + slot * ic;
+  const int32_t p_src = row[ICOL_SRC];
+  const int32_t p_proto = row[ICOL_PROTO];
+  const int32_t p_len = row[ICOL_LEN];
+  const int64_t p_time = have ? tmin : 0;
+
+  if (r > 0) refill(c.tokens, c.last, c.rate, t_eff, have);
+  const int64_t size = wire_size(p_proto, p_len);
+  const bool loop = p_src == hh;
+  const bool free_pass = loop || c.boot;
+  const bool funded = have && (free_pass || c.tokens >= size);
+  const int64_t sojourn = imax(t_eff - p_time, 0);
+  const int32_t backlog_after = c.rxq - (was_queued ? 1 : 0);
+  const bool drop = c.cd.dequeue(funded && !loop, t_eff, sojourn,
+                                 backlog_after, a.rsqrt_tab);
+  const bool deliver = funded && !drop;
+  if (funded && !free_pass) c.tokens -= size;
+  tm.sync();                 // every lane has read the slot's stage
+  if (funded && tm.leader()) {
+    a.ib_stage[slot] = STAGE_FREE;
+    if (a.pds_trail) {
+      a.ib_status[slot] |= drop ? (PDS_ROUTER_ENQUEUED | PDS_ROUTER_DROPPED)
+                                : (PDS_ROUTER_ENQUEUED |
+                                   PDS_RCV_SOCKET_PROCESSED);
+    }
+  }
+  if (funded && was_queued) --c.rxq;
+  if (drop) ++c.dropped_router;
+  if (r == a.rx_batch - 1) {
+    const int64_t t_res =
+        (have && !funded) ? c.tick + time_until(size - c.tokens, c.rate)
+                          : ((funded && c.rxq > 0) ? c.tick : INV);
+    c.t_resume = imin(c.t_resume, t_res);
+  }
+
+  if (deliver && p_proto == PROTO_UDP) {
+    const int32_t p_sport = row[ICOL_SPORT], p_dport = row[ICOL_DPORT];
+    int32_t best = 2 * S;           // (2 - score) * S + slot; none: 2 * S
+    for (int s = tm.lane(); s < S; s += Team::W) {
+      const int64_t i = (int64_t)hh * S + s;
+      if (a.stype[i] != SOCK_UDP || a.local_port[i] != p_dport) continue;
+      const int32_t score =
+          (a.peer_host[i] == p_src && a.peer_port[i] == p_sport) ? 2
+          : (a.peer_host[i] == -1 ? 1 : 0);
+      if (score > 0) best = imin32(best, (2 - score) * S + s);
+    }
+    best = tm.min32(best);
+    if (best < 2 * S && tm.leader()) {
+      // udp.push_ring: append unless the ring is full.
+      const int64_t i = (int64_t)hh * S + (best < S ? best : best - S);
+      const int32_t cnt = a.udp_count[i];
+      if (cnt < UDP_RING) {
+        const int32_t pos = (a.udp_head[i] + cnt) % UDP_RING;
+        const int64_t j = i * UDP_RING + pos;
+        a.udp_src[j] = p_src;
+        a.udp_sport[j] = p_sport;
+        a.udp_len[j] = p_len;
+        a.udp_payload[j] = row[ICOL_PAYLOAD];
+        a.udp_count[i] = cnt + 1;
+        a.sock_bytes_recv[i] += p_len;
+      }
+    }
+  }
+  if (deliver) {
+    ++c.pkts_recv;
+    c.bytes_recv += p_len;
+    ++c.delivered;
+  }
+  if (r == 0) {
+    c.t_post = deliver ? t_eff : c.tick;
+  } else if (deliver) {
+    c.t_post = imax(c.t_post, t_eff);
+  }
+  tm.sync();
+  return RxPick{row, have ? kmin : 0, t_eff, deliver && p_proto == PROTO_TCP};
+}
+
+// The host's receive state back to its rows.
+template <class Team>
+__device__ __forceinline__ DeliverOut rx_close(const DeliverArgs& a,
+                                               const Team& tm,
+                                               const RxCarry& c, int hh) {
+  if (tm.leader()) {
+    a.rx_queued[hh] = c.rxq;
+    a.tokens_rx[hh] = c.tokens;
+    a.last_refill_rx[hh] = c.last;
+    a.codel_count[hh] = c.cd.count;
+    a.codel_dropping[hh] = c.cd.dropping ? 1 : 0;
+    a.codel_first_above[hh] = c.cd.first_above;
+    a.codel_drop_next[hh] = c.cd.drop_next;
+    a.t_resume[hh] = c.t_resume;
+    a.pkts_dropped_router[hh] = c.dropped_router;
+    a.pkts_recv[hh] = c.pkts_recv;
+    a.bytes_recv[hh] = c.bytes_recv;
+  }
+  tm.sync();
+  return DeliverOut{c.delivered, c.t_post};
+}
+
+// _rx_phase for host hh of a UDP world at tick `tick` (active or not), on
+// one team, with no barrier: the enqueue, the rounds, the write-back.
+template <class Team>
+__device__ __forceinline__ DeliverOut deliver_host(const DeliverArgs& a,
+                                                   const Team& tm, int hh,
+                                                   int64_t tick, bool act,
+                                                   int64_t aux0,
+                                                   int64_t window_end) {
+  RxCarry c = rx_open(a, tm, hh, tick, act, aux0, window_end);
+  for (int r = 0; r < a.rx_batch; ++r) rx_round(a, tm, c, hh, r);
+  return rx_close(a, tm, c, hh);
+}
+
+// A host's carry across the TCP kernels' gate barriers.
+struct HostCarry {
+  RxCarry rx;
+  Arrival ar;
+};
+constexpr int HOST_CARRY_BYTES = 512;    // megakernel.py CARRY_BYTES
+static_assert(sizeof(HostCarry) <= HOST_CARRY_BYTES,
+              "HostCarry outgrew its scratch record");
+
+// _rx_phase with tcp.process_arrivals for every host of a TCP world, one
+// warp per host, hosts walked warp-stride over the whole grid (so any
+// number of hosts).  Each delivery round's scoreboard gates are global,
+// so a round is split at its gate barrier into two passes over the hosts;
+// the same warp always takes the same host, so pass B of round r and pass
+// A of round r + 1 are one pass:
+//   pass r (r = 0 .. rb): finish of round r - 1 under its gates (r > 0;
+//     before it: `setup`, the tick and the router enqueue, at r = 0);
+//     then (r < rb) round r's select/NIC and tcp_arrival_begin, the
+//     host's carry parked in scratch (`t.carry`), its gate bits OR-ed
+//     into the lane's; or (r == rb) the write-back and `tail`, the rest of
+//     the host's micro-step;
+//   between passes, the round's gate: block OR, one atomicOr, one grid
+//   barrier, reached by every thread from this one call site.
+// `setup(hh, tick, act, aux0)` gives a host's tick; `tail(hh, c, out,
+// traced)` gets its carry and K_DELIVER's outputs.  `clk` traces host
+// `clk_host`.  Returns the socket-overflow error bits of passive opens.
+template <class Setup, class Tail>
+__device__ __forceinline__ int32_t deliver_tcp_warps(
+    const DeliverArgs& a, const TcpArgs& t, int32_t* gate_words,
+    int64_t window_end, Clk& clk, int clk_host, const Setup& setup,
+    const Tail& tail) {
+  const Warp tm{};
+  const int64_t nw = (int64_t)gridDim.x * blockDim.x / Warp::W;
+  const int64_t w0 = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) /
+                     Warp::W;
+  HostCarry* const carry = (HostCarry*)t.carry;
+  const int rb = a.rx_batch;
+  int32_t err = 0, g = 0;
+  for (int r = 0; r <= rb; ++r) {
+    int32_t bits = 0;
+    for (int64_t i = w0; i < a.h; i += nw) {
+      const int hh = (int)i;
+      const bool traced = hh == clk_host;
+      if (traced) clk.start();
+      RxCarry c;
+      if (r == 0) {
+        int64_t tick, aux0;
+        bool act;
+        setup(hh, tick, act, aux0);
+        c = rx_open(a, tm, hh, tick, act, aux0, window_end);
+        if (traced) clk.mark(CLK_ENQUEUE);
+      } else {
+        c = carry[hh].rx;
+        Arrival ar = carry[hh].ar;
+        tcp_arrival_finish(tm, t, ar, hh, g,
+                           r == 1 ? SLOT_RX_REPLY : NUM_SLOTS + r - 2);
+        if (traced) clk.round(r - 1, CLK_FINISH);
+      }
+      if (r < rb) {
+        const RxPick pk = rx_round(a, tm, c, hh, r);
+        if (traced) clk.round(r, CLK_SELECT);
+        Arrival ar;
+        err |= tcp_arrival_begin(tm, t, ar, hh, pk.row, pk.id, pk.t_eff,
+                                 pk.tcp);
+        bits |= ar.gate_bits;
+        if (tm.leader()) {
+          carry[hh].rx = c;
+          carry[hh].ar = ar;
+        }
+        if (traced) clk.round(r, CLK_BEGIN);
+      } else {
+        tail(hh, c, rx_close(a, tm, c, hh), traced);
+      }
+    }
+    if (r < rb) {
+      clk.start();
+      g = GridGate{gate_words}(r, bits);
       clk.round(r, CLK_GATE);
-      if (valid)
-        tcp_arrival_finish(*tcp, ar, hh, g,
-                           r == 0 ? SLOT_RX_REPLY : NUM_SLOTS + r - 1);
-      clk.round(r, CLK_FINISH);
-    }
-    if (deliver) {
-      ++pkts_recv;
-      bytes_recv += p_len;
-      ++delivered;
-    }
-    if (r == 0) {
-      t_post = deliver ? t_eff : tick;
-    } else if (deliver) {
-      t_post = imax(t_post, t_eff);
     }
   }
-
-  if (valid) {
-    a.rx_queued[hh] = rxq;
-    a.tokens_rx[hh] = tokens;
-    a.last_refill_rx[hh] = last;
-    a.codel_count[hh] = cd.count;
-    a.codel_dropping[hh] = cd.dropping ? 1 : 0;
-    a.codel_first_above[hh] = cd.first_above;
-    a.codel_drop_next[hh] = cd.drop_next;
-    a.t_resume[hh] = t_resume;
-    a.pkts_dropped_router[hh] = dropped_router;
-    a.pkts_recv[hh] = pkts_recv;
-    a.bytes_recv[hh] = bytes_recv;
-  }
-  return DeliverOut{delivered, t_post};
+  return err;
 }
 
 }  // namespace s1

@@ -10,23 +10,32 @@
 // sender SACK scoreboard, RTT/RTO, reassembly, FIN, delayed ACKs, the
 // reply segment), run_timers (one due timer per host: SYN / SYN-ACK /
 // RTO back-off, delayed ACK, TIME_WAIT, persist), the socket API
-// (connect_v, write_v, close_v, consume_all) and transmit (one socket per
-// host, up to TX_SLOTS segments, outbox back-pressure, the re-tick).  The
-// plain torch version is shadow1_tpu_torch/transport/tcp.py.
+// (connect_v, write_v, close_v; consume_all is bulk's sink, bulk_tick.cuh)
+// and transmit (one socket per host, up to TX_SLOTS segments, outbox
+// back-pressure, the re-tick).  The plain torch version is
+// shadow1_tpu_torch/transport/tcp.py.
 //
-// Layout: one thread per host.  A host's socket is gathered into
-// registers (struct Sock: ~45 scalars and 24 range words), updated in
-// place, and stored back under the same mask as the JAX scatter.  The
-// socket table keeps the JAX package's dtypes, with uint32 leaves held in
-// int64 words; here they are uint32_t, so sequence sums wrap as u32 and
+// Layout: one team per host (common.cuh: Solo, one thread, in the
+// per-phase K_TRANSPORT; Warp, 32 lanes, in the TCP kernels of K_DELIVER
+// and K_WINDOW).  The table walks -- the socket match, the timer pick,
+// transmit's eligibility, the sink's consume and close -- stride the
+// team's lanes over the host's sockets and end in a min, sum or any.  A
+// host's one socket is then gathered into registers (struct Sock: ~45
+// scalars and 24 range words) in every lane, updated on uniform values,
+// and stored back by the leader under the same mask as the JAX scatter.
+// The socket table keeps the JAX package's dtypes, with uint32 leaves held
+// in int64 words; here they are uint32_t, so sequence sums wrap as u32 and
 // sdiff is the int32 reinterpretation of the difference.
 //
 // The scoreboard inserts of process_arrivals re-pack the ranges of every
 // connected host when ANY host inserts (the JAX package's global
 // `lax.cond` gate, which is not the identity per host), so arrival
 // processing is split in two: tcp_arrival_begin computes each host's
-// contribution to the two gates, the caller ORs them over the whole grid,
-// and tcp_arrival_finish runs with the global gates.
+// contribution to the two gates and stores the connected socket back,
+// the caller ORs the bits over the whole grid, and tcp_arrival_finish
+// reloads the socket and runs with the global gates.  What crosses the
+// gate is the Arrival record below (no socket in it), kept in device
+// scratch by the caller.
 #pragma once
 #include "common.cuh"
 
@@ -152,6 +161,7 @@ struct TcpArgs {
   int32_t* em_blk;       // [h, e, pc]
   int32_t* gates;        // grid-wide gate words (see above)
   int32_t* err;          // state.err (K_DELIVER ORs socket overflow in)
+  void* carry;           // [h] deliver.cuh HostCarry records (TCP kernels)
   int64_t min_latency;
   int32_t slots, e, pc, qdisc;
 };
@@ -348,8 +358,8 @@ __device__ __forceinline__ Sock sock_defaults(const TcpArgs& t, int hh) {
 }
 
 // ---------------------------------------------------------------------------
-// Socket API on a gathered socket (tcp.connect_v, write_v, close_v) and
-// consume_all over a host's table, for the apps' device ticks
+// Socket API on a gathered socket (tcp.connect_v, write_v, close_v), for
+// the apps' device ticks
 // ---------------------------------------------------------------------------
 
 // tcp.connect_v: every TCP field of the slot back to its default (the
@@ -389,14 +399,6 @@ __device__ __forceinline__ void sock_close(Sock& v) {
   if (v.stype == SOCK_TCP) v.app_closed = true;
 }
 
-// tcp.consume_all for host hh: every received byte of every TCP socket
-// is read (an infinite consumer).
-__device__ __forceinline__ void tcp_consume_all(const TcpArgs& t, int hh) {
-  for (int s = 0; s < t.slots; ++s) {
-    const int64_t i = (int64_t)hh * t.slots + s;
-    if (t.stype[i] == SOCK_TCP) t.rcv_read[i] = t.rcv_nxt[i];
-  }
-}
 
 // tcp.recv_window.
 __device__ __forceinline__ int32_t recv_window(uint32_t rcv_nxt,
@@ -408,7 +410,7 @@ __device__ __forceinline__ int32_t recv_window(uint32_t rcv_nxt,
 }
 
 // emit.put of one full-width TCP row into lane `lane` of host hh
-// (unset columns 0, payload -1, priority 0.0f).
+// (unset columns 0, payload -1, priority 0.0f); the team's leader calls it.
 __device__ __forceinline__ void em_put_tcp(const TcpArgs& t, int hh, int lane,
                                            int32_t dst, int32_t sport,
                                            int32_t dport, int32_t flags,
@@ -586,7 +588,10 @@ __device__ __forceinline__ Pkt pkt_decode(const int32_t* row, int64_t id) {
   return p;
 }
 
-// Registers of one host's arrival carried across the gate barrier.
+// One host's arrival across the gate barrier (kept in device scratch by
+// the TCP kernels): the segment, the masks taken before the gates, and no
+// socket -- tcp_arrival_begin stores the connected socket (and a spawned
+// child) back to the table, and tcp_arrival_finish reloads it.
 struct Arrival {
   Pkt p;
   int64_t tick;
@@ -596,14 +601,14 @@ struct Arrival {
   int32_t rep_flags, conn_slot, child_slot, off, new_bytes;
   uint32_t end_seq;
   int32_t gate_bits;      // this host's contribution: GATE_SSACK | GATE_RX
-  Sock sv;                // the connected socket (valid where m)
-  Sock child;             // the spawned child (valid where spawn)
 };
 
 // Up to the gates: socket match, passive open, RST, handshake; the
 // masks the two scoreboard gates are taken over.  `mask` is the host's
 // TCP delivery of this round.  Returns the socket-overflow error bit.
-__device__ __forceinline__ int32_t tcp_arrival_begin(const TcpArgs& t,
+template <class Team>
+__device__ __forceinline__ int32_t tcp_arrival_begin(const Team& tm,
+                                                     const TcpArgs& t,
                                                      Arrival& a, int hh,
                                                      const int32_t* row,
                                                      int64_t id, int64_t tick,
@@ -615,19 +620,23 @@ __device__ __forceinline__ int32_t tcp_arrival_begin(const TcpArgs& t,
   a.f_syn = a.f_ack = a.f_fin = a.f_rst = false;
   for (int i = 0; i < SACK_BLOCKS; ++i) a.sack_m[i] = false;
   a.rep_flags = 0;
+  a.conn_slot = a.child_slot = S - 1;
+  a.off = a.new_bytes = 0;
+  a.end_seq = 0;
+  a.tick = tick;
   a.gate_bits = 0;
   if (!mask) return 0;
   a.p = pkt_decode(row, id);
-  a.tick = tick;
   const Pkt& p = a.p;
   a.f_syn = (p.flags & TCP_FLAG_SYN) != 0;
   a.f_ack = (p.flags & TCP_FLAG_ACK) != 0;
   a.f_fin = (p.flags & TCP_FLAG_FIN) != 0;
   a.f_rst = (p.flags & TCP_FLAG_RST) != 0;
 
-  // Socket match: lowest connected slot, lowest listener, lowest free.
-  int conn = S, lsn = S, fre = S;
-  for (int s = 0; s < S; ++s) {
+  // Socket match: lowest connected slot, lowest listener, lowest free
+  // (three min-reductions over the team's lanes).
+  int32_t conn = S, lsn = S, fre = S;
+  for (int s = tm.lane(); s < S; s += Team::W) {
     const int64_t i = (int64_t)hh * S + s;
     const int32_t st = t.stype[i];
     if (st == SOCK_FREE && fre == S) fre = s;
@@ -640,19 +649,21 @@ __device__ __forceinline__ int32_t tcp_arrival_begin(const TcpArgs& t,
       conn = s;
     }
   }
-  a.has_conn = mask && conn < S;
+  conn = tm.min32(conn);
+  lsn = tm.min32(lsn);
+  fre = tm.min32(fre);
+  a.has_conn = conn < S;
   a.conn_slot = conn < S ? conn : S - 1;
-  a.has_lsn = mask && lsn < S;
-  const bool want_child = mask && !a.has_conn && a.has_lsn && a.f_syn &&
-                          !a.f_ack && !a.f_rst;
+  a.has_lsn = lsn < S;
+  const bool want_child = !a.has_conn && a.has_lsn && a.f_syn && !a.f_ack &&
+                          !a.f_rst;
   const bool have_free = fre < S;
   a.spawn = want_child && have_free;
   a.child_slot = fre < S ? fre : S - 1;
   const int32_t err = (want_child && !have_free) ? ERR_SOCKET_OVERFLOW : 0;
 
   if (a.spawn) {
-    Sock& c = a.child;
-    c = sock_defaults(t, hh);
+    Sock c = sock_defaults(t, hh);
     c.stype = SOCK_TCP;
     c.tcp_state = TCPS_SYNRECEIVED;
     c.local_port = p.dport;
@@ -667,14 +678,16 @@ __device__ __forceinline__ int32_t tcp_arrival_begin(const TcpArgs& t,
     c.snd_wnd = p.wnd;
     c.ts_recent = p.ts;
     c.t_rto = tick + RTO_INIT;
-    sock_store(t, hh, a.child_slot, c);
+    if (tm.leader()) sock_store(t, hh, a.child_slot, c);
   }
 
   a.m = a.has_conn;
-  if (!a.m) return err;
+  if (!a.m) {
+    tm.sync();
+    return err;
+  }
 
-  Sock& v = a.sv;
-  v = sock_load(t, hh, a.conn_slot);
+  Sock v = sock_load(t, hh, a.conn_slot);
   if (a.f_rst) {
     v.tcp_state = TCPS_CLOSED;
     v.stype = SOCK_FREE;
@@ -741,20 +754,30 @@ __device__ __forceinline__ int32_t tcp_arrival_begin(const TcpArgs& t,
   a.fits = sdiff(a.end_seq, v.rcv_read) <= v.rcv_buf_cap;
   a.ooo_ok = a.can_rcv && a.off > 0 && a.fits;
   if (a.ooo_ok) a.gate_bits |= GATE_RX;
+  // No other host touches this socket before tcp_arrival_finish reloads it.
+  tm.sync();
+  if (tm.leader()) sock_store(t, hh, a.conn_slot, v);
+  tm.sync();
   return err;
 }
 
 // The rest of process_arrivals under the grid-wide gates, then the
 // socket store and the reply segment into lane `reply_slot`.
-__device__ __forceinline__ void tcp_arrival_finish(const TcpArgs& t,
+template <class Team>
+__device__ __forceinline__ void tcp_arrival_finish(const Team& tm,
+                                                   const TcpArgs& t,
                                                    Arrival& a, int hh,
                                                    int32_t gates,
                                                    int reply_slot) {
   const Pkt& p = a.p;
   const int64_t tick = a.tick;
-  Sock& v = a.sv;
   bool in_adv = false, old_data = false, fin_now = false, probe = false;
   bool tw_refin = false, ack_now = false;
+  const bool reply0 = (a.m && a.rep) || a.spawn;
+  const bool orphan = a.mask && !a.has_conn && !a.spawn && !a.dup_syn &&
+                      !a.f_rst && !(a.has_lsn && a.f_syn);
+  if (!a.m && !reply0 && !orphan) return;
+  Sock v = sock_load(t, hh, a.spawn ? a.child_slot : a.conn_slot);
   if (a.m) {
     const bool ml = a.m_live;
     const bool ackp = a.ackp;
@@ -910,54 +933,31 @@ __device__ __forceinline__ void tcp_arrival_finish(const TcpArgs& t,
     }
     if (ack_now && a.rep_flags == 0) a.rep_flags = TCP_FLAG_ACK;
     a.rep = a.rep || ack_now;
-    sock_store(t, hh, a.conn_slot, v);
   }
+  tm.sync();                 // every lane has loaded the socket
+  if (a.m && tm.leader()) sock_store(t, hh, a.conn_slot, v);
 
-  // Replies: the spawned child's SYN-ACK, the connected socket's reply,
-  // or a RST for a segment no socket takes.
+  // Replies: the spawned child's SYN-ACK (its fields were stored by
+  // tcp_arrival_begin and are loaded in `v`), the connected socket's
+  // reply, or a RST for a segment no socket takes -- which reads the
+  // window of the table's socket at the clamped connection slot, as the
+  // JAX view does.
   const bool reply = (a.m && a.rep) || a.spawn;
-  const bool orphan = a.mask && !a.has_conn && !a.spawn && !a.dup_syn &&
-                      !a.f_rst && !(a.has_lsn && a.f_syn);
-  if (!reply && !orphan) return;
-  uint32_t snd_nxt2, rcv_nxt2, rcv_read2;
-  int32_t rcv_cap2;
-  int64_t ts_recent2;
-  const uint32_t* slo2;
-  const uint32_t* shi2;
-  uint32_t tab_lo[SACK_BLOCKS], tab_hi[SACK_BLOCKS];
-  if (a.spawn || a.m) {
-    const Sock& w = a.spawn ? a.child : v;
-    snd_nxt2 = w.snd_nxt;
-    rcv_nxt2 = w.rcv_nxt;
-    rcv_read2 = w.rcv_read;
-    rcv_cap2 = w.rcv_buf_cap;
-    ts_recent2 = w.ts_recent;
-    slo2 = w.sack_lo;
-    shi2 = w.sack_hi;
-  } else {
-    // An orphan RST reads the window of the table's socket at the
-    // clamped connection slot, as the JAX view does.
-    const int64_t i = (int64_t)hh * t.slots + a.conn_slot;
-    snd_nxt2 = (uint32_t)t.snd_nxt[i];
-    rcv_nxt2 = (uint32_t)t.rcv_nxt[i];
-    rcv_read2 = (uint32_t)t.rcv_read[i];
-    rcv_cap2 = t.rcv_buf_cap[i];
-    ts_recent2 = t.ts_recent[i];
-    for (int k = 0; k < SACK_BLOCKS; ++k) tab_lo[k] = tab_hi[k] = 0;
-    slo2 = tab_lo;
-    shi2 = tab_hi;
+  if ((reply || orphan) && tm.leader()) {
+    const uint32_t zero3[SACK_BLOCKS] = {0, 0, 0};
+    const bool sk = reply && a.m;
+    const int32_t r_flags = a.spawn ? (TCP_FLAG_SYN | TCP_FLAG_ACK)
+                                    : a.rep_flags;
+    const uint32_t r_seq = (a.spawn || a.dup_syn) ? 0u : v.snd_nxt;
+    em_put_tcp(t, hh, reply_slot, p.src, p.dport, p.sport,
+               orphan ? (TCP_FLAG_RST | TCP_FLAG_ACK) : r_flags,
+               orphan ? p.ack : r_seq,
+               orphan ? p.seq + (uint32_t)p.len + 1u : v.rcv_nxt,
+               recv_window(v.rcv_nxt, v.rcv_read, v.rcv_buf_cap), 0,
+               reply ? v.ts_recent : 0, tick, sk ? v.sack_lo : zero3,
+               sk ? v.sack_hi : zero3);
   }
-  const uint32_t zero3[SACK_BLOCKS] = {0, 0, 0};
-  const int32_t r_flags = a.spawn ? (TCP_FLAG_SYN | TCP_FLAG_ACK)
-                                  : a.rep_flags;
-  const uint32_t r_seq = (a.spawn || a.dup_syn) ? 0u : snd_nxt2;
-  em_put_tcp(t, hh, reply_slot, p.src, p.dport, p.sport,
-             orphan ? (TCP_FLAG_RST | TCP_FLAG_ACK) : r_flags,
-             orphan ? p.ack : r_seq,
-             orphan ? p.seq + (uint32_t)p.len + 1u : rcv_nxt2,
-             recv_window(rcv_nxt2, rcv_read2, rcv_cap2), 0,
-             reply ? ts_recent2 : 0, tick, reply ? slo2 : zero3,
-             reply ? shi2 : zero3);
+  tm.sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -1001,8 +1001,12 @@ __device__ __forceinline__ bool table_eligible(const TcpArgs& t, int64_t i) {
 // transmit for host hh at `tick` (its t_post), before staging: up to
 // TX_SLOTS segments into lanes SLOT_TX_BASE.. of the emission block.
 // `free_out` is the host's free outbox slots, counted before staging.
-// Lowers t_resume to the re-tick instant and advances rr_next (RR).
-__device__ __forceinline__ void tcp_transmit(const TcpArgs& t, int hh,
+// Lowers t_resume to the re-tick instant and advances rr_next (RR).  The
+// eligibility walks are the team's: pick_fifo and pick_eff are mins,
+// any_elig and `more` an any.
+template <class Team>
+__device__ __forceinline__ void tcp_transmit(const Team& tm,
+                                             const TcpArgs& t, int hh,
                                              int64_t tick, bool act,
                                              int free_out,
                                              int64_t& t_resume) {
@@ -1012,14 +1016,17 @@ __device__ __forceinline__ void tcp_transmit(const TcpArgs& t, int hh,
   const int32_t rr = t.rr_next[hh];
   const bool use_rr = t.qdisc == QDISC_RR;
   bool any_elig = false;
-  int pick_fifo = S, pick_eff = S;
-  for (int s = 0; s < S; ++s) {
+  int32_t pick_fifo = S, pick_eff = S;
+  for (int s = tm.lane(); s < S; s += Team::W) {
     if (!table_eligible(t, (int64_t)hh * S + s)) continue;
     any_elig = true;
     if (!tx_active) continue;
     if (pick_fifo == S) pick_fifo = s;
     pick_eff = imin32(pick_eff, (int32_t)floormod(s - rr, S));
   }
+  any_elig = tm.any(any_elig);
+  pick_fifo = tm.min32(pick_fifo);
+  pick_eff = tm.min32(pick_eff);
   const bool deferred = act && !room_ok && any_elig;
   const bool have = pick_fifo < S;
   bool more = false;
@@ -1055,11 +1062,12 @@ __device__ __forceinline__ void tcp_transmit(const TcpArgs& t, int hh,
       const uint32_t consumed = (uint32_t)seg_len + (send_fin ? 1u : 0u);
       const bool doing = do_retx || do_new || do_fin_only;
       if (!doing) continue;
-      em_put_tcp(t, hh, SLOT_TX_BASE + k, v.peer_host, v.local_port,
-                 v.peer_port, TCP_FLAG_ACK | (send_fin ? TCP_FLAG_FIN : 0),
-                 seq, v.rcv_nxt,
-                 recv_window(v.rcv_nxt, v.rcv_read, v.rcv_buf_cap), seg_len,
-                 v.ts_recent, 0, nullptr, nullptr);
+      if (tm.leader())
+        em_put_tcp(t, hh, SLOT_TX_BASE + k, v.peer_host, v.local_port,
+                   v.peer_port, TCP_FLAG_ACK | (send_fin ? TCP_FLAG_FIN : 0),
+                   seq, v.rcv_nxt,
+                   recv_window(v.rcv_nxt, v.rcv_read, v.rcv_buf_cap),
+                   seg_len, v.ts_recent, 0, nullptr, nullptr);
       if (do_retx) {
         v.retrans_nxt = v.retrans_nxt + consumed;
         v.retx_segs += 1;
@@ -1077,12 +1085,17 @@ __device__ __forceinline__ void tcp_transmit(const TcpArgs& t, int hh,
       v.t_delack = INV;
       if (v.t_rto == INV) v.t_rto = tick + v.rto;
     }
-    sock_store(t, hh, pick, v);
-    if (tx_active) {
-      for (int s = 0; s < S && !more; ++s)
-        more = table_eligible(t, (int64_t)hh * S + s);
+    tm.sync();               // every lane has loaded the socket
+    if (tm.leader()) {
+      sock_store(t, hh, pick, v);
+      if (use_rr) t.rr_next[hh] = (pick + 1) % S;
     }
-    if (use_rr) t.rr_next[hh] = (pick + 1) % S;
+    tm.sync();
+    if (tx_active) {
+      for (int s = tm.lane(); s < S && !more; s += Team::W)
+        more = table_eligible(t, (int64_t)hh * S + s);
+      more = tm.any(more);
+    }
   }
   const int64_t t_res = more ? tick
                              : (deferred ? tick + t.min_latency : INV);
@@ -1090,14 +1103,16 @@ __device__ __forceinline__ void tcp_transmit(const TcpArgs& t, int hh,
 }
 
 // The earliest armed socket timer of host hh (engine._aux_times' term).
-__device__ __forceinline__ int64_t timer_min(const TcpArgs& t, int hh) {
+template <class Team>
+__device__ __forceinline__ int64_t timer_min(const Team& tm,
+                                             const TcpArgs& t, int hh) {
   int64_t m = INV;
-  for (int s = 0; s < t.slots; ++s) {
+  for (int s = tm.lane(); s < t.slots; s += Team::W) {
     const int64_t i = (int64_t)hh * t.slots + s;
     m = imin(m, imin(imin(t.t_rto[i], t.t_persist[i]),
                      imin(t.t_delack[i], t.t_tw[i])));
   }
-  return m;
+  return tm.min64(m);
 }
 
 // ---------------------------------------------------------------------------
@@ -1113,15 +1128,18 @@ constexpr int K_RTO = 0, K_DELACK = 1, K_TW = 2, K_PERSIST = 3;
 // over all hosts; that gate is exact per host, because with nothing due
 // on a host every write of the body to it (the socket scatter and the
 // emission) is masked off.  So each thread decides for its own host and
-// the timers need no grid barrier.  Reno's timeout hook only (CUBIC is
-// refused before any kernel runs).
-__device__ __forceinline__ void tcp_run_timers(const TcpArgs& t, int hh,
+// the timers need no grid barrier.  The pick is the team's min over
+// (time, slot * 4 + kind).  Reno's timeout hook only (CUBIC is refused
+// before any kernel runs).
+template <class Team>
+__device__ __forceinline__ void tcp_run_timers(const Team& tm,
+                                               const TcpArgs& t, int hh,
                                                int64_t tick, bool act) {
   if (!act) return;
   const int S = t.slots;
   int64_t tmin = INV;
-  int pick = -1;
-  for (int s = 0; s < S; ++s) {
+  int32_t pick = 4 * S;
+  for (int s = tm.lane(); s < S; s += Team::W) {
     const int64_t i = (int64_t)hh * S + s;
     const int64_t c[4] = {t.t_rto[i], t.t_delack[i], t.t_tw[i],
                           t.t_persist[i]};
@@ -1132,7 +1150,8 @@ __device__ __forceinline__ void tcp_run_timers(const TcpArgs& t, int hh,
       }
     }
   }
-  if (pick < 0) return;
+  tm.min2(tmin, pick);
+  if (pick >= 4 * S) return;
   const int slot = pick / 4, kind = pick % 4;
   Sock v = sock_load(t, hh, slot);
 
@@ -1198,21 +1217,25 @@ __device__ __forceinline__ void tcp_run_timers(const TcpArgs& t, int hh,
   } else if (kind == K_PERSIST) {
     v.t_persist = INV;
   }
-  sock_store(t, hh, slot, v);
-
   const bool syn_emit = syn_first || syn_re;
-  if (!syn_emit && !synack_re && !send_ack && !send_probe) return;
-  const int32_t flags =
-      synack_re ? (TCP_FLAG_SYN | TCP_FLAG_ACK)
-      : syn_emit ? TCP_FLAG_SYN
-      : send_probe ? (TCP_FLAG_ACK | TCP_FLAG_PSH) : TCP_FLAG_ACK;
-  const uint32_t zero3[SACK_BLOCKS] = {0, 0, 0};
-  em_put_tcp(t, hh, SLOT_TIMER, v.peer_host, v.local_port, v.peer_port, flags,
-             (syn_emit || synack_re) ? 0u : v.snd_nxt,
-             (syn_emit && !synack_re) ? 0u : v.rcv_nxt,
-             recv_window(v.rcv_nxt, v.rcv_read, v.rcv_buf_cap), 0,
-             send_ack ? v.ts_recent : 0, 0, send_ack ? v.sack_lo : zero3,
-             send_ack ? v.sack_hi : zero3);
+  tm.sync();                 // every lane has loaded the socket
+  if (tm.leader()) {
+    sock_store(t, hh, slot, v);
+    if (syn_emit || synack_re || send_ack || send_probe) {
+      const int32_t flags =
+          synack_re ? (TCP_FLAG_SYN | TCP_FLAG_ACK)
+          : syn_emit ? TCP_FLAG_SYN
+          : send_probe ? (TCP_FLAG_ACK | TCP_FLAG_PSH) : TCP_FLAG_ACK;
+      const uint32_t zero3[SACK_BLOCKS] = {0, 0, 0};
+      em_put_tcp(t, hh, SLOT_TIMER, v.peer_host, v.local_port, v.peer_port,
+                 flags, (syn_emit || synack_re) ? 0u : v.snd_nxt,
+                 (syn_emit && !synack_re) ? 0u : v.rcv_nxt,
+                 recv_window(v.rcv_nxt, v.rcv_read, v.rcv_buf_cap), 0,
+                 send_ack ? v.ts_recent : 0, 0, send_ack ? v.sack_lo : zero3,
+                 send_ack ? v.sack_hi : zero3);
+    }
+  }
+  tm.sync();
 }
 
 }  // namespace s1

@@ -12,8 +12,9 @@
 // host's slab plus the app wake time carried in and, in TCP worlds, the
 // host's earliest socket timer) giving th[h].
 //
-// Design: one thread per host running transport_host (transport.cuh,
-// which K_WINDOW shares).  Cross-host outputs -- the event sum, the
+// Design: one thread per host running transport_host with the Solo team
+// (transport.cuh, which K_WINDOW shares; its TCP kernel runs it on a
+// warp per host).  Cross-host outputs -- the event sum, the
 // error OR and the min of th -- are reduced per block by a fixed
 // shared-memory tree, then a one-thread pass folds the per-block
 // partials in block order into gmin and the state's n_events / n_steps /
@@ -42,7 +43,7 @@ __global__ void k_transport(TransportArgs a, TcpArgs t, int tcp_on) {
   HostOut o{INV, 0, 0};
   if (hh < a.h) {
     Clk clk = make_clk(nullptr, false);
-    o = transport_host(a, tcp_on ? &t : nullptr, hh, a.tick_t[hh],
+    o = transport_host(a, Solo{}, tcp_on ? &t : nullptr, hh, a.tick_t[hh],
                        a.t_post[hh], a.active[hh] != 0, a.delivered_n[hh],
                        a.t_app[hh], clk);
     a.th[hh] = o.th;

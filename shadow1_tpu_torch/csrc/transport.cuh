@@ -15,7 +15,7 @@
 // host_vertex are replicated read-only tables.
 // The r-th surviving emission takes the r-th free outbox slot in
 // ascending order: slots are filled in that order, so the next free slot
-// is always the first still-FREE one at or after the previous pick.
+// is always the first FREE one after the previous pick (next_free).
 #pragma once
 #include "common.cuh"
 #include "tcp.cuh"
@@ -77,19 +77,39 @@ struct HostOut {
   int32_t err;
 };
 
-// engine._scan_all for host hh: its earliest IN_FLIGHT inbox arrival,
-// the non-packet wake time `aux` (re-ticks and the app), and the
-// virtual-CPU clamp.
-__device__ __forceinline__ int64_t scan_host(const TransportArgs& a, int hh,
+// engine._scan_all for host hh: its earliest IN_FLIGHT inbox arrival (a
+// min over the team's lanes), the non-packet wake time `aux` (re-ticks
+// and the app), and the virtual-CPU clamp.
+template <class Team>
+__device__ __forceinline__ int64_t scan_host(const TransportArgs& a,
+                                             const Team& tm, int hh,
                                              int64_t aux, int64_t cpu_ns,
                                              int64_t cpu_avail) {
+  constexpr int U = walk_width<Team>();
   int64_t t_in = INV;
-  const int64_t ibase = (int64_t)hh * a.ki;
-  for (int k = 0; k < a.ki; ++k) {
-    if (a.ib_stage[ibase + k] != STAGE_IN_FLIGHT) continue;
-    const int32_t* row = a.ib_blk + (ibase + k) * a.ic;
-    t_in = imin(t_in, dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]));
+  const int ki = a.ki;
+  const int64_t ibase = (int64_t)hh * ki;
+  for (int k0 = tm.lane(); k0 < ki; k0 += U * Team::W) {
+    int32_t st[U];
+    const int32_t* row[U];
+    int64_t tt[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t slot = ibase + imin32(k0 + u * Team::W, ki - 1);
+      st[u] = a.ib_stage[slot];
+      row[u] = a.ib_blk + slot * a.ic;
+      if (U > 1) tt[u] = dec_i64(row[u][ICOL_TIME_LO], row[u][ICOL_TIME_HI]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u * Team::W >= ki) break;
+      if (st[u] != STAGE_IN_FLIGHT) continue;
+      t_in = imin(t_in, U > 1 ? tt[u]
+                              : dec_i64(row[u][ICOL_TIME_LO],
+                                        row[u][ICOL_TIME_HI]));
+    }
   }
+  t_in = tm.min64(t_in);
   int64_t th = imin(t_in, aux);
   if (cpu_ns > 0 && th != INV && a.cpu_threshold >= 0) {
     const int64_t prec = a.cpu_precision > 1 ? a.cpu_precision : 1;
@@ -127,10 +147,15 @@ __device__ __forceinline__ HostOut block_reduce(HostOut o) {
 }
 
 // Transmit (TCP) + staging + drain + CPU accounting + post-step scan for
-// host hh: `tick` is its tick_t, `tp` its t_post, `delivered` K_DELIVER's
-// count and `t_app` the app's wake time after the tick; `tcp` is null in
-// UDP worlds.
+// host hh on team `tm`: `tick` is its tick_t, `tp` its t_post,
+// `delivered` K_DELIVER's count and `t_app` the app's wake time after the
+// tick; `tcp` is null in UDP worlds.  The slab walks (free-slot count, the
+// staging cursor, the drain's pick, the scan) run across the team's
+// lanes; the emission lanes are staged in order on uniform values, and
+// the leader writes.  Every lane gets the host's HostOut.
+template <class Team>
 __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
+                                                  const Team& tm,
                                                   const TcpArgs* tcp,
                                                   int hh, int64_t tick,
                                                   int64_t tp, bool act,
@@ -141,6 +166,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   const bool boot = tp < a.bootstrap_end;
   const int64_t rate = a.bw_up[hh];
   const int64_t pbase = (int64_t)hh * ko;
+  const int32_t* const pstage = a.pool_stage + pbase;
 
   // ---- _stage_emissions ---------------------------------------------------
   const int64_t ctr = a.send_ctr[hh];
@@ -149,9 +175,12 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   const int64_t budget = tokens;
   const int32_t txq0 = a.tx_queued[hh];
   int n_free = 0;
-  for (int k = 0; k < ko; ++k) n_free += a.pool_stage[pbase + k] == STAGE_FREE;
+#pragma unroll 4
+  for (int k = tm.lane(); k < ko; k += Team::W)
+    n_free += pstage[k] == STAGE_FREE;
+  n_free = tm.sum(n_free);
   int64_t t_resume = a.t_resume[hh];
-  if (tcp != nullptr) tcp_transmit(*tcp, hh, tp, act, n_free, t_resume);
+  if (tcp != nullptr) tcp_transmit(tm, *tcp, hh, tp, act, n_free, t_resume);
   const int32_t vs = a.host_vertex[hh];
   int nvalid = 0, nlive = 0, cursor = 0;
   int64_t prefix = 0, spent = 0, t_park = INV;
@@ -188,8 +217,8 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
       overflow = true;
       continue;
     }
-    while (a.pool_stage[pbase + cursor] != STAGE_FREE) ++cursor;
-    const int64_t slot = pbase + cursor;
+    cursor = next_free(tm, pstage, cursor, ko);
+    const int64_t slot = pbase + cursor++;
     ++placed_n;
     const int64_t t_send = dec_i64(er[ICOL_TIME_LO], er[ICOL_TIME_HI]);
     const int64_t send_t = t_send > 0 ? t_send : tp;
@@ -204,6 +233,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
     }
     sent_bytes += len;
     const int64_t time_v = admit ? send_t + lat : send_t;
+    if (!tm.leader()) continue;             // the leader writes the row
     int32_t* pr = a.pool_blk + slot * pc;
     pr[ICOL_SRC] = hh;
     for (int c = ICOL_SPORT; c < ICOL_TIME_LO; ++c) pr[c] = er[c];
@@ -231,25 +261,43 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   tokens -= spent;
   int32_t txq = txq0 + parked_n;
   t_resume = imin(t_resume, t_park);
-  a.send_ctr[hh] = ctr + nvalid;
-  a.pkts_sent[hh] += placed_n;
-  a.bytes_sent[hh] += sent_bytes;
-  a.pkts_dropped_inet[hh] += dropped_n;
-  a.pkts_dropped_pool[hh] += pool_drop_n;
-  a.last_refill_tx[hh] = last;
+  if (tm.leader()) {
+    a.send_ctr[hh] = ctr + nvalid;
+    a.pkts_sent[hh] += placed_n;
+    a.bytes_sent[hh] += sent_bytes;
+    a.pkts_dropped_inet[hh] += dropped_n;
+    a.pkts_dropped_pool[hh] += pool_drop_n;
+    a.last_refill_tx[hh] = last;
+  }
+  tm.sync();
   clk.mark(CLK_TRANSMIT);
 
   // ---- _tx_drain_body (skip_refill: staging refilled at this instant) ----
+  constexpr int U = walk_width<Team>();
   int64_t tmin = INV;
-  int jsel = ko;
-  for (int k = 0; k < ko && act; ++k) {
-    if (a.pool_stage[pbase + k] != STAGE_TX_QUEUED) continue;
-    const int64_t t = a.pool_time[pbase + k];
-    if (t <= tp && t < tmin) {
-      tmin = t;
-      jsel = k;
+  int32_t jsel = ko;
+  for (int k0 = tm.lane(); k0 < ko && act; k0 += U * Team::W) {
+    int32_t st[U];
+    int64_t tt[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = imin32(k0 + u * Team::W, ko - 1);
+      st[u] = pstage[k];
+      if (U > 1) tt[u] = a.pool_time[pbase + k];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * Team::W;
+      if (k >= ko) break;
+      if (st[u] != STAGE_TX_QUEUED) continue;
+      const int64_t t = U > 1 ? tt[u] : a.pool_time[pbase + k];
+      if (t <= tp && t < tmin) {
+        tmin = t;
+        jsel = k;
+      }
     }
   }
+  tm.min2(tmin, jsel);
   if (jsel < ko) {
     const int64_t slot = pbase + jsel;
     const int32_t* row = a.pool_blk + slot * pc;
@@ -257,35 +305,41 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
     const bool funded = boot || tokens >= size;
     if (funded) {
       if (!boot) tokens -= size;
-      a.pool_stage[slot] = STAGE_IN_FLIGHT;
-      a.pool_time[slot] =
-          tp + dec_i64(row[xb + OEXT_LAT_LO], row[xb + OEXT_LAT_HI]);
-      if (a.pds_trail) a.pool_status[slot] |= PDS_SND_INTERFACE_SENT |
-                                               PDS_INET_SENT;
+      if (tm.leader()) {
+        a.pool_stage[slot] = STAGE_IN_FLIGHT;
+        a.pool_time[slot] =
+            tp + dec_i64(row[xb + OEXT_LAT_LO], row[xb + OEXT_LAT_HI]);
+        if (a.pds_trail) a.pool_status[slot] |= PDS_SND_INTERFACE_SENT |
+                                                 PDS_INET_SENT;
+      }
       --txq;
       if (txq > 0) t_resume = imin(t_resume, tp);
     } else {
       t_resume = imin(t_resume, tp + time_until(size - tokens, rate));
     }
   }
-  a.tokens_tx[hh] = tokens;
-  a.tx_queued[hh] = txq;
-  a.t_resume[hh] = t_resume;
+  if (tm.leader()) {
+    a.tokens_tx[hh] = tokens;
+    a.tx_queued[hh] = txq;
+    a.t_resume[hh] = t_resume;
+  }
   clk.mark(CLK_DRAIN);
 
   // ---- virtual-CPU accounting (at tick_t, as the JAX kernel does) --------
   const int64_t events = (int64_t)delivered + nvalid;
   const int64_t cpu_ns = a.cpu_ns_per_event[hh];
   int64_t cpu_avail = a.cpu_avail[hh];
+  tm.sync();                 // every lane has read cpu_avail
   if (cpu_ns > 0 && act) {
     cpu_avail = imax(cpu_avail, tick) + cpu_ns * events;
-    a.cpu_avail[hh] = cpu_avail;
+    if (tm.leader()) a.cpu_avail[hh] = cpu_avail;
   }
 
   // ---- post-step scan: inbox arrivals, re-ticks, app, CPU clamp ----------
   int64_t aux = imin(t_resume, t_app);
-  if (tcp != nullptr) aux = imin(aux, timer_min(*tcp, hh));
-  const int64_t th = scan_host(a, hh, aux, cpu_ns, cpu_avail);
+  if (tcp != nullptr) aux = imin(aux, timer_min(tm, *tcp, hh));
+  const int64_t th = scan_host(a, tm, hh, aux, cpu_ns, cpu_avail);
+  tm.sync();
   clk.mark(CLK_SCAN);
   return HostOut{th, events, overflow ? 1 : 0};
 }

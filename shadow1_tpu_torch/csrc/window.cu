@@ -24,11 +24,11 @@
 // barriers (cooperative_groups this_grid().sync()) separate what must be
 // ordered:
 //   * the exchange's four passes (exchange.cuh, with the two-class
-//     re-rank in TCP worlds), the per-destination pass followed by that
-//     host's scan (transport.cuh scan_host);
-//   * each micro-step: every host runs its phases in one thread (the
+//     re-rank in TCP worlds), then each host's scan (transport.cuh
+//     scan_host);
+//   * each micro-step: every host runs its phases on its team (the
 //     staging rows go through a scratch tensor, written and read by that
-//     thread only), then each block folds its (th min, event sum, error
+//     team only), then each block folds its (th min, event sum, error
 //     OR) by a fixed tree and publishes it; after one grid sync every
 //     block folds all partials in block order, so every block computes
 //     the same gmin and the loop predicate is uniform.  Partials are
@@ -41,38 +41,46 @@
 // any real window: past it the kernel sets a status word and exits, so a
 // wrong predicate fails the run instead of hanging the card.
 //
-// UDP (k_window): the grid is sized from the occupancy query, never from
-// H, and walks hosts with grid-stride loops; a micro-step has no barrier
-// inside it.
+// Both grids are sized from the occupancy query (the wrapper's
+// window_occupancy), never refused for H: hosts are walked with
+// grid-stride loops, so any number of hosts runs.
 //
-// TCP (k_window_tcp): each delivery round of process_arrivals takes the
-// two scoreboard gates OR-ed over the whole grid (GridGate, deliver.cuh),
-// a barrier inside the micro-step, and a host's gathered arrival lives in
-// registers across it.  So every host has its own resident thread -- one
-// thread per host, H <= blocks per SM x 132 SMs x 256 threads; the
-// wrapper raises beyond that, naming the limit -- and every thread of the
-// grid, host or not, calls deliver_host and its gate once per round from
-// the same call site (a thread with no host runs the rounds masked off):
-// an aligned barrier reached from divergent call sites hangs the grid.
-// The gate words are indexed by step parity and round, [2][rx_batch]:
-// a step's words are read right after that round's barrier, all before
-// the step's closing barrier, so the words of the other parity are
-// zeroed at the start of the next step (after that barrier) and are not
-// written again before the closing barrier that follows.  run_timers and
-// bulk's tick need no barrier (per-host exact; tcp.cuh, bulk_tick.cuh).
-// The socket-overflow bit of a passive open and the pool-overflow bits
-// are OR-ed into the step's block partials.  The TCP machine takes ~250
-// registers a thread and ~1 KB of stack (ptxas, printed by
-// chip_smoke.py), so one block of 256 fits each SM.
+// UDP (k_window): one thread per host (the Solo team); a micro-step has
+// no barrier inside it.
+//
+// TCP (k_window_tcp): one warp per host (the Warp team, common.cuh),
+// hosts walked warp-stride.  A host's slab and socket walks -- the router
+// enqueue, each round's candidate pick, the socket match, the timer pick,
+// transmit's eligibility, the sink, the free-slot count, the staging
+// cursor, the drain's pick and the scan -- stride the 32 lanes (coalesced
+// loads) and end in warp reductions; the TCP machine runs on uniform
+// values and the leader lane writes.  Each delivery round of
+// process_arrivals takes the two scoreboard gates OR-ed over the whole
+// grid (GridGate), so the rounds run as deliver_tcp_warps (deliver.cuh):
+// one pass over the hosts per round, split at the gate barrier, with
+// what crosses it (the host's receive state and its arrival, no socket)
+// in a device scratch record per host; every thread reaches each barrier
+// from one call site, outside the host loop.  The gate words are indexed
+// by step parity and round, [2][rx_batch]: a step's words are read right
+// after that round's barrier, all before the step's closing barrier, so
+// the words of the other parity are zeroed at the start of the next step
+// (after that barrier) and are not written again before the closing
+// barrier that follows.  run_timers and bulk's tick need no barrier
+// (per-host exact; tcp.cuh, bulk_tick.cuh).  The socket-overflow bit of a
+// passive open and the pool-overflow bits are OR-ed into the step's block
+// partials (only the leader lane counts a host's events).  Nothing a
+// gathered socket holds lives across a barrier, so the kernel takes
+// __launch_bounds__(256, 2) (ptxas: chip_smoke.py prints registers and
+// spills).
 //
 // What bounds it on the H100: bytes.  Per window it must move what the
 // exchange, each micro-step's phases and the tick touch -- the pool's
 // stage column, the movers' rows, each active host's slabs, host row,
 // sockets and app state, and the rows staged -- a few MB at the bench
 // world (chip_smoke.py counts it per window from the run's data), a few
-// microseconds of HBM time.  One thread per host and the serialising grid
-// barriers dominate; in the bulk world the server's one thread walks its
-// 3,200-slot slab and 204 sockets each round and sets the time.
+// microseconds of HBM time.  The serialising grid barriers (rx_batch + 1
+// a micro-step in TCP worlds) and, in the bulk world, the server's serial
+// TCP machine (up to rx_batch arrivals a step) set the time.
 #include <cooperative_groups.h>
 
 #include "bulk_tick.cuh"
@@ -157,7 +165,8 @@ struct PholdTick {
   __device__ static int64_t next(const WindowArgs& a, int hh) {
     return a.p.pending[hh] > 0 ? a.p.next_send[hh] : INV;
   }
-  __device__ static int64_t aux(const WindowArgs& a, int hh) {
+  template <class Team>
+  __device__ static int64_t aux(const WindowArgs& a, const Team&, int hh) {
     return imin(a.t.t_resume[hh], next(a, hh));
   }
 };
@@ -166,19 +175,26 @@ struct BulkTick {
   __device__ static int64_t next(const WindowArgs& a, int hh) {
     return bulk_next(a.b, hh);
   }
-  __device__ static int64_t aux(const WindowArgs& a, int hh) {
-    return imin(imin(a.t.t_resume[hh], timer_min(a.tcp, hh)), next(a, hh));
+  template <class Team>
+  __device__ static int64_t aux(const WindowArgs& a, const Team& tm,
+                                int hh) {
+    return imin(imin(a.t.t_resume[hh], timer_min(tm, a.tcp, hh)),
+                next(a, hh));
   }
-  __device__ static void tick(const WindowArgs& a, int hh, int64_t tp,
-                              bool act) {
-    bulk_tick(a.b, a.tcp, hh, tp, act);
+  template <class Team>
+  __device__ static void tick(const WindowArgs& a, const Team& tm, int hh,
+                              int64_t tp, bool act) {
+    bulk_tick(tm, a.b, a.tcp, hh, tp, act);
   }
 };
 
 // The boundary exchange, its drop accounting (pure ACKs shed first in
 // TCP worlds: engine._exchange_tail), the per-window scan and the window
-// bounds.  Returns gmin; every block gets the same values.
-template <class Tick>
+// bounds.  Returns gmin; every block gets the same values.  The exchange
+// is one thread per destination; with a Solo `Team` each destination's
+// thread then scans its host, with Warp a grid sync parts the exchange
+// from a scan on one warp per host.
+template <class Tick, class Team>
 __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
                                                cg::grid_group& grid,
                                                int64_t& ws, int64_t& we) {
@@ -197,6 +213,8 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
   grid.sync();
   for (int64_t i = gtid; i < a.x.p0; i += gstride) ex_bucket_row(a.x, i);
   grid.sync();
+  const Team tm{};
+  constexpr bool solo = Team::W == 1;
   HostOut o{INV, 0, 0};
   for (int64_t dd = gtid; dd < h; dd += gstride) {
     const int d = (int)dd;
@@ -209,10 +227,25 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
       o.err |= ERR_POOL_OVERFLOW;
     }
     if (drops > data_drops) a.acks_thinned[d] += drops - data_drops;
-    const int64_t th = scan_host(a.t, d, Tick::aux(a, d),
-                                 a.t.cpu_ns_per_event[d], a.t.cpu_avail[d]);
-    a.t_h[d] = th;
-    o.th = imin(o.th, th);
+    if (solo) {
+      const int64_t th = scan_host(a.t, tm, d, Tick::aux(a, tm, d),
+                                   a.t.cpu_ns_per_event[d],
+                                   a.t.cpu_avail[d]);
+      a.t_h[d] = th;
+      o.th = imin(o.th, th);
+    }
+  }
+  if (!solo) {
+    grid.sync();
+    const int64_t nw = gstride / Team::W;
+    for (int64_t dd = gtid / Team::W; dd < h; dd += nw) {
+      const int d = (int)dd;
+      const int64_t th = scan_host(a.t, tm, d, Tick::aux(a, tm, d),
+                                   a.t.cpu_ns_per_event[d],
+                                   a.t.cpu_avail[d]);
+      if (tm.leader()) a.t_h[d] = th;
+      o.th = imin(o.th, th);
+    }
   }
   publish(a, 0, block_reduce(o));
   grid.sync();
@@ -275,8 +308,10 @@ __global__ void __launch_bounds__(kBlock) k_window(WindowArgs a) {
   const int e = a.t.e, pc = a.t.pc;
   const int64_t gtid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
   const int64_t gstride = (int64_t)gridDim.x * kBlock;
+  const Solo tm{};
+  Clk no_clk = make_clk(nullptr, false);
   int64_t ws, we;
-  int64_t gmin = window_open<PholdTick>(a, grid, ws, we);
+  int64_t gmin = window_open<PholdTick, Solo>(a, grid, ws, we);
 
   int buf = 0;
   int64_t steps = 0;
@@ -295,16 +330,12 @@ __global__ void __launch_bounds__(kBlock) k_window(WindowArgs a) {
       const bool act = th0 < we;
       const int64_t tick = act ? th0 : we;
       if (act) a.d.t_resume[hh] = INV;
-      const int64_t aux0 = PholdTick::aux(a, hh);
-      int32_t no_tcp_err = 0;
-      Clk no_clk = make_clk(nullptr, false);
-      const DeliverOut dl = deliver_host(a.d, nullptr, NoGate{}, hh, true,
-                                         tick, act, aux0, we, no_tcp_err,
-                                         no_clk);
+      const int64_t aux0 = PholdTick::aux(a, tm, hh);
+      const DeliverOut dl = deliver_host(a.d, tm, hh, tick, act, aux0, we);
       phold_tick(a.p, a.d, hh, dl.t_post, act, we,
                  a.em_valid + (int64_t)hh * e,
                  a.em_blk + (int64_t)hh * e * pc, e, pc);
-      const HostOut t = transport_host(a.t, nullptr, hh, tick, dl.t_post,
+      const HostOut t = transport_host(a.t, tm, nullptr, hh, tick, dl.t_post,
                                        act, dl.delivered,
                                        PholdTick::next(a, hh), no_clk);
       a.t_h[hh] = t.th;
@@ -318,24 +349,28 @@ __global__ void __launch_bounds__(kBlock) k_window(WindowArgs a) {
   window_close(a, grid, buf, gmin, ws, we, status);
 }
 
-// The TCP window: one thread per host, every thread through every
-// barrier (see the design note above).
+// The TCP window: one warp per host, every thread through every barrier
+// (see the design note above).  `clk` traces host a.clk_host's phases in
+// the lane 0 of the warp that runs it (S1_PHASE_CLOCKS builds).
 template <class Tick>
 __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
   cg::grid_group grid = cg::this_grid();
   const int h = a.x.h, e = a.t.e, rb = a.d.rx_batch;
   const int64_t gtid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
   const int64_t gstride = (int64_t)gridDim.x * kBlock;
+  const Warp tm{};
+  const int64_t nw = gstride / Warp::W;
   int32_t* const gates = a.tcp.gates;            // [2][rb] by step parity
-  Clk clk = make_clk(a.clk, gtid == a.clk_host);
+  Clk clk = make_clk(a.clk, a.clk_host >= 0 && a.clk_host < h &&
+                                gtid / Warp::W == a.clk_host % nw &&
+                                tm.leader());
+  Clk no_clk = make_clk(nullptr, false);
   clk.start();
   for (int64_t i = gtid; i < 2 * rb; i += gstride) gates[i] = 0;
   int64_t ws, we;
-  int64_t gmin = window_open<Tick>(a, grid, ws, we);
+  int64_t gmin = window_open<Tick, Warp>(a, grid, ws, we);
   clk.mark(CLK_OPEN);
 
-  const bool valid = gtid < h;
-  const int hh = valid ? (int)gtid : 0;
   int buf = 0;
   int64_t steps = 0;
   int64_t status = 0;
@@ -350,54 +385,59 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
     if (gtid == 0)
       for (int r = 0; r < rb; ++r) gates[(buf ^ 1) * rb + r] = 0;
     HostOut s{INV, 0, 0};
-    int64_t tick = we, aux0 = INV;
-    bool act = false;
-    if (valid) {
-      // Tick setup: re-arm the resume time of active hosts only; the
-      // rx_batch bound is the aux term after the re-arm.
-      const int64_t th0 = a.t_h[hh];
-      act = th0 < we;
-      if (act) {
-        tick = th0;
-        a.d.t_resume[hh] = INV;
-      }
-      aux0 = Tick::aux(a, hh);
-      for (int j = 0; j < e; ++j) a.tcp.em_valid[(int64_t)hh * e + j] = 0;
-    }
-    int32_t sock_err = 0;
-    const DeliverOut dl = deliver_host(a.d, &a.tcp, GridGate{gates + buf * rb},
-                                       hh, valid, tick, act, aux0, we,
-                                       sock_err, clk);
-    if (valid) {
-      tcp_run_timers(a.tcp, hh, dl.t_post, act);
-      clk.mark(CLK_TIMERS);
-      Tick::tick(a, hh, dl.t_post, act);
-      clk.mark(CLK_TICK);
-      s = transport_host(a.t, &a.tcp, hh, tick, dl.t_post, act, dl.delivered,
-                         Tick::next(a, hh), clk);
-      a.t_h[hh] = s.th;
-      s.err |= sock_err;
-    }
+    const int32_t sock_err = deliver_tcp_warps(
+        a.d, a.tcp, gates + buf * rb, we, clk, a.clk_host,
+        [&](int hh, int64_t& tick, bool& act, int64_t& aux0) {
+          // Tick setup: re-arm the resume time of active hosts only; the
+          // rx_batch bound is the aux term after the re-arm.
+          const int64_t th0 = a.t_h[hh];
+          act = th0 < we;
+          tick = act ? th0 : we;
+          if (act && tm.leader()) a.d.t_resume[hh] = INV;
+          for (int j = tm.lane(); j < e; j += Warp::W)
+            a.tcp.em_valid[(int64_t)hh * e + j] = 0;
+          tm.sync();
+          aux0 = Tick::aux(a, tm, hh);
+        },
+        [&](int hh, const RxCarry& c, const DeliverOut& dl, bool traced) {
+          Clk& ck = traced ? clk : no_clk;
+          tcp_run_timers(tm, a.tcp, hh, dl.t_post, c.act);
+          ck.mark(CLK_TIMERS);
+          Tick::tick(a, tm, hh, dl.t_post, c.act);
+          ck.mark(CLK_TICK);
+          const HostOut o = transport_host(a.t, tm, &a.tcp, hh, c.tick,
+                                           dl.t_post, c.act, dl.delivered,
+                                           Tick::next(a, hh), ck);
+          if (tm.leader()) {
+            a.t_h[hh] = o.th;
+            s.events += o.events;
+          }
+          s.th = imin(s.th, o.th);
+          s.err |= o.err;
+        });
+    s.err |= sock_err;
+    clk.start();
     gmin = step_close(a, grid, buf, s);
     clk.mark(CLK_CLOSE);
     clk.count_step();
     ++steps;
   }
+  clk.start();
   window_close(a, grid, buf, gmin, ws, we, status);
   clk.mark(CLK_WCLOSE);
 }
 
-__global__ void __launch_bounds__(kBlock, 1) k_window_tcp(WindowArgs a) {
+__global__ void __launch_bounds__(kBlock, 2) k_window_tcp(WindowArgs a) {
   window_tcp<BulkTick>(a);
 }
 
 }  // namespace
 
-namespace {
-
-// Per-SM residency of `kernel` and the SM count (CUDA error code, or -1
-// when the device cannot launch cooperative kernels).
-int resident(const void* kernel, int* per_sm, int* sms) {
+// Blocks per SM of K_WINDOW's kernel (k_window_tcp when `tcp`, else
+// k_window) and the card's SM count: the wrapper sizes the cooperative
+// grid from them.  Returns a CUDA error code, or -1 when the device cannot
+// launch cooperative kernels or the kernel does not fit on an SM.
+extern "C" int window_occupancy(int tcp, int* per_sm, int* sms) {
   int dev = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -405,38 +445,12 @@ int resident(const void* kernel, int* per_sm, int* sms) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kBlock,
-                                                      0);
+    e = tcp ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  per_sm, k_window_tcp, kBlock, 0)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  per_sm, k_window, kBlock, 0);
   if (e != cudaSuccess) return (int)e;
   return (!coop || *per_sm < 1) ? -1 : 0;
-}
-
-}  // namespace
-
-// Blocks of k_window's cooperative grid for h hosts: one thread per
-// host, at most what the card holds resident at once (grid-stride loops
-// cover the rest).  Returns a CUDA error code, or -1 when the device
-// cannot launch cooperative kernels.
-extern "C" int window_grid(int h, int* grid) {
-  int per_sm = 0, sms = 0;
-  const int rc = resident((const void*)k_window, &per_sm, &sms);
-  if (rc != 0) return rc;
-  const int need = (h + kBlock - 1) / kBlock;
-  *grid = need < per_sm * sms ? need : per_sm * sms;
-  return 0;
-}
-
-// Blocks of k_window_tcp's grid for h hosts: exactly one thread per host,
-// all resident.  `max_hosts` gets the most hosts the card can hold
-// (blocks per SM x SMs x kBlock).  Returns a CUDA error code, -1 when the
-// device cannot launch cooperative kernels, or -2 when h > max_hosts.
-extern "C" int window_tcp_grid(int h, int* grid, int* max_hosts) {
-  int per_sm = 0, sms = 0;
-  const int rc = resident((const void*)k_window_tcp, &per_sm, &sms);
-  if (rc != 0) return rc;
-  *max_hosts = per_sm * sms * kBlock;
-  *grid = (h + kBlock - 1) / kBlock;
-  return *grid > per_sm * sms ? -2 : 0;
 }
 
 extern "C" int window_launch(const WindowArgs* args, void* stream) {

@@ -20,7 +20,10 @@ The JAX side is asserted to take each of those branches, and the full
 state, the per-host next times, gmin and the window bounds must be
 equal.  Then the whole lossy world runs on the persistent path with
 sim.build_bulk's defaults through run_chunked to the end of its
-transfers, against the JAX package's run_chunked reference graph."""
+transfers, against the JAX package's run_chunked reference graph, and
+the "pairs" world (client 2i+1 sends 64 KiB to server 2i) runs on both
+of the port's paths against one JAX run.  Last, K_WINDOW's TCP grid is
+sized from the occupancy query for any number of hosts."""
 
 import dataclasses
 import functools
@@ -30,13 +33,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import shadow1_tpu
+import torch
 from shadow1_tpu import sim as jsim
+from shadow1_tpu.apps import bulk as jbulk
 from shadow1_tpu.core import engine as jeng
 from shadow1_tpu.core import megakernel as jmk
+from shadow1_tpu.core.params import make_net_params as jmake_params
+from shadow1_tpu.core.state import make_sim_state as jmake_state
+from shadow1_tpu.routing.synthetic import uniform_full_mesh as jmesh
 from shadow1_tpu_torch import convert
 from shadow1_tpu_torch import sim as tsim
+from shadow1_tpu_torch.apps import bulk as tbulk
 from shadow1_tpu_torch.core import engine as teng
 from shadow1_tpu_torch.core import megakernel as tmk
+from shadow1_tpu_torch.core.params import make_net_params as tmake_params
+from shadow1_tpu_torch.core.state import make_sim_state as tmake_state
+from shadow1_tpu_torch.routing.synthetic import uniform_full_mesh as tmesh
 
 from _torch_parity import assert_same, jax_tree
 
@@ -141,22 +154,96 @@ def test_persistent_bulk_run_equals_jax():
                 "persistent bulk run")
 
 
-def test_tcp_window_grid_raises_past_residency(monkeypatch):
-    """k_window_tcp keeps one resident thread per host, so past what the
-    card holds at once the wrapper raises, naming the limit the grid
-    query reports (-2); below it the grid is one block per 256 hosts."""
-    import torch
+# The "pairs" world: host 2i+1 sends 64 KiB to host 2i over a uniform
+# 10 ms full mesh (host i on vertex i mod 256, as build_phold maps its
+# hosts), sized by the JAX package's assembler rule for fan-in 1
+# (config/assemble.py: 6 socket slots, 128-slot slabs); Reno, rx_batch 4.
+# Built with the API both packages share (no build_* option).
+PAIRS_H = 16
+PAIRS_NS = 100 * MS
 
+
+def _pairs_kw(h, xp):
+    ids = xp.arange(h)
+    is_server = ids % 2 == 0
+    return ids, is_server, dict(
+        is_client=~is_server, dst=ids - ids % 2,
+        total_bytes=xp.where(is_server, 0, 64 * 1024),
+        start_t=xp.full((h,), MS))
+
+
+def _jax_pairs(h):
+    def build():
+        v = min(h, 256)
+        lat, rel = jmesh(v, 10 * MS, 1.0)
+        ids, is_server, app_kw = _pairs_kw(h, jnp)
+        params = jmake_params(
+            latency_ns=lat, reliability=rel, host_vertex=ids % v,
+            bw_up_Bps=jnp.full(h, 1 << 30), bw_down_Bps=jnp.full(h, 1 << 30),
+            seed=1, stop_time=60 * SEC)
+        state = jmake_state(h, sock_slots=6, pool_capacity=h * 128)
+        state = state.replace(
+            socks=jbulk.setup_servers(state.socks, is_server),
+            app=jbulk.init_state(h, **app_kw))
+        return state, params
+    state, params = shadow1_tpu.build_on_host(build)
+    return state, params, jbulk.Bulk()
+
+
+def _port_pairs(h, persistent):
+    v = min(h, 256)
+    lat, rel = tmesh(v, 10 * MS, 1.0)
+    ids, is_server, app_kw = _pairs_kw(h, torch)
+    params = tmake_params(
+        latency_ns=lat, reliability=rel, host_vertex=ids % v,
+        bw_up_Bps=torch.full((h,), 1 << 30),
+        bw_down_Bps=torch.full((h,), 1 << 30), seed=1, stop_time=60 * SEC,
+        persistent=persistent, device="cpu")
+    state = tmake_state(h, sock_slots=6, pool_capacity=h * 128,
+                        uses_tcp=True, device="cpu")
+    state = state.replace(
+        socks=tbulk.setup_servers(state.socks, is_server),
+        app=tbulk.init_state(h, **app_kw, device="cpu"))
+    return state, params, tbulk.Bulk()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pairs_run():
+    js, jp, ja = _jax_pairs(PAIRS_H)
+    return jax_tree(jeng.run_chunked(js, jp.replace(megakernel=False), ja,
+                                     PAIRS_NS))
+
+
+@pytest.mark.parametrize("persistent", [True, False],
+                         ids=["persistent", "per-phase"])
+def test_pairs_run_equals_jax(persistent):
+    """The pairs world to 100 ms on each of the port's paths (K_WINDOW's
+    TCP kernel, or the per-phase kernels; their plain versions here)
+    equals the JAX package's reference graph, every leaf."""
+    ts, tp, ta = _port_pairs(PAIRS_H, persistent)
+    assert tp.megakernel and tp.persistent == persistent
+    tout = teng.run_chunked(ts, tp, ta, PAIRS_NS)
+    jout = _jax_pairs_run()
+    assert (jout["app"]["phase"][1::2] == 2).all(), \
+        "a pair's transfer is unfinished"
+    assert_same(convert.to_numpy(tout), jout, "pairs world")
+
+
+@pytest.mark.parametrize("h", [100, 33_792, 33_793])
+def test_tcp_window_grid_follows_occupancy(monkeypatch, h):
+    """K_WINDOW's grid is what the card keeps resident (blocks per SM
+    from the occupancy query, times SMs), no more blocks than the hosts
+    fill (one warp per host in k_window_tcp, one thread per host in
+    k_window), and the kernels walk hosts grid-stride: no host count is
+    refused."""
     class Lib:
         @staticmethod
-        def window_tcp_grid(h, grid, cap):
-            grid._obj.value = -(-h // 256)
-            cap._obj.value = 132 * 256
-            return -2 if h > 132 * 256 else 0
+        def window_occupancy(tcp, per_sm, sms):
+            per_sm._obj.value = 2 if tcp else 4
+            sms._obj.value = 132
+            return 0
 
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    monkeypatch.setattr(tmk, "_GRID", {})
-    assert tmk._window_grid(Lib, 100, True) == 1
-    assert tmk._window_grid(Lib, 33_792, True) == 132
-    with pytest.raises(RuntimeError, match="holds at most 33792 at once"):
-        tmk._window_grid(Lib, 33_793, True)
+    monkeypatch.setattr(tmk, "_OCCUPANCY", {})
+    assert tmk._window_grid(Lib, h, True) == min(-(-h // 8), 2 * 132)
+    assert tmk._window_grid(Lib, h, False) == min(-(-h // 256), 4 * 132)
