@@ -48,8 +48,8 @@ constexpr int64_t ONE_MS = 1000000LL;
 // Per-phase cycle counters of K_WINDOW's TCP kernel, compiled in only
 // under -DS1_PHASE_CLOCKS (core/_build.py builds that variant as a library
 // of its own, "window_clk"; the normal build carries none of it).  One
-// thread -- the one that runs the traced host -- adds the clock64() cycles
-// since its previous mark to acc[phase].  Phases: the window's opening,
+// thread -- lane 0 of the warp that runs the traced host -- adds the
+// clock64() cycles since its previous mark to acc[phase].  Phases: the window's opening,
 // the router enqueue, per delivery round r (at most 4 traced) its
 // select/NIC, begin, gate and finish, then run_timers, the app tick,
 // transmit and staging, the TX drain, the post-step scan, the step's
@@ -230,16 +230,6 @@ struct Warp {
     }
   }
 };
-
-// Slots a lane walks at a time in a team's slab scan: a warp loads the
-// stages and rows of kWalk slots per lane (at indices clamped into the
-// slab, so every load is in bounds) before it tests any, so the lane has
-// kWalk rows in flight instead of one dependent chain per slot; Solo keeps
-// one slot at a time and reads a row only for a live slot.
-template <class Team>
-__device__ __forceinline__ constexpr int walk_width() {
-  return Team::W == 1 ? 1 : 4;
-}
 
 // The lowest index >= `from` (and < n) whose `stage` is STAGE_FREE, or n:
 // the team reads 32 stages at a time and takes the lowest set bit of the

@@ -178,32 +178,15 @@ __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
                                            int64_t window_end) {
   const int ki = a.ki, ic = a.ic;
   const int64_t base = (int64_t)hh * ki;
-  constexpr int U = walk_width<Team>();
   int32_t n = 0;
-  for (int k0 = tm.lane(); k0 < ki && act; k0 += U * Team::W) {
-    int32_t st[U];
-    int64_t tt[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int64_t slot = base + imin32(k0 + u * Team::W, ki - 1);
-      st[u] = a.ib_stage[slot];
-      const int32_t* row = a.ib_blk + slot * ic;
-      if (U > 1) tt[u] = dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * Team::W;
-      if (k >= ki) break;
-      if (st[u] != STAGE_IN_FLIGHT) continue;
-      const int64_t slot = base + k;
-      const int32_t* row = a.ib_blk + slot * ic;
-      const int64_t t =
-          U > 1 ? tt[u] : dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]);
-      if (t <= tick) {
-        a.ib_stage[slot] = STAGE_RX_QUEUED;
-        if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
-        ++n;
-      }
+  for (int k = tm.lane(); k < ki && act; k += Team::W) {
+    const int64_t slot = base + k;
+    if (a.ib_stage[slot] != STAGE_IN_FLIGHT) continue;
+    const int32_t* row = a.ib_blk + slot * ic;
+    if (dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]) <= tick) {
+      a.ib_stage[slot] = STAGE_RX_QUEUED;
+      if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
+      ++n;
     }
   }
   RxCarry c;
@@ -244,44 +227,22 @@ __device__ __forceinline__ RxPick rx_round(const DeliverArgs& a,
   const int ki = a.ki, ic = a.ic, S = a.slots;
   const int64_t base = (int64_t)hh * ki;
   const int64_t limit = r == 0 ? c.tick : c.bound;
-  constexpr int U = walk_width<Team>();
   int64_t tmin = INV, kmin = INV;
   int32_t col = ki;
-  for (int k0 = tm.lane(); k0 < ki && c.act; k0 += U * Team::W) {
-    int32_t st[U];
-    const int32_t* rk[U];
-    int64_t tt[U], kk[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int64_t slot = base + imin32(k0 + u * Team::W, ki - 1);
-      st[u] = a.ib_stage[slot];
-      rk[u] = a.ib_blk + slot * ic;
-      if (U > 1) {
-        tt[u] = dec_i64(rk[u][ICOL_TIME_LO], rk[u][ICOL_TIME_HI]);
-        kk[u] = ((int64_t)rk[u][ICOL_SRC] << 40) |
-                dec_i64(rk[u][ICOL_CTR_LO], rk[u][ICOL_CTR_HI]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * Team::W;
-      if (k >= ki) break;
-      // The stage first: Solo reads a row only for a live slot.
-      const int32_t s_ = st[u];
-      if (s_ != STAGE_RX_QUEUED && (r == 0 || s_ != STAGE_IN_FLIGHT))
-        continue;
-      const int64_t t =
-          U > 1 ? tt[u] : dec_i64(rk[u][ICOL_TIME_LO], rk[u][ICOL_TIME_HI]);
-      if (s_ == STAGE_IN_FLIGHT && t > limit) continue;
-      const int64_t key =
-          U > 1 ? kk[u]
-                : (((int64_t)rk[u][ICOL_SRC] << 40) |
-                   dec_i64(rk[u][ICOL_CTR_LO], rk[u][ICOL_CTR_HI]));
-      if (t < tmin || (t == tmin && key < kmin)) {
-        tmin = t;
-        kmin = key;
-        col = k;
-      }
+  for (int k = tm.lane(); k < ki && c.act; k += Team::W) {
+    // The stage column first: a row is read only for a live slot.
+    const int64_t slot = base + k;
+    const int32_t st = a.ib_stage[slot];
+    if (st != STAGE_RX_QUEUED && (r == 0 || st != STAGE_IN_FLIGHT)) continue;
+    const int32_t* rk = a.ib_blk + slot * ic;
+    const int64_t t = dec_i64(rk[ICOL_TIME_LO], rk[ICOL_TIME_HI]);
+    if (st == STAGE_IN_FLIGHT && t > limit) continue;
+    const int64_t key = ((int64_t)rk[ICOL_SRC] << 40) |
+                        dec_i64(rk[ICOL_CTR_LO], rk[ICOL_CTR_HI]);
+    if (t < tmin || (t == tmin && key < kmin)) {
+      tmin = t;
+      kmin = key;
+      col = k;
     }
   }
   tm.min3(tmin, kmin, col);

@@ -85,29 +85,12 @@ __device__ __forceinline__ int64_t scan_host(const TransportArgs& a,
                                              const Team& tm, int hh,
                                              int64_t aux, int64_t cpu_ns,
                                              int64_t cpu_avail) {
-  constexpr int U = walk_width<Team>();
   int64_t t_in = INV;
-  const int ki = a.ki;
-  const int64_t ibase = (int64_t)hh * ki;
-  for (int k0 = tm.lane(); k0 < ki; k0 += U * Team::W) {
-    int32_t st[U];
-    const int32_t* row[U];
-    int64_t tt[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int64_t slot = ibase + imin32(k0 + u * Team::W, ki - 1);
-      st[u] = a.ib_stage[slot];
-      row[u] = a.ib_blk + slot * a.ic;
-      if (U > 1) tt[u] = dec_i64(row[u][ICOL_TIME_LO], row[u][ICOL_TIME_HI]);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (k0 + u * Team::W >= ki) break;
-      if (st[u] != STAGE_IN_FLIGHT) continue;
-      t_in = imin(t_in, U > 1 ? tt[u]
-                              : dec_i64(row[u][ICOL_TIME_LO],
-                                        row[u][ICOL_TIME_HI]));
-    }
+  const int64_t ibase = (int64_t)hh * a.ki;
+  for (int k = tm.lane(); k < a.ki; k += Team::W) {
+    if (a.ib_stage[ibase + k] != STAGE_IN_FLIGHT) continue;
+    const int32_t* row = a.ib_blk + (ibase + k) * a.ic;
+    t_in = imin(t_in, dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]));
   }
   t_in = tm.min64(t_in);
   int64_t th = imin(t_in, aux);
@@ -175,7 +158,6 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   const int64_t budget = tokens;
   const int32_t txq0 = a.tx_queued[hh];
   int n_free = 0;
-#pragma unroll 4
   for (int k = tm.lane(); k < ko; k += Team::W)
     n_free += pstage[k] == STAGE_FREE;
   n_free = tm.sum(n_free);
@@ -273,28 +255,14 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   clk.mark(CLK_TRANSMIT);
 
   // ---- _tx_drain_body (skip_refill: staging refilled at this instant) ----
-  constexpr int U = walk_width<Team>();
   int64_t tmin = INV;
   int32_t jsel = ko;
-  for (int k0 = tm.lane(); k0 < ko && act; k0 += U * Team::W) {
-    int32_t st[U];
-    int64_t tt[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = imin32(k0 + u * Team::W, ko - 1);
-      st[u] = pstage[k];
-      if (U > 1) tt[u] = a.pool_time[pbase + k];
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + u * Team::W;
-      if (k >= ko) break;
-      if (st[u] != STAGE_TX_QUEUED) continue;
-      const int64_t t = U > 1 ? tt[u] : a.pool_time[pbase + k];
-      if (t <= tp && t < tmin) {
-        tmin = t;
-        jsel = k;
-      }
+  for (int k = tm.lane(); k < ko && act; k += Team::W) {
+    if (pstage[k] != STAGE_TX_QUEUED) continue;
+    const int64_t t = a.pool_time[pbase + k];
+    if (t <= tp && t < tmin) {
+      tmin = t;
+      jsel = k;
     }
   }
   tm.min2(tmin, jsel);

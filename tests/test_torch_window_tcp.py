@@ -32,9 +32,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import shadow1_tpu
-import torch
 from shadow1_tpu import sim as jsim
 from shadow1_tpu.apps import bulk as jbulk
 from shadow1_tpu.core import engine as jeng
