@@ -31,7 +31,10 @@ Phases, each reported on its own line:
    counter is zeroed just before and read just after, and the trajectory
    must equal the JAX package's.  The timed part runs again under
    torch.profiler: K_WINDOW's device time per launch, the host time per
-   window and the device's busy share.
+   window and the device's busy share.  Then its first BUSY_WINDOWS
+   windows through K_WINDOW's phase-clock build, traced for the host with
+   the most events and for the median host (the split of a micro-step by
+   phase; final state equal to the untraced run's).
 5. per-phase path -- the same world and schedule with persistent=False
    (exchange, K_DELIVER, app tick in torch, K_TRANSPORT), counters zeroed
    just before and read just after; its final state must equal the
@@ -1021,7 +1024,7 @@ def check_tcp_kernels(state, params, app, dev):
         transport_bytes(s2, out_p[0], em, active, params, tcp=True),
         transport_ops(s2, em, active, tcp=True))
     times["transport_tcp"] = (time_call(mk.transport_kernel, tr_args,
-                                        kernel="k_transport"),
+                                        kernel="k_transport_tcp"),
                               time_call(mk.transport_plain, tr_args))
     sent = int((out_p[0].hosts.pkts_sent - s2.hosts.pkts_sent).sum())
     print(f"tcp kernels: transport equal ({sent} segments placed)",
@@ -1196,20 +1199,22 @@ def busy_windows(warm, params, app, n: int | None):
 
 
 # K_WINDOW's traced phases (csrc/common.cuh ClkPhase), in kernel order.
-CLK_PHASES = [(0, "window open"), (1, "router enqueue")] + [
+CLK_PHASES = [(0, "window open"), (25, "tick setup"),
+              (1, "router enqueue")] + [
     (2 + 4 * r + i, f"round {r} {part}") for r in range(4)
     for i, part in enumerate(("select/NIC", "begin", "gate", "finish"))] + [
-    (18, "run_timers"), (19, "tick"), (20, "transmit+staging"),
-    (21, "TX drain"), (22, "post-step scan"), (23, "step close"),
-    (24, "window close")]
+    (26, "rx write-back"), (18, "run_timers"), (19, "tick"),
+    (20, "transmit+staging"), (21, "TX drain"), (22, "post-step scan"),
+    (23, "step close"), (24, "window close")]
 
 
-def phase_trace(warm, params, app, n: int, host: int = 0):
+def phase_trace(warm, params, app, n: int, host: int = 0,
+                label: str = "phase trace"):
     """The first `n` windows after `warm` through K_WINDOW's clocked build
     (-DS1_PHASE_CLOCKS): the cycles the thread (or warp) of host `host`
     spends in each phase, its barrier waits among them.  The phase shares
     of those cycles times the windows' device time (CUDA events) give ms.
-    Returns (printable lines, final state)."""
+    Returns (printable lines, each starting with `label`, final state)."""
     import torch
     from shadow1_tpu_torch.core import megakernel as mk
     buf = torch.zeros(mk.CLK_WORDS, dtype=torch.int64,
@@ -1225,18 +1230,42 @@ def phase_trace(warm, params, app, n: int, host: int = 0):
     dev_ms = sum(ms)
     steps = int(st.n_steps) - int(warm.n_steps)
     rows = [(name, cyc[i]) for i, name in CLK_PHASES if cyc[i]]
-    lines = [f"phase trace: host {host}, {len(ms)} windows, {steps} "
-             f"micro-steps ({cyc[31]} traced), K_WINDOW device {dev_ms:.4f} "
-             f"ms, {total} cycles traced ({total / dev_ms / 1e3:.1f} MHz); "
-             f"wall {wall:.4f} s"]
-    lines += [f"phase trace: {name}: {c / total * 100:.2f} %, "
+    windows = int(st.n_windows) - int(warm.n_windows)
+    lines = [f"{label}: host {host}, {windows} windows in {len(ms)} "
+             f"K_WINDOW calls, {steps} micro-steps ({cyc[31]} traced), "
+             f"K_WINDOW device {dev_ms:.4f} ms, {total} cycles traced "
+             f"({total / dev_ms / 1e3:.1f} MHz); wall {wall:.4f} s"]
+    lines += [f"{label}: {name}: {c / total * 100:.2f} %, "
               f"{c / traced:.1f} cycles and {dev_ms * c / total / traced * 1e3:.3f}"
               f" us per micro-step" for name, c in rows]
     gate = sum(c for name, c in rows if name.endswith("gate")
                or name == "step close")
-    lines.append(f"phase trace: grid barriers (gates + step close) "
+    lines.append(f"{label}: grid barriers (gates + step close) "
                  f"{gate / total * 100:.2f} % of the traced host's cycles")
     return lines, st
+
+
+def phold_trace(warm, params, app, n: int) -> list:
+    """Phold's K_WINDOW over the first `n` windows after `warm`, traced
+    by phase for two hosts: the one with the most events (sends plus
+    receives) in those windows and the one at the median.  Each traced
+    run's final state must equal the untraced run's.  Returns printable
+    lines."""
+    import torch
+    ref, _, _ = _timed_windows(warm, params, app, n)
+    ev = (ref.app.sent + ref.app.recv) - (warm.app.sent + warm.app.recv)
+    order = torch.argsort(ev, stable=True)
+    busiest, typical = int(order[-1]), int(order[len(order) // 2])
+    lines = []
+    for host, kind in ((busiest, "most events"), (typical, "median")):
+        out, st = phase_trace(warm, params, app, n, host,
+                              label="phold phase trace")
+        require_equal(st, ref, f"phold phase trace (host {host}) vs the "
+                               f"untraced windows")
+        lines.append(f"phold phase trace: host {host} ({kind}: "
+                     f"{int(ev[host])} events in {n} windows)")
+        lines += out
+    return lines
 
 
 def pairs_world(dev, h: int, persistent: bool):
@@ -1485,6 +1514,8 @@ def main() -> int:
               f"{JAX_FINAL['n_windows']} and no per-phase launch")
     line, window_dev_ms = profile_persistent(warm, params, app, RUN_NS)
     print(line, flush=True)
+    for line in phold_trace(warm, params, app, BUSY_WINDOWS):
+        print(line, flush=True)
 
     _phase_done("4")
 

@@ -23,10 +23,12 @@ sm_90a in `csrc/` and built by core/_build.py:
   (csrc/bulk_tick.cuh).  The three phases are one copy of device code
   (csrc/*.cuh) that the per-phase kernels share.
 
-The TCP kernels of K_DELIVER and K_WINDOW run one warp per host, hosts
-walked warp-stride over a cooperative grid sized from the occupancy
-query, so no host count is refused; the other kernels run one thread per
-host (csrc/common.cuh, the Solo and Warp teams).
+The TCP kernels of K_DELIVER, K_TRANSPORT and K_WINDOW run one warp per
+host -- K_DELIVER's and K_WINDOW's hosts walked warp-stride over a
+cooperative grid sized from the occupancy query, K_TRANSPORT's as a plain
+launch of one warp per host -- so no host count is refused; the UDP
+kernels run one thread per host (csrc/common.cuh, the Solo and Warp
+teams).
 
 Dispatch rule, the same for every wrapper: a CUDA tensor launches the
 kernel (or raises); a CPU tensor runs the plain version, which is built
@@ -131,6 +133,13 @@ def _raise_on(rc: int, name: str) -> None:
 
 def _n_blocks(h: int) -> int:
     return -(-h // _BLOCK)
+
+
+def _transport_blocks(h: int, tcp: bool) -> int:
+    """Blocks (and block partials) of K_TRANSPORT for h hosts: one
+    thread per host (k_transport), or one warp per host (k_transport_tcp,
+    _BLOCK // 32 hosts a block)."""
+    return -(-h // (_BLOCK // 32)) if tcp else _n_blocks(h)
 
 
 # ---------------------------------------------------------------------------
@@ -518,10 +527,11 @@ def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
 def transport_kernel(state, params, app, em, tick_t, t_post, active, bw_up,
                      delivered_n, t_app):
     """Launch csrc/transport.cu: transmit (TCP worlds) + staging + drain
-    + CPU accounting + scan with one thread per host, then the
-    fixed-order reduction of the per-block partials into gmin / n_events
-    / n_steps / err.  Updates the pool, hosts, socket tensors, state
-    scalars and the TX lanes of `em` in place."""
+    + CPU accounting + scan with one thread per host (k_transport) or, in
+    TCP worlds, one warp per host (k_transport_tcp), then the fixed-order
+    reduction of the per-block partials into gmin / n_events / n_steps /
+    err.  Updates the pool, hosts, socket tensors, state scalars and the
+    TX lanes of `em` in place."""
     from . import _build
     h = state.hosts.num_hosts
     pc = state.pool.blk.shape[1]
@@ -534,7 +544,8 @@ def transport_kernel(state, params, app, em, tick_t, t_post, active, bw_up,
     _check(active, torch.bool, (h,), "active")
     _check(delivered_n, I32, (h,), "delivered_n")
     dev = tick_t.device
-    nb = _n_blocks(h)
+    uses_tcp = engine._uses_tcp(app)
+    nb = _transport_blocks(h, uses_tcp)
     th = torch.empty((h,), dtype=I64, device=dev)
     blk_ev = torch.empty((nb,), dtype=I64, device=dev)
     blk_min = torch.empty((nb,), dtype=I64, device=dev)
@@ -543,7 +554,7 @@ def transport_kernel(state, params, app, em, tick_t, t_post, active, bw_up,
     a = _transport_struct(state, params, em.valid, em.blk, e, bw_up, tick_t,
                           t_post, active, delivered_n, t_app, th, blk_ev,
                           blk_min, blk_err, gmin, nb)
-    tcp = _tcp_struct(state, params, em) if engine._uses_tcp(app) else None
+    tcp = _tcp_struct(state, params, em) if uses_tcp else None
     lib = _build.load("transport")
     _raise_on(lib.transport_launch(
         ctypes.byref(a), None if tcp is None else ctypes.byref(tcp),
@@ -648,17 +659,17 @@ class _WindowArgs(ctypes.Structure):
         ("clk_host", ctypes.c_int32)]
 
 
-# K_WINDOW's phase trace: while `buf` is set, TCP windows launch the
-# clocked build (core/_build.py VARIANTS "window_clk") and add host
-# `host`'s cycles per phase into it (csrc/common.cuh Clk).
+# K_WINDOW's phase trace: while `buf` is set, windows launch the clocked
+# build (core/_build.py VARIANTS "window_clk") and add host `host`'s
+# cycles per phase into it (csrc/common.cuh Clk).
 _PHASE_CLOCKS = {"buf": None, "host": 0}
 CLK_WORDS = 32
 
 
 def set_phase_clocks(buf=None, host: int = 0) -> None:
-    """Trace host `host`'s phases of K_WINDOW's TCP kernel into `buf`
-    (int64 [CLK_WORDS] on the card, accumulated across launches); None
-    stops tracing."""
+    """Trace host `host`'s phases of K_WINDOW (either kernel) into
+    `buf` (int64 [CLK_WORDS] on the card, accumulated across launches);
+    None stops tracing."""
     if buf is not None:
         _check(buf, I64, (CLK_WORDS,), "phase clock buffer")
     _PHASE_CLOCKS.update(buf=buf, host=int(host))
@@ -757,7 +768,7 @@ def window_kernel(state, params, app, t_target):
     _check(hosts.acks_thinned, I64, (h,), "hosts.acks_thinned")
     for name in ("now", "n_windows"):
         _check(getattr(state, name), I64, (), name)
-    clk = _PHASE_CLOCKS["buf"] if tcp_on else None
+    clk = _PHASE_CLOCKS["buf"]
     lib = _build.load("window" if clk is None else "window_clk")
     grid = _window_grid(lib, h, tcp_on)
     dev = pool.blk.device

@@ -45,22 +45,24 @@ constexpr int64_t CODEL_TARGET_NS = 10000000LL;
 constexpr int64_t CODEL_INTERVAL_NS = 100000000LL;
 constexpr int64_t ONE_MS = 1000000LL;
 
-// Per-phase cycle counters of K_WINDOW's TCP kernel, compiled in only
-// under -DS1_PHASE_CLOCKS (core/_build.py builds that variant as a library
-// of its own, "window_clk"; the normal build carries none of it).  One
-// thread -- lane 0 of the warp that runs the traced host -- adds the
-// clock64() cycles since its previous mark to acc[phase].  Phases: the window's opening,
-// the router enqueue, per delivery round r (at most 4 traced) its
-// select/NIC, begin, gate and finish, then run_timers, the app tick,
-// transmit and staging, the TX drain, the post-step scan, the step's
-// closing barrier and fold, and the window's close; CLK_STEPS counts the
-// traced micro-steps.
+// Per-phase cycle counters of K_WINDOW's kernels, compiled in only under
+// -DS1_PHASE_CLOCKS (core/_build.py builds that variant as a library of
+// its own, "window_clk"; the normal build carries none of it).  One
+// thread -- the thread (k_window) or lane 0 of the warp (k_window_tcp)
+// that runs the traced host -- adds the clock64() cycles since its
+// previous mark to acc[phase].  Phases: the window's opening (exchange,
+// scan, fold), the tick setup (k_window), the router enqueue, per
+// delivery round r (at most 4 traced) its select/NIC, begin, gate and
+// finish, the receive state's write-back (k_window), then run_timers,
+// the app tick, transmit and staging, the TX drain, the post-step scan,
+// the step's closing barrier and fold, and the window's close;
+// CLK_STEPS counts the traced micro-steps.
 enum ClkPhase {
   CLK_OPEN = 0, CLK_ENQUEUE = 1, CLK_ROUND = 2,   // + 4 * r + part
   CLK_SELECT = 0, CLK_BEGIN = 1, CLK_GATE = 2, CLK_FINISH = 3,
   CLK_TIMERS = 18, CLK_TICK = 19, CLK_TRANSMIT = 20, CLK_DRAIN = 21,
-  CLK_SCAN = 22, CLK_CLOSE = 23, CLK_WCLOSE = 24, CLK_STEPS = 31,
-  CLK_WORDS = 32
+  CLK_SCAN = 22, CLK_CLOSE = 23, CLK_WCLOSE = 24, CLK_SETUP = 25,
+  CLK_RXCLOSE = 26, CLK_STEPS = 31, CLK_WORDS = 32
 };
 
 struct Clk {
@@ -206,6 +208,14 @@ struct Warp {
       x = y < x ? y : x;
     }
     return x;
+  }
+  __device__ int64_t sum64(int64_t x) const {
+    for (int o = 16; o > 0; o >>= 1)
+      x += __shfl_xor_sync(FULL, (long long)x, o);
+    return x;
+  }
+  __device__ int32_t or32(int32_t x) const {
+    return (int32_t)__reduce_or_sync(FULL, (unsigned)x);
   }
   __device__ void min2(int64_t& a, int32_t& b) const {
     for (int o = 16; o > 0; o >>= 1) {

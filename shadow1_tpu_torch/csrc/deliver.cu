@@ -48,10 +48,11 @@ constexpr int kDeliverBlock = 256;
 __global__ void k_deliver(DeliverArgs a) {
   const int hh = blockIdx.x * blockDim.x + threadIdx.x;
   if (hh >= a.h) return;
+  Clk clk = make_clk(nullptr, false);
   const DeliverOut o = deliver_host(a, Solo{}, hh, a.tick_t[hh],
                                     a.active[hh] != 0,
                                     a.rx_batch > 1 ? a.aux0[hh] : INV,
-                                    a.window_end);
+                                    a.window_end, clk);
   a.delivered_n[hh] = o.delivered;
   a.t_post[hh] = o.t_post;
 }

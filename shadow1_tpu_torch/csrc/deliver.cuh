@@ -351,16 +351,24 @@ __device__ __forceinline__ DeliverOut rx_close(const DeliverArgs& a,
 }
 
 // _rx_phase for host hh of a UDP world at tick `tick` (active or not), on
-// one team, with no barrier: the enqueue, the rounds, the write-back.
+// one team, with no barrier: the enqueue, the rounds, the write-back,
+// each marked on `clk`.
 template <class Team>
 __device__ __forceinline__ DeliverOut deliver_host(const DeliverArgs& a,
                                                    const Team& tm, int hh,
                                                    int64_t tick, bool act,
                                                    int64_t aux0,
-                                                   int64_t window_end) {
+                                                   int64_t window_end,
+                                                   Clk& clk) {
   RxCarry c = rx_open(a, tm, hh, tick, act, aux0, window_end);
-  for (int r = 0; r < a.rx_batch; ++r) rx_round(a, tm, c, hh, r);
-  return rx_close(a, tm, c, hh);
+  clk.mark(CLK_ENQUEUE);
+  for (int r = 0; r < a.rx_batch; ++r) {
+    rx_round(a, tm, c, hh, r);
+    clk.round(r, CLK_SELECT);
+  }
+  const DeliverOut o = rx_close(a, tm, c, hh);
+  clk.mark(CLK_RXCLOSE);
+  return o;
 }
 
 // A host's carry across the TCP kernels' gate barriers.

@@ -309,9 +309,13 @@ __global__ void __launch_bounds__(kBlock) k_window(WindowArgs a) {
   const int64_t gtid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
   const int64_t gstride = (int64_t)gridDim.x * kBlock;
   const Solo tm{};
-  Clk no_clk = make_clk(nullptr, false);
+  // The thread that runs host a.clk_host (and every host of its stride).
+  Clk clk = make_clk(a.clk, a.clk_host >= 0 && a.clk_host < h &&
+                                gtid == a.clk_host % gstride);
+  clk.start();
   int64_t ws, we;
   int64_t gmin = window_open<PholdTick, Solo>(a, grid, ws, we);
+  clk.mark(CLK_OPEN);
 
   int buf = 0;
   int64_t steps = 0;
@@ -331,22 +335,28 @@ __global__ void __launch_bounds__(kBlock) k_window(WindowArgs a) {
       const int64_t tick = act ? th0 : we;
       if (act) a.d.t_resume[hh] = INV;
       const int64_t aux0 = PholdTick::aux(a, tm, hh);
-      const DeliverOut dl = deliver_host(a.d, tm, hh, tick, act, aux0, we);
+      clk.mark(CLK_SETUP);
+      const DeliverOut dl = deliver_host(a.d, tm, hh, tick, act, aux0, we,
+                                         clk);
       phold_tick(a.p, a.d, hh, dl.t_post, act, we,
                  a.em_valid + (int64_t)hh * e,
                  a.em_blk + (int64_t)hh * e * pc, e, pc);
+      clk.mark(CLK_TICK);
       const HostOut t = transport_host(a.t, tm, nullptr, hh, tick, dl.t_post,
                                        act, dl.delivered,
-                                       PholdTick::next(a, hh), no_clk);
+                                       PholdTick::next(a, hh), clk);
       a.t_h[hh] = t.th;
       s.th = imin(s.th, t.th);
       s.events += t.events;
       s.err |= t.err;
     }
     gmin = step_close(a, grid, buf, s);
+    clk.mark(CLK_CLOSE);
+    clk.count_step();
     ++steps;
   }
   window_close(a, grid, buf, gmin, ws, we, status);
+  clk.mark(CLK_WCLOSE);
 }
 
 // The TCP window: one warp per host, every thread through every barrier

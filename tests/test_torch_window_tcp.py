@@ -23,7 +23,8 @@ sim.build_bulk's defaults through run_chunked to the end of its
 transfers, against the JAX package's run_chunked reference graph, and
 the "pairs" world (client 2i+1 sends 64 KiB to server 2i) runs on both
 of the port's paths against one JAX run.  Last, K_WINDOW's TCP grid is
-sized from the occupancy query for any number of hosts."""
+sized from the occupancy query for any number of hosts, and K_TRANSPORT's
+TCP launch takes one warp per host."""
 
 import dataclasses
 import functools
@@ -247,3 +248,13 @@ def test_tcp_window_grid_follows_occupancy(monkeypatch, h):
     monkeypatch.setattr(tmk, "_OCCUPANCY", {})
     assert tmk._window_grid(Lib, h, True) == min(-(-h // 8), 2 * 132)
     assert tmk._window_grid(Lib, h, False) == min(-(-h // 256), 4 * 132)
+
+
+@pytest.mark.parametrize("h", [100, 40_000])
+def test_tcp_transport_takes_one_warp_per_host(h):
+    """K_TRANSPORT's TCP kernel (k_transport_tcp) is a plain launch of
+    one warp per host, 8 hosts a 256-thread block: its blocks, and so
+    its block partials, are ceil(h / 8); the UDP kernel keeps one thread
+    per host."""
+    assert tmk._transport_blocks(h, True) == -(-h // 8)
+    assert tmk._transport_blocks(h, False) == -(-h // 256)
