@@ -531,14 +531,18 @@ def window_bound(state, params, app, t_target, keep=False):
 
 
 def windows_bound(warm, params, app, n: int) -> tuple[int, int, int]:
-    """(bytes, operations, micro-steps) of the first `n` windows after
-    `warm` on the persistent path (the schedule of busy_windows): the sum
-    of window_bound over them."""
+    """(bytes, operations, micro-steps) of the windows of one run from
+    `warm` to t_end = now + n x min latency on the persistent path (the
+    schedule of busy_windows and of check_window's span; at most n
+    windows): the sum of window_bound over them, while the window loop's
+    predicate holds."""
     from shadow1_tpu_torch.core import engine
     st = engine.clone_state(warm)
     t_end = int(st.now) + n * params.min_latency_ns
     b = ops = steps = 0
-    for _ in range(n):
+    while int(st.now) < t_end and min(
+            int(engine._scan_all(st, params, app)[1]),
+            int(engine._outbox_pending(st))) < t_end:
         wb, wo, ws, st = window_bound(st, params, app, t_end, keep=True)
         b, ops, steps = b + wb, ops + wo, steps + ws
     return b, ops, steps
@@ -784,41 +788,61 @@ def check_kernels(state, params, app, dev):
 
 
 def check_window(state, params, app, advance=3, label="kernels: window",
-                 kernel="k_window", plain_reps=7):
+                 kernel="k_window", plain_reps=7, span=None):
     """K_WINDOW (`kernel`) against window_plain on clones of `state`
-    advanced by `advance` windows, at a window boundary: every leaf of the
-    state and t_h / gmin / ws / we / outbox pending must be equal; the
-    plain version is timed over `plain_reps` calls.  Returns ((kernel
-    (device ms, call ms), plain (device ms, call ms)), (bytes, operations)
-    bound, max |kernel - plain|)."""
+    advanced by `advance` windows, at a window boundary: one window
+    (`span` None: max_windows 1, t_target the world's stop time), or the
+    windows of one call to t_target = now + span x min latency (the cap
+    engine._run_windows hands down, which a right predicate never
+    reaches).  Every leaf of the state and t_h / gmin / ws / we / outbox
+    pending / status must be equal; the plain version is timed over
+    `plain_reps` calls.  Returns ((kernel (device ms, call ms), plain
+    (device ms, call ms)), (bytes, operations) bound, max |kernel -
+    plain|)."""
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     params = params.replace(persistent=True)
     for _ in range(advance):
         state = engine.run_until(state, params, app,
                                  int(state.now) + params.min_latency_ns)
+    if span is None:
+        t_target, cap = params.stop_time, 1
+    else:
+        t_target, cap = int(state.now) + span * params.min_latency_ns, span
 
     def args(s=state):
-        return engine.clone_state(s), params, app, params.stop_time
+        return engine.clone_state(s), params, app, t_target, cap
     out_k = mk.window_kernel(*args())
     out_p = mk.window_plain(*args())
     err = require_equal(out_k, out_p, label)
-    b, ops, steps = window_bound(state, params, app, params.stop_time)
+    if span is None:
+        b, ops, steps = window_bound(state, params, app, t_target)
+        windows = 1
+    else:
+        b, ops, steps = windows_bound(state, params, app, span)
+        windows = int(out_k[0].n_windows) - int(state.n_windows)
+        if windows < 5 or int(out_k[2][4]) != 0 or \
+                int(out_k[0].now) != t_target:
+            _fail(f"{label}: {windows} windows to {int(out_k[0].now)} ns "
+                  f"(status {int(out_k[2][4])}) for t_target {t_target}")
     times = (time_call(mk.window_kernel, args, kernel=kernel),
              time_call(mk.window_plain, args, reps=plain_reps))
     (kd, kc), (pd, pc) = times
-    print(f"{label} equal ({steps} micro-steps, window "
+    print(f"{label} equal ({windows} window{'s' * (windows > 1)} in one "
+          f"call, {steps} micro-steps, last window "
           f"{out_k[2][1].item()}..{out_k[2][2].item()} ns); kernel device "
           f"{kd:.4f} ms (call {kc:.4f} ms), plain device {pd:.4f} ms (call "
-          f"{pc:.4f} ms), bound {b} bytes, {ops} operations", flush=True)
+          f"{pc:.4f} ms), bound {b} bytes, {ops} operations "
+          f"({bound_ms(b, ops):.6f} ms)", flush=True)
     return times, (b, ops), err
 
 
-def profile_persistent(warm, params, app, t_end):
+def profile_persistent(warm, params, app, t_end, launches: int):
     """The persistent main path's timed part again, under torch.profiler:
-    K_WINDOW's device time per launch, the device's busy share of the
-    wall time, and the wall per window.  Returns (printable line,
-    K_WINDOW device ms per launch)."""
+    K_WINDOW's device time per launch (`launches` of them, one per
+    run_until call) and per window, the device's busy share of the wall
+    time, and the wall per window.  Returns (printable line, K_WINDOW
+    device ms per launch)."""
     import torch
     from shadow1_tpu_torch.core import engine
     torch.cuda.synchronize()
@@ -833,16 +857,18 @@ def profile_persistent(warm, params, app, t_end):
     dev = [e for e in prof.events() if _on_device(e)]
     kw = [e.time_range.elapsed_us() for e in dev if "k_window" in e.name]
     busy = sum(e.time_range.elapsed_us() for e in dev)
-    if len(kw) != windows:
-        _fail(f"profile: {len(kw)} K_WINDOW kernels for {windows} windows")
+    if len(kw) != launches:
+        _fail(f"profile: {len(kw)} K_WINDOW kernels for {launches} "
+              f"run_until calls ({windows} windows)")
     k_ms = sum(kw) / len(kw) / 1e3
     return (f"profile (persistent): {windows} windows, wall "
             f"{wall_us / 1e3:.1f} ms under the profiler "
-            f"({wall_us / windows / 1e3:.4f} ms per window); K_WINDOW device "
-            f"{k_ms:.4f} ms per launch (min {min(kw) / 1e3:.4f}, max "
-            f"{max(kw) / 1e3:.4f}); device busy {busy / 1e3:.1f} ms "
-            f"({100 * busy / wall_us:.1f} %), {len(dev)} device kernels"), \
-        k_ms
+            f"({wall_us / windows / 1e3:.4f} ms per window); {len(kw)} "
+            f"K_WINDOW launches, device {k_ms:.4f} ms per launch (min "
+            f"{min(kw) / 1e3:.4f}, max {max(kw) / 1e3:.4f}), "
+            f"{sum(kw) / windows / 1e3:.4f} ms per window; device busy "
+            f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f} %), "
+            f"{len(dev)} device kernels"), k_ms
 
 
 def drive(state, params, app, label: str):
@@ -1219,8 +1245,12 @@ def phase_trace(warm, params, app, n: int, host: int = 0,
     from shadow1_tpu_torch.core import megakernel as mk
     buf = torch.zeros(mk.CLK_WORDS, dtype=torch.int64,
                       device=warm.pool.stage.device)
-    mk.set_phase_clocks(buf, host)
     try:
+        # One window first, into a scratch buffer, so that loading the
+        # clocked build is not timed.
+        mk.set_phase_clocks(torch.zeros_like(buf), host)
+        _timed_windows(warm, params, app, 1)
+        mk.set_phase_clocks(buf, host)
         st, wall, ms = _timed_windows(warm, params, app, n)
     finally:
         mk.set_phase_clocks(None)
@@ -1246,17 +1276,23 @@ def phase_trace(warm, params, app, n: int, host: int = 0,
 
 
 def phold_trace(warm, params, app, n: int) -> list:
-    """Phold's K_WINDOW over the first `n` windows after `warm`, traced
-    by phase for two hosts: the one with the most events (sends plus
-    receives) in those windows and the one at the median.  Each traced
-    run's final state must equal the untraced run's.  Returns printable
-    lines."""
+    """Phold's K_WINDOW over the first `n` windows after `warm`: their
+    device time (CUDA events around each K_WINDOW call) against their
+    bound (windows_bound), then traced by phase for two hosts: the one
+    with the most events (sends plus receives) in those windows and the
+    one at the median.  Each traced run's final state must equal the
+    untraced run's.  Returns printable lines."""
     import torch
-    ref, _, _ = _timed_windows(warm, params, app, n)
+    ref, wall, ms = _timed_windows(warm, params, app, n)
+    b, ops, steps = windows_bound(warm, params, app, n)
+    lines = [f"main path (persistent): the first {n} windows ({steps} "
+             f"micro-steps) in {len(ms)} K_WINDOW call(s): device "
+             f"{sum(ms):.4f} ms (CUDA events), wall {wall:.4f} s; they must "
+             f"move {b} bytes and do {ops} operations: bound "
+             f"{bound_ms(b, ops):.6f} ms"]
     ev = (ref.app.sent + ref.app.recv) - (warm.app.sent + warm.app.recv)
     order = torch.argsort(ev, stable=True)
     busiest, typical = int(order[-1]), int(order[len(order) // 2])
-    lines = []
     for host, kind in ((busiest, "most events"), (typical, "median")):
         out, st = phase_trace(warm, params, app, n, host,
                               label="phold phase trace")
@@ -1437,8 +1473,9 @@ def main() -> int:
                                          persistent=False, device=dev)
     state = engine.run_until(state, params, app, WARM_NS)
     times, bounds, errs = check_kernels(state, params, app, dev)
+    check_window(state, params, app, label="kernels: window (one)")
     times["window"], bounds["window"], errs["window"] = check_window(
-        state, params, app)
+        state, params, app, span=BUSY_WINDOWS)
     del state
 
     # f64 log1p of the delay draw on all 2^24 inputs, card vs CPU: the
@@ -1503,16 +1540,21 @@ def main() -> int:
 
     _phase_done("3")
 
-    # ---- 4. main path: the defaults, one K_WINDOW launch per window -----
+    # ---- 4. main path: the defaults, one K_WINDOW launch per run_until --
     state, params, app = sim.build_phold(**BENCH, device=dev)
     if not (params.megakernel and params.persistent):
         _fail("the port's defaults are not megakernel + persistent")
     out, warm, launches, _ = drive(state, params, app, "main path")
-    if launches["window"] != JAX_FINAL["n_windows"] or \
+    # One launch per run_until call with work: the warm-up's, then one per
+    # chunk of run_chunked.
+    chunks = -(-(RUN_NS - WARM_NS) // engine.CHUNK_NS)
+    if launches["window"] != 1 + chunks or \
             any(launches[k] for k in PER_PHASE):
-        _fail(f"main path launches {launches}: want window = "
-              f"{JAX_FINAL['n_windows']} and no per-phase launch")
-    line, window_dev_ms = profile_persistent(warm, params, app, RUN_NS)
+        _fail(f"main path launches {launches}: want window = {1 + chunks} "
+              f"(one per run_until call, for {JAX_FINAL['n_windows']} "
+              f"windows) and no per-phase launch")
+    line, window_dev_ms = profile_persistent(warm, params, app, RUN_NS,
+                                             chunks)
     print(line, flush=True)
     for line in phold_trace(warm, params, app, BUSY_WINDOWS):
         print(line, flush=True)

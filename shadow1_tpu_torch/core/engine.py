@@ -818,10 +818,10 @@ def run_until(state: SimState, params, app, t_target: int) -> SimState:
 
 
 def run_until_impl(state: SimState, params, app, t_target: int) -> SimState:
-    """The window loop on the host.  Per window: exchange, scan, window
-    bounds, then micro-steps while the global next event lies before the
-    window end -- one K_WINDOW call with params.persistent, else the JAX
-    package's per-phase window body."""
+    """The window loop.  Per window: exchange, scan, window bounds, then
+    micro-steps while the global next event lies before the window end --
+    through K_WINDOW with params.persistent (_run_windows), else the JAX
+    package's per-phase window body on the host."""
     from . import megakernel as mk
     check_supported(state, params, app)
     t_target = int(t_target)
@@ -851,16 +851,23 @@ def run_until_impl(state: SimState, params, app, t_target: int) -> SimState:
 
 
 def _run_windows(state: SimState, params, app, t_target: int) -> SimState:
-    """The persistent window loop: one window_call per window and one
-    host read of its (gmin, ws, we, outbox pending, status) vector."""
+    """The persistent window loop: window_call while the predicate holds,
+    and one host read of the (gmin, ws, we, outbox pending, status) vector
+    of each call's last window.  K_WINDOW's UDP kernel runs the windows
+    of the whole call itself (one launch), the TCP kernel one a launch.
+    Each window ends at least min(now + min_latency, t_target), so the
+    cap handed down -- that many windows reach t_target -- binds only
+    when the kernel's predicate is wrong, and then raises."""
     from . import megakernel as mk
     _t_h, gmin = _scan_all(state, params, app)
     now, g = torch.stack([state.now, torch.minimum(
         gmin, _outbox_pending(state))]).tolist()
+    lat = max(1, int(params.min_latency_ns))
     while now < t_target and g < t_target:
-        state, _t_h, win = mk.window_call(state, params, app, t_target)
+        cap = -(-(t_target - now) // lat)
+        state, _t_h, win = mk.window_call(state, params, app, t_target, cap)
         gmin, _ws, now, gout, status = win.tolist()
-        mk.check_window_status(status)
+        mk.check_window_status(status, cap)
         g = min(gmin, gout)
     return state.replace(now=torch.full_like(state.now, t_target))
 

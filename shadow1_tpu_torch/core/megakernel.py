@@ -17,10 +17,11 @@ sm_90a in `csrc/` and built by core/_build.py:
 * window    (csrc/window.cu)    <- window_fused's K_WINDOW,
   megakernel.py:391-424, body engine._window_body_ref: the exchange, the
   scan, the window bounds and the whole micro-step loop with the app's
-  tick as device code, one cooperative launch per window -- k_window for
-  UDP worlds with phold's tick (csrc/phold_tick.cuh), k_window_tcp for
-  TCP worlds with tcp.run_timers (csrc/tcp.cuh) and bulk's tick
-  (csrc/bulk_tick.cuh).  The three phases are one copy of device code
+  tick as device code, as one cooperative launch -- k_window for UDP
+  worlds with phold's tick (csrc/phold_tick.cuh), which also loops the
+  windows of a whole run_until call on the card, and k_window_tcp, one
+  window a launch, for TCP worlds with tcp.run_timers (csrc/tcp.cuh) and
+  bulk's tick (csrc/bulk_tick.cuh).  The three phases are one copy of device code
   (csrc/*.cuh) that the per-phase kernels share.
 
 The TCP kernels of K_DELIVER, K_TRANSPORT and K_WINDOW run one warp per
@@ -37,9 +38,10 @@ and no fallback.  The kernels update the state's tensors in place
 (run_until clones its input once); the plain versions return new
 tensors.  Each wrapper counts its launches in `LAUNCHES`.
 
-With `params.persistent` (the default, as in the JAX package) every
-window is one K_WINDOW launch, for every app with a device tick (Phold
-and Bulk: `app.device_tick`).  Without it, the app tick (and in TCP
+With `params.persistent` (the default, as in the JAX package) the
+windows run through K_WINDOW, for every app with a device tick (Phold
+and Bulk: `app.device_tick`): one launch per run_until call for phold,
+one per window for bulk.  Without it, the app tick (and in TCP
 worlds tcp.run_timers before it) runs between K_DELIVER and K_TRANSPORT
 as plain torch on the state's device, as it runs between the Pallas
 kernels in the JAX per-phase graph.
@@ -63,10 +65,16 @@ INV = engine.INV
 LAUNCHES = {"exchange": 0, "deliver": 0, "transport": 0, "window": 0}
 
 _BLOCK = 256     # threads per block of the per-host kernels
+_WIN_BLOCK = 128  # threads per block of k_window (csrc/window.cu kWinBlock)
 
 # K_WINDOW's micro-step cap per window: far above any real window (the
 # bench world's take ~6); past it the kernel stops and the wrapper raises.
 MAX_STEPS = 1 << 20
+
+# K_WINDOW's status words (the result vector's last word; csrc/window.cu).
+STATUS_STEP_CAP = 1     # a window reached MAX_STEPS micro-steps
+STATUS_WINDOW_CAP = 2   # the launch ran max_windows windows with the
+                        # window loop's predicate still true
 
 
 def _phase(name: str):
@@ -612,15 +620,27 @@ def microstep_fused(state, params, app, t_h, window_end: int, ctx=None):
 # ---------------------------------------------------------------------------
 
 
-def window_plain(state, params, app, t_target):
-    """Plain version: engine._window_body_ref, then the outbox-pending
-    min.  Returns (state, t_h, win) with win = i64[5] (gmin, ws, we,
-    outbox pending, status 0)."""
-    st, t_h, gmin, ws, we = engine._window_body_ref(state, params, app,
-                                                    t_target)
-    win = torch.stack([gmin, ws, we, engine._outbox_pending(st),
-                       torch.zeros_like(gmin)])
-    return st, t_h, win
+def window_plain(state, params, app, t_target, max_windows: int = 1):
+    """Plain version: windows of engine._window_body_ref, each followed
+    by the outbox-pending min -- the first one always, then more while the
+    window loop's predicate holds (now < t_target and min(gmin, outbox
+    pending) < t_target) and fewer than `max_windows` have run.  Returns
+    (state, t_h, win) with win = i64[5], the last window's (gmin, ws, we,
+    outbox pending) and the status: STATUS_WINDOW_CAP when it stopped at
+    `max_windows` with the predicate true, else 0."""
+    if max_windows < 1:
+        raise ValueError(f"max_windows must be at least 1, not {max_windows}")
+    t_target = int(t_target)
+    for _ in range(max_windows):
+        state, t_h, gmin, ws, we = engine._window_body_ref(state, params,
+                                                           app, t_target)
+        pend = engine._outbox_pending(state)
+        more = int(we) < t_target and min(int(gmin), int(pend)) < t_target
+        if not more:
+            break
+    status = STATUS_WINDOW_CAP if more else 0
+    win = torch.stack([gmin, ws, we, pend, torch.full_like(gmin, status)])
+    return state, t_h, win
 
 
 class _ExchangeArgs(ctypes.Structure):
@@ -655,8 +675,8 @@ class _WindowArgs(ctypes.Structure):
             "t_h", "part_min", "part_ev", "part_err", "now", "n_windows",
             "win", "em_valid", "em_blk", "acks_thinned", "clk")] + [
         ("t_target", ctypes.c_int64), ("min_latency", ctypes.c_int64),
-        ("max_steps", ctypes.c_int64), ("n_blocks", ctypes.c_int32),
-        ("clk_host", ctypes.c_int32)]
+        ("max_steps", ctypes.c_int64), ("max_windows", ctypes.c_int64),
+        ("n_blocks", ctypes.c_int32), ("clk_host", ctypes.c_int32)]
 
 
 # K_WINDOW's phase trace: while `buf` is set, windows launch the clocked
@@ -682,9 +702,10 @@ def _window_grid(lib, h: int, tcp: bool) -> int:
     """Blocks of K_WINDOW's cooperative grid for h hosts: what the card
     keeps resident (blocks per SM from the occupancy query, times SMs;
     cached per device, library and kernel), and no more blocks than the
-    hosts fill -- one thread per host for k_window, one warp per host for
-    k_window_tcp.  The kernels walk hosts grid-stride, so any h runs.
-    Raises if the card cannot launch the kernel cooperatively."""
+    hosts fill -- one thread per host for k_window (_WIN_BLOCK hosts a
+    block), one warp per host for k_window_tcp (_BLOCK // 32).  The
+    kernels walk hosts grid-stride, so any h runs.  Raises if the card
+    cannot launch the kernel cooperatively."""
     key = (torch.cuda.current_device(), id(lib), tcp)
     if key not in _OCCUPANCY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
@@ -696,7 +717,7 @@ def _window_grid(lib, h: int, tcp: bool) -> int:
                                "not fit on one SM)")
         _raise_on(rc, "window (occupancy query)")
         _OCCUPANCY[key] = per_sm.value * sms.value
-    per_block = _BLOCK // 32 if tcp else _BLOCK
+    per_block = _BLOCK // 32 if tcp else _WIN_BLOCK
     return min(-(-h // per_block), _OCCUPANCY[key])
 
 
@@ -737,14 +758,19 @@ def _bulk_struct(state, app) -> _BulkArgs:
 _DEVICE_TICKS = {"phold": False, "bulk": True}
 
 
-def window_kernel(state, params, app, t_target):
-    """Launch csrc/window.cu: one whole window (exchange, scan, bounds,
-    the micro-step loop with the app's tick on the card; in TCP worlds
+def window_kernel(state, params, app, t_target, max_windows: int = 1):
+    """Launch csrc/window.cu: whole windows (exchange, scan, bounds, the
+    micro-step loop with the app's tick on the card; in TCP worlds
     run_timers and the TCP machine too) as one cooperative kernel --
-    k_window for phold, k_window_tcp for bulk.  Updates the state's
-    tensors in place; returns (state, t_h, win) with win = i64[5] (gmin,
-    ws, we, outbox pending, status) on the card."""
+    k_window for phold, which runs windows as window_plain does (the
+    first always, then while the window loop's predicate holds, at most
+    `max_windows`), k_window_tcp for bulk, which runs one window whatever
+    `max_windows` is.  Updates the state's tensors in place; returns
+    (state, t_h, win) with win = i64[5] (the last window's gmin, ws, we,
+    outbox pending, and the status) on the card."""
     from . import _build
+    if max_windows < 1:
+        raise ValueError(f"max_windows must be at least 1, not {max_windows}")
     tick = getattr(app, "device_tick", None)
     if tick not in _DEVICE_TICKS:
         raise NotImplementedError(
@@ -810,7 +836,7 @@ def window_kernel(state, params, app, t_target):
         win=_addr(win), em_valid=_addr(em.valid), em_blk=_addr(em.blk),
         acks_thinned=_addr(hosts.acks_thinned), clk=_addr(clk),
         t_target=int(t_target), min_latency=params.min_latency_ns,
-        max_steps=MAX_STEPS, n_blocks=grid,
+        max_steps=MAX_STEPS, max_windows=int(max_windows), n_blocks=grid,
         clk_host=_PHASE_CLOCKS["host"])
     launch = lib.window_tcp_launch if tcp_on else lib.window_launch
     _raise_on(launch(ctypes.byref(args), _stream()), "window")
@@ -818,28 +844,43 @@ def window_kernel(state, params, app, t_target):
     return state, t_h, win
 
 
-def window_call(state, params, app, t_target):
-    """One window: K_WINDOW on a CUDA tensor, the plain version on the
+def window_call(state, params, app, t_target, max_windows: int = 1):
+    """Windows toward t_target (at most `max_windows`; see
+    window_kernel): K_WINDOW on a CUDA tensor, the plain version on the
     CPU.  Returns (state, t_h, win); the caller reads `win` once and
-    passes its status to `check_window_status`."""
+    checks its status."""
     if _on_cuda(state.pool.stage):
-        return window_kernel(state, params, app, t_target)
-    return window_plain(state, params, app, t_target)
+        return window_kernel(state, params, app, t_target, max_windows)
+    return window_plain(state, params, app, t_target, max_windows)
 
 
-def check_window_status(status: int) -> None:
-    if int(status) != 0:
+def check_window_status(status: int, max_windows: int | None = None) -> None:
+    """Raises on a status word K_WINDOW sets when it stops at a cap:
+    STATUS_STEP_CAP, or STATUS_WINDOW_CAP (`max_windows` is the cap the
+    launch was given)."""
+    status = int(status)
+    if status == STATUS_STEP_CAP:
         raise RuntimeError(
             f"K_WINDOW stopped at its cap of {MAX_STEPS} micro-steps in one "
-            f"window (status {int(status)}): the loop predicate never "
-            f"turned false")
+            f"window (status {status}): the micro-step loop's predicate "
+            f"never turned false")
+    if status == STATUS_WINDOW_CAP:
+        raise RuntimeError(
+            f"K_WINDOW stopped at its cap of {max_windows} windows in one "
+            f"launch (status {status}): the window loop's predicate did not "
+            f"turn false by then")
+    if status != 0:
+        raise RuntimeError(f"K_WINDOW returned an unknown status {status}")
 
 
 def window_fused(state, params, app, t_target):
     """One whole window (the JAX window_fused): returns (state, t_h,
-    gmin, ws, we), the scalars as 0-d tensors."""
-    state, t_h, win = window_call(state, params, app, t_target)
-    check_window_status(win[4])
+    gmin, ws, we), the scalars as 0-d tensors.  A stop at its one-window
+    cap is the window asked for."""
+    state, t_h, win = window_call(state, params, app, t_target, 1)
+    status = int(win[4])
+    if status != STATUS_WINDOW_CAP:
+        check_window_status(status, 1)
     return state, t_h, win[0], win[1], win[2]
 
 

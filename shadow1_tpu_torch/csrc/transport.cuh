@@ -106,17 +106,18 @@ __device__ __forceinline__ int64_t scan_host(const TransportArgs& a,
 
 // Fixed-order tree reduction of one block's (event sum, th min, error
 // OR) partials; thread 0 gets the block's totals.  Every thread of the
-// block (kBlock of them) must call it.
+// block (B of them, a power of two) must call it.
+template <int B = kBlock>
 __device__ __forceinline__ HostOut block_reduce(HostOut o) {
-  __shared__ int64_t s_ev[kBlock];
-  __shared__ int64_t s_min[kBlock];
-  __shared__ int32_t s_err[kBlock];
+  __shared__ int64_t s_ev[B];
+  __shared__ int64_t s_min[B];
+  __shared__ int32_t s_err[B];
   const int t = threadIdx.x;
   s_ev[t] = o.events;
   s_min[t] = o.th;
   s_err[t] = o.err;
   __syncthreads();
-  for (int s = kBlock / 2; s > 0; s >>= 1) {
+  for (int s = B / 2; s > 0; s >>= 1) {
     if (t < s) {
       s_ev[t] += s_ev[t + s];
       s_min[t] = imin(s_min[t], s_min[t + s]);

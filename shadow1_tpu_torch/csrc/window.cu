@@ -9,7 +9,7 @@
 // tcp.run_timers, the app tick, K_TRANSPORT's body), then the window
 // close (now = we, n_windows + 1).  It also emits the earliest outbox
 // arrival still awaiting the next exchange (engine._outbox_pending), so
-// the host's window loop reads one small vector per window and nothing
+// the host's window loop reads one small vector per launch and nothing
 // per micro-step.  Two kernels: k_window for UDP worlds with phold's tick
 // (phold_tick.cuh), k_window_tcp for TCP worlds with bulk's tick
 // (bulk_tick.cuh) and the TCP machine (tcp.cuh).  They share the window's
@@ -30,25 +30,43 @@
 //     staging rows go through a scratch tensor, written and read by that
 //     team only), then each block folds its (th min, event sum, error
 //     OR) by a fixed tree and publishes it; after one grid sync every
-//     block folds all partials in block order, so every block computes
-//     the same gmin and the loop predicate is uniform.  Partials are
-//     double-buffered by step parity, so one barrier per micro-step
-//     suffices;
-//   * the window close: the outbox-pending min over the pool, folded by
-//     block 0, which writes the state scalars and the result vector.
-// Integer min/sum/OR do not depend on order, so the results equal the
-// reference's.  The loop carries a step cap from the wrapper, far above
-// any real window: past it the kernel sets a status word and exits, so a
-// wrong predicate fails the run instead of hanging the card.
+//     block folds all partials (one warp, strided, then a shuffle tree),
+//     so every block computes the same gmin and the loop predicate is
+//     uniform;
+//   * the window close: the outbox-pending min over the pool, published
+//     and folded the same way by every block; block 0 writes the state
+//     scalars and the result vector.
+// The partials are double-buffered: every publish -- the window's
+// opening, each micro-step, the window's close -- flips one parity bit
+// carried through the whole launch.  A block folds parity p right after
+// the barrier that follows its publish; the next publish into p comes two
+// publishes later, after the next barrier, which no block passes before
+// every block has finished that fold.  So one barrier per publish
+// suffices, across windows too.  Integer min/sum/OR do not depend on
+// order, so the results equal the reference's.  The loop carries a step
+// cap from the wrapper, far above any real window: past it the kernel
+// sets status 1 and exits, so a wrong predicate fails the run instead of
+// hanging the card.
 //
-// Both grids are sized from the occupancy query (the wrapper's
-// window_occupancy), never refused for H: hosts are walked with
-// grid-stride loops, so any number of hosts runs.
+// UDP (k_window): the window loop runs on the card.  After each window
+// every block has the same gmin, outbox pending and `now` (carried in a
+// register: the window's end, which block 0 also writes to the state), so
+// the launch goes on to the next window while engine._run_windows'
+// predicate holds -- now < t_target and min(gmin, outbox pending) <
+// t_target, the JAX window_cond -- and fewer than `max_windows` windows
+// have run (then status 2 if the predicate still holds).  One launch thus
+// runs a whole run_until call: the same windows, micro-steps and
+// n_windows as one launch per window.  The scratch each window reuses is
+// rewritten by the window before it is read: the exchange's counts and
+// fill cursors zeroed, its bucket starts and lists written by the scan
+// and bucket passes, every host's t_h by the scan and its staging lanes
+// by its tick.  One thread per host (the Solo team) in blocks of
+// kWinBlock = 128 threads: at the bench world (16,384 hosts) the grid is
+// 128 blocks, one on each of 128 of the card's 132 SMs (256-thread blocks
+// filled only 64).  A micro-step has no barrier inside it.
 //
-// UDP (k_window): one thread per host (the Solo team); a micro-step has
-// no barrier inside it.
-//
-// TCP (k_window_tcp): one warp per host (the Warp team, common.cuh),
+// TCP (k_window_tcp): one window a launch.  One warp per host (the Warp
+// team, common.cuh),
 // hosts walked warp-stride.  A host's slab and socket walks -- the router
 // enqueue, each round's candidate pick, the socket match, the timer pick,
 // transmit's eligibility, the sink, the free-slot count, the staging
@@ -73,14 +91,20 @@
 // __launch_bounds__(256, 2) (ptxas: chip_smoke.py prints registers and
 // spills).
 //
+// Both grids are sized from the occupancy query (the wrapper's
+// window_occupancy), never refused for H: hosts are walked with
+// grid-stride loops, so any number of hosts runs.
+//
 // What bounds it on the H100: bytes.  Per window it must move what the
 // exchange, each micro-step's phases and the tick touch -- the pool's
 // stage column, the movers' rows, each active host's slabs, host row,
 // sockets and app state, and the rows staged -- a few MB at the bench
 // world (chip_smoke.py counts it per window from the run's data), a few
-// microseconds of HBM time.  The serialising grid barriers (rx_batch + 1
-// a micro-step in TCP worlds) and, in the bulk world, the server's serial
-// TCP machine (up to rx_batch arrivals a step) set the time.
+// microseconds of HBM time.  The chains of dependent loads in each
+// host's walks and the serialising grid barriers (one a micro-step in
+// UDP worlds, rx_batch + 1 in TCP worlds) and, in the bulk world, the
+// server's serial TCP machine (up to rx_batch arrivals a step) set the
+// time.
 #include <cooperative_groups.h>
 
 #include "bulk_tick.cuh"
@@ -104,7 +128,7 @@ struct WindowArgs {
   TcpArgs tcp;
   BulkArgs b;
   int64_t* t_h;        // [h] out: per-host next event time
-  int64_t* part_min;   // [2 * n_blocks] block partials, by step parity
+  int64_t* part_min;   // [2 * n_blocks] block partials, by parity
   int64_t* part_ev;    // [2 * n_blocks]
   int32_t* part_err;   // [2 * n_blocks]
   int64_t* now;        // state scalars
@@ -116,15 +140,26 @@ struct WindowArgs {
   long long* clk;      // [CLK_WORDS] phase cycles (S1_PHASE_CLOCKS builds)
   int64_t t_target;
   int64_t min_latency;
-  int64_t max_steps;
+  int64_t max_steps;   // micro-steps of one window (status 1 past it)
+  int64_t max_windows; // windows of one launch (k_window; status 2 at it)
   int32_t n_blocks;
   int32_t clk_host;    // the host whose phases are traced
 };
 
+// Status words of the result vector (megakernel.py check_window_status).
+constexpr int64_t STATUS_STEP_CAP = 1;
+constexpr int64_t STATUS_WINDOW_CAP = 2;
+
+constexpr int kWinBlock = 128;   // threads per block of k_window
+
 namespace {
 
-__device__ __forceinline__ void publish(const WindowArgs& a, int buf,
-                                        const HostOut& b) {
+// Flips the parity and publishes this block's partials into it.
+template <int B>
+__device__ __forceinline__ void publish(const WindowArgs& a, int& buf,
+                                        const HostOut& o) {
+  const HostOut b = block_reduce<B>(o);
+  buf ^= 1;
   if (threadIdx.x == 0) {
     const int64_t i = (int64_t)buf * a.n_blocks + blockIdx.x;
     a.part_min[i] = b.th;
@@ -133,29 +168,46 @@ __device__ __forceinline__ void publish(const WindowArgs& a, int buf,
   }
 }
 
-// Every block's partials of parity `buf`, folded in block order; all
+// Every block's partials of parity `buf`, folded by the block's first
+// warp (lane l takes blocks l, l + 32, ..., then a shuffle tree); all
 // threads of the calling block get the result.
 __device__ __forceinline__ HostOut fold(const WindowArgs& a, int buf) {
   __shared__ int64_t s_min, s_ev;
   __shared__ int32_t s_err;
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < Warp::W) {
+    const Warp w{};
     int64_t mn = INV, ev = 0;
     int32_t er = 0;
     const int64_t off = (int64_t)buf * a.n_blocks;
-    for (int b = 0; b < a.n_blocks; ++b) {
+    for (int b = w.lane(); b < a.n_blocks; b += Warp::W) {
       // L2 loads: the partials were written by other blocks.
       mn = imin(mn, __ldcg((const long long*)a.part_min + off + b));
       ev += __ldcg((const long long*)a.part_ev + off + b);
       er |= __ldcg(a.part_err + off + b);
     }
-    s_min = mn;
-    s_ev = ev;
-    s_err = er;
+    mn = w.min64(mn);
+    ev = w.sum64(ev);
+    er = w.or32(er);
+    if (w.leader()) {
+      s_min = mn;
+      s_ev = ev;
+      s_err = er;
+    }
   }
   __syncthreads();
   const HostOut r{s_min, s_ev, s_err};
   __syncthreads();
   return r;
+}
+
+// Publish, one grid sync, fold: every block gets the grid's totals.
+template <int B>
+__device__ __forceinline__ HostOut all_reduce(const WindowArgs& a,
+                                              cg::grid_group& grid, int& buf,
+                                              const HostOut& o) {
+  publish<B>(a, buf, o);
+  grid.sync();
+  return fold(a, buf);
 }
 
 // The app policies of the two kernels: the app's wake time after its
@@ -190,17 +242,18 @@ struct BulkTick {
 
 // The boundary exchange, its drop accounting (pure ACKs shed first in
 // TCP worlds: engine._exchange_tail), the per-window scan and the window
-// bounds.  Returns gmin; every block gets the same values.  The exchange
-// is one thread per destination; with a Solo `Team` each destination's
-// thread then scans its host, with Warp a grid sync parts the exchange
-// from a scan on one warp per host.
-template <class Tick, class Team>
+// bounds from `now`.  Returns gmin; every block gets the same values.  The
+// exchange is one thread per destination; with a Solo `Team` each
+// destination's thread then scans its host, with Warp a grid sync parts
+// the exchange from a scan on one warp per host.  B is the block size.
+template <class Tick, class Team, int B>
 __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
                                                cg::grid_group& grid,
+                                               int& buf, int64_t now,
                                                int64_t& ws, int64_t& we) {
   const int h = a.x.h;
-  const int64_t gtid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
-  const int64_t gstride = (int64_t)gridDim.x * kBlock;
+  const int64_t gtid = (int64_t)blockIdx.x * B + threadIdx.x;
+  const int64_t gstride = (int64_t)gridDim.x * B;
   for (int64_t d = gtid; d < h; d += gstride) {
     a.x.cnt[d] = 0;
     a.x.fill[d] = 0;
@@ -247,24 +300,20 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
       o.th = imin(o.th, th);
     }
   }
-  publish(a, 0, block_reduce(o));
-  grid.sync();
-  const HostOut g = fold(a, 0);
-  ws = imax(*a.now, g.th);
+  const HostOut g = all_reduce<B>(a, grid, buf, o);
+  ws = imax(now, g.th);
   we = imin(ws + a.min_latency, a.t_target);
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.t.err |= g.err;
   return g.th;
 }
 
-// A micro-step's end: the block partials of parity `buf` published and
-// folded after one grid sync; block 0 advances the state scalars.
-// Returns the new gmin.
+// A micro-step's end: the block partials reduced over the grid; block 0
+// advances the state scalars.  Returns the new gmin.
+template <int B>
 __device__ __forceinline__ int64_t step_close(const WindowArgs& a,
-                                              cg::grid_group& grid, int buf,
+                                              cg::grid_group& grid, int& buf,
                                               const HostOut& s) {
-  publish(a, buf, block_reduce(s));
-  grid.sync();
-  const HostOut g = fold(a, buf);
+  const HostOut g = all_reduce<B>(a, grid, buf, s);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *a.t.n_events += g.events;
     *a.t.n_steps += 1;
@@ -273,90 +322,109 @@ __device__ __forceinline__ int64_t step_close(const WindowArgs& a,
   return g.th;
 }
 
-// The window close: outbox pending, state scalars, result vector.
-__device__ __forceinline__ void window_close(const WindowArgs& a,
-                                             cg::grid_group& grid, int buf,
-                                             int64_t gmin, int64_t ws,
-                                             int64_t we, int64_t status) {
-  const int64_t gtid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
-  const int64_t gstride = (int64_t)gridDim.x * kBlock;
-  buf ^= 1;
+// The window close: the outbox pending reduced over the grid (returned
+// to every block), the state scalars and the result vector's first four
+// words.
+template <int B>
+__device__ __forceinline__ int64_t window_close(const WindowArgs& a,
+                                                cg::grid_group& grid,
+                                                int& buf, int64_t gmin,
+                                                int64_t ws, int64_t we) {
+  const int64_t gtid = (int64_t)blockIdx.x * B + threadIdx.x;
+  const int64_t gstride = (int64_t)gridDim.x * B;
   HostOut q{INV, 0, 0};
   for (int64_t i = gtid; i < a.x.p0; i += gstride) {
     if (a.x.pool_stage[i] == STAGE_IN_FLIGHT)
       q.th = imin(q.th, a.x.pool_time[i]);
   }
-  publish(a, buf, block_reduce(q));
-  grid.sync();
-  if (blockIdx.x == 0) {
-    const HostOut p = fold(a, buf);
-    if (threadIdx.x == 0) {
-      *a.now = we;
-      *a.n_windows += 1;
-      a.win[0] = gmin;
-      a.win[1] = ws;
-      a.win[2] = we;
-      a.win[3] = p.th;
-      a.win[4] = status;
-    }
+  const int64_t pend = all_reduce<B>(a, grid, buf, q).th;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.now = we;
+    *a.n_windows += 1;
+    a.win[0] = gmin;
+    a.win[1] = ws;
+    a.win[2] = we;
+    a.win[3] = pend;
   }
+  return pend;
 }
 
-__global__ void __launch_bounds__(kBlock) k_window(WindowArgs a) {
+__device__ __forceinline__ void write_status(const WindowArgs& a,
+                                             int64_t status) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.win[4] = status;
+}
+
+__global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
   cg::grid_group grid = cg::this_grid();
   const int h = a.x.h;
   const int e = a.t.e, pc = a.t.pc;
-  const int64_t gtid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
-  const int64_t gstride = (int64_t)gridDim.x * kBlock;
+  const int64_t gtid = (int64_t)blockIdx.x * kWinBlock + threadIdx.x;
+  const int64_t gstride = (int64_t)gridDim.x * kWinBlock;
   const Solo tm{};
   // The thread that runs host a.clk_host (and every host of its stride).
   Clk clk = make_clk(a.clk, a.clk_host >= 0 && a.clk_host < h &&
                                 gtid == a.clk_host % gstride);
   clk.start();
-  int64_t ws, we;
-  int64_t gmin = window_open<PholdTick, Solo>(a, grid, ws, we);
-  clk.mark(CLK_OPEN);
-
+  // Every block reads the state's `now` before its first barrier; block 0
+  // rewrites it at each window's close, after several.
+  int64_t now = *a.now;
   int buf = 0;
-  int64_t steps = 0;
+  int64_t windows = 0;
   int64_t status = 0;
-  while (gmin < we) {                  // gmin is the same in every block
-    if (steps == a.max_steps) {
-      status = 1;
+  for (;;) {
+    int64_t ws, we;
+    int64_t gmin =
+        window_open<PholdTick, Solo, kWinBlock>(a, grid, buf, now, ws, we);
+    clk.mark(CLK_OPEN);
+    int64_t steps = 0;
+    while (gmin < we) {                // gmin is the same in every block
+      if (steps == a.max_steps) {
+        status = STATUS_STEP_CAP;
+        break;
+      }
+      HostOut s{INV, 0, 0};
+      for (int64_t i = gtid; i < h; i += gstride) {
+        const int hh = (int)i;
+        // Tick setup: re-arm the resume time of active hosts only.
+        const int64_t th0 = a.t_h[hh];
+        const bool act = th0 < we;
+        const int64_t tick = act ? th0 : we;
+        if (act) a.d.t_resume[hh] = INV;
+        const int64_t aux0 = PholdTick::aux(a, tm, hh);
+        clk.mark(CLK_SETUP);
+        const DeliverOut dl = deliver_host(a.d, tm, hh, tick, act, aux0, we,
+                                           clk);
+        phold_tick(a.p, a.d, hh, dl.t_post, act, we,
+                   a.em_valid + (int64_t)hh * e,
+                   a.em_blk + (int64_t)hh * e * pc, e, pc);
+        clk.mark(CLK_TICK);
+        const HostOut t = transport_host(a.t, tm, nullptr, hh, tick,
+                                         dl.t_post, act, dl.delivered,
+                                         PholdTick::next(a, hh), clk);
+        a.t_h[hh] = t.th;
+        s.th = imin(s.th, t.th);
+        s.events += t.events;
+        s.err |= t.err;
+      }
+      gmin = step_close<kWinBlock>(a, grid, buf, s);
+      clk.mark(CLK_CLOSE);
+      clk.count_step();
+      ++steps;
+    }
+    const int64_t pend = window_close<kWinBlock>(a, grid, buf, gmin, ws, we);
+    clk.mark(CLK_WCLOSE);
+    now = we;
+    ++windows;
+    // The window loop's predicate (engine._run_windows, the JAX
+    // window_cond), the same in every block.
+    if (status != 0 || now >= a.t_target || imin(gmin, pend) >= a.t_target)
+      break;
+    if (windows == a.max_windows) {
+      status = STATUS_WINDOW_CAP;
       break;
     }
-    buf ^= 1;
-    HostOut s{INV, 0, 0};
-    for (int64_t i = gtid; i < h; i += gstride) {
-      const int hh = (int)i;
-      // Tick setup: re-arm the resume time of active hosts only.
-      const int64_t th0 = a.t_h[hh];
-      const bool act = th0 < we;
-      const int64_t tick = act ? th0 : we;
-      if (act) a.d.t_resume[hh] = INV;
-      const int64_t aux0 = PholdTick::aux(a, tm, hh);
-      clk.mark(CLK_SETUP);
-      const DeliverOut dl = deliver_host(a.d, tm, hh, tick, act, aux0, we,
-                                         clk);
-      phold_tick(a.p, a.d, hh, dl.t_post, act, we,
-                 a.em_valid + (int64_t)hh * e,
-                 a.em_blk + (int64_t)hh * e * pc, e, pc);
-      clk.mark(CLK_TICK);
-      const HostOut t = transport_host(a.t, tm, nullptr, hh, tick, dl.t_post,
-                                       act, dl.delivered,
-                                       PholdTick::next(a, hh), clk);
-      a.t_h[hh] = t.th;
-      s.th = imin(s.th, t.th);
-      s.events += t.events;
-      s.err |= t.err;
-    }
-    gmin = step_close(a, grid, buf, s);
-    clk.mark(CLK_CLOSE);
-    clk.count_step();
-    ++steps;
   }
-  window_close(a, grid, buf, gmin, ws, we, status);
-  clk.mark(CLK_WCLOSE);
+  write_status(a, status);
 }
 
 // The TCP window: one warp per host, every thread through every barrier
@@ -377,26 +445,29 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
   Clk no_clk = make_clk(nullptr, false);
   clk.start();
   for (int64_t i = gtid; i < 2 * rb; i += gstride) gates[i] = 0;
+  int buf = 0;
   int64_t ws, we;
-  int64_t gmin = window_open<Tick, Warp>(a, grid, ws, we);
+  int64_t gmin = window_open<Tick, Warp, kBlock>(a, grid, buf, *a.now, ws,
+                                                 we);
   clk.mark(CLK_OPEN);
 
-  int buf = 0;
   int64_t steps = 0;
   int64_t status = 0;
   while (gmin < we) {                  // gmin is the same in every block
     if (steps == a.max_steps) {
-      status = 1;
+      status = STATUS_STEP_CAP;
       break;
     }
-    buf ^= 1;
-    // The other parity's words were last read before the previous step's
-    // closing barrier and are next written after this step's.
+    // The step's gate words: parity `g`, the one the step's closing
+    // publish takes.  The other parity's words were last read before the
+    // previous step's closing barrier and are next written after this
+    // step's.
+    const int g = buf ^ 1;
     if (gtid == 0)
-      for (int r = 0; r < rb; ++r) gates[(buf ^ 1) * rb + r] = 0;
+      for (int r = 0; r < rb; ++r) gates[(g ^ 1) * rb + r] = 0;
     HostOut s{INV, 0, 0};
     const int32_t sock_err = deliver_tcp_warps(
-        a.d, a.tcp, gates + buf * rb, we, clk, a.clk_host,
+        a.d, a.tcp, gates + g * rb, we, clk, a.clk_host,
         [&](int hh, int64_t& tick, bool& act, int64_t& aux0) {
           // Tick setup: re-arm the resume time of active hosts only; the
           // rx_batch bound is the aux term after the re-arm.
@@ -427,13 +498,14 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
         });
     s.err |= sock_err;
     clk.start();
-    gmin = step_close(a, grid, buf, s);
+    gmin = step_close<kBlock>(a, grid, buf, s);
     clk.mark(CLK_CLOSE);
     clk.count_step();
     ++steps;
   }
   clk.start();
-  window_close(a, grid, buf, gmin, ws, we, status);
+  window_close<kBlock>(a, grid, buf, gmin, ws, we);
+  write_status(a, status);
   clk.mark(CLK_WCLOSE);
 }
 
@@ -458,7 +530,7 @@ extern "C" int window_occupancy(int tcp, int* per_sm, int* sms) {
     e = tcp ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                   per_sm, k_window_tcp, kBlock, 0)
             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                  per_sm, k_window, kBlock, 0);
+                  per_sm, k_window, kWinBlock, 0);
   if (e != cudaSuccess) return (int)e;
   return (!coop || *per_sm < 1) ? -1 : 0;
 }
@@ -466,8 +538,9 @@ extern "C" int window_occupancy(int tcp, int* per_sm, int* sms) {
 extern "C" int window_launch(const WindowArgs* args, void* stream) {
   void* params[] = {(void*)args};
   return (int)cudaLaunchCooperativeKernel((const void*)k_window,
-                                          dim3(args->n_blocks), dim3(kBlock),
-                                          params, 0, (cudaStream_t)stream);
+                                          dim3(args->n_blocks),
+                                          dim3(kWinBlock), params, 0,
+                                          (cudaStream_t)stream);
 }
 
 extern "C" int window_tcp_launch(const WindowArgs* args, void* stream) {

@@ -234,9 +234,9 @@ def test_pairs_run_equals_jax(persistent):
 def test_tcp_window_grid_follows_occupancy(monkeypatch, h):
     """K_WINDOW's grid is what the card keeps resident (blocks per SM
     from the occupancy query, times SMs), no more blocks than the hosts
-    fill (one warp per host in k_window_tcp, one thread per host in
-    k_window), and the kernels walk hosts grid-stride: no host count is
-    refused."""
+    fill (one warp per host in k_window_tcp's 256-thread blocks, one
+    thread per host in k_window's 128-thread blocks), and the kernels
+    walk hosts grid-stride: no host count is refused."""
     class Lib:
         @staticmethod
         def window_occupancy(tcp, per_sm, sms):
@@ -247,7 +247,7 @@ def test_tcp_window_grid_follows_occupancy(monkeypatch, h):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(tmk, "_OCCUPANCY", {})
     assert tmk._window_grid(Lib, h, True) == min(-(-h // 8), 2 * 132)
-    assert tmk._window_grid(Lib, h, False) == min(-(-h // 256), 4 * 132)
+    assert tmk._window_grid(Lib, h, False) == min(-(-h // 128), 4 * 132)
 
 
 @pytest.mark.parametrize("h", [100, 40_000])
