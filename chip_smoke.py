@@ -1225,7 +1225,9 @@ def busy_windows(warm, params, app, n: int | None):
 
 
 # K_WINDOW's traced phases (csrc/common.cuh ClkPhase), in kernel order.
-CLK_PHASES = [(0, "window open"), (25, "tick setup"),
+CLK_PHASES = [(27, "open: zero + count"), (28, "open: scan"),
+              (29, "open: bucket"), (30, "open: place (+ host scan)"),
+              (0, "open: rest (scan, fold)"), (25, "tick setup"),
               (1, "router enqueue")] + [
     (2 + 4 * r + i, f"round {r} {part}") for r in range(4)
     for i, part in enumerate(("select/NIC", "begin", "gate", "finish"))] + [
@@ -1473,9 +1475,10 @@ def main() -> int:
                                          persistent=False, device=dev)
     state = engine.run_until(state, params, app, WARM_NS)
     times, bounds, errs = check_kernels(state, params, app, dev)
-    check_window(state, params, app, label="kernels: window (one)")
+    check_window(state, params, app, label="kernels: window (one)",
+                 plain_reps=1)
     times["window"], bounds["window"], errs["window"] = check_window(
-        state, params, app, span=BUSY_WINDOWS)
+        state, params, app, span=BUSY_WINDOWS, plain_reps=1)
     del state
 
     # f64 log1p of the delay draw on all 2^24 inputs, card vs CPU: the

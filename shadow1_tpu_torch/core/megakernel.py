@@ -765,7 +765,7 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
     k_window for phold, which runs windows as window_plain does (the
     first always, then while the window loop's predicate holds, at most
     `max_windows`), k_window_tcp for bulk, which runs one window whatever
-    `max_windows` is.  Updates the state's tensors in place; returns
+    `max_windows` is (and so equals window_plain when it is 1).  Updates the state's tensors in place; returns
     (state, t_h, win) with win = i64[5] (the last window's gmin, ws, we,
     outbox pending, and the status) on the card."""
     from . import _build

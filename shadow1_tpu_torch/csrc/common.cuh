@@ -50,8 +50,11 @@ constexpr int64_t ONE_MS = 1000000LL;
 // its own, "window_clk"; the normal build carries none of it).  One
 // thread -- the thread (k_window) or lane 0 of the warp (k_window_tcp)
 // that runs the traced host -- adds the clock64() cycles since its
-// previous mark to acc[phase].  Phases: the window's opening (exchange,
-// scan, fold), the tick setup (k_window), the router enqueue, per
+// previous mark to acc[phase].  Phases: the window's opening -- the
+// exchange's zeroing and count pass, its scan (block 0), its bucket pass,
+// its placement (with k_window's host scan), then the rest of the opening
+// (the host scan of k_window_tcp, the fold) -- the tick setup (k_window),
+// the router enqueue, per
 // delivery round r (at most 4 traced) its select/NIC, begin, gate and
 // finish, the receive state's write-back (k_window), then run_timers,
 // the app tick, transmit and staging, the TX drain, the post-step scan,
@@ -62,7 +65,8 @@ enum ClkPhase {
   CLK_SELECT = 0, CLK_BEGIN = 1, CLK_GATE = 2, CLK_FINISH = 3,
   CLK_TIMERS = 18, CLK_TICK = 19, CLK_TRANSMIT = 20, CLK_DRAIN = 21,
   CLK_SCAN = 22, CLK_CLOSE = 23, CLK_WCLOSE = 24, CLK_SETUP = 25,
-  CLK_RXCLOSE = 26, CLK_STEPS = 31, CLK_WORDS = 32
+  CLK_RXCLOSE = 26, CLK_EX_COUNT = 27, CLK_EX_SCAN = 28, CLK_EX_BUCKET = 29,
+  CLK_EX_PLACE = 30, CLK_STEPS = 31, CLK_WORDS = 32
 };
 
 struct Clk {
@@ -240,6 +244,40 @@ struct Warp {
     }
   }
 };
+
+// Calls f(k, stage[k]) for every slot k < n of a slab, in ascending k on
+// each lane.  The Warp team strides its lanes over the slab (coalesced
+// loads).  The Solo team reads the stage words eight at a time -- two
+// 16-byte loads where the eight are whole and aligned -- before the eight
+// calls, so one load latency serves them and the rows the calls read for
+// live slots are all in flight at once; a call may write its own slot's
+// stage (each word is read before its call).
+template <class Team, class F>
+__device__ __forceinline__ void each_slot(const Team& tm,
+                                          const int32_t* stage, int n,
+                                          const F& f) {
+  if constexpr (Team::W == 1) {
+    for (int k0 = 0; k0 < n; k0 += 8) {
+      int32_t s[8];
+      if (k0 + 8 <= n &&
+          (reinterpret_cast<uintptr_t>(stage + k0) & 15u) == 0) {
+        const int4 lo = *reinterpret_cast<const int4*>(stage + k0);
+        const int4 hi = *reinterpret_cast<const int4*>(stage + k0 + 4);
+        s[0] = lo.x; s[1] = lo.y; s[2] = lo.z; s[3] = lo.w;
+        s[4] = hi.x; s[5] = hi.y; s[6] = hi.z; s[7] = hi.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          s[j] = k0 + j < n ? stage[k0 + j] : STAGE_FREE;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (k0 + j < n) f(k0 + j, s[j]);
+    }
+  } else {
+    for (int k = tm.lane(); k < n; k += Team::W) f(k, stage[k]);
+  }
+}
 
 // The lowest index >= `from` (and < n) whose `stage` is STAGE_FREE, or n:
 // the team reads 32 stages at a time and takes the lowest set bit of the

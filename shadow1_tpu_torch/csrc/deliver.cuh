@@ -179,15 +179,17 @@ __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
   const int ki = a.ki, ic = a.ic;
   const int64_t base = (int64_t)hh * ki;
   int32_t n = 0;
-  for (int k = tm.lane(); k < ki && act; k += Team::W) {
-    const int64_t slot = base + k;
-    if (a.ib_stage[slot] != STAGE_IN_FLIGHT) continue;
-    const int32_t* row = a.ib_blk + slot * ic;
-    if (dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]) <= tick) {
-      a.ib_stage[slot] = STAGE_RX_QUEUED;
-      if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
-      ++n;
-    }
+  if (act) {
+    each_slot(tm, a.ib_stage + base, ki, [&](int k, int32_t st) {
+      if (st != STAGE_IN_FLIGHT) return;
+      const int64_t slot = base + k;
+      const int32_t* row = a.ib_blk + slot * ic;
+      if (dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]) <= tick) {
+        a.ib_stage[slot] = STAGE_RX_QUEUED;
+        if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
+        ++n;
+      }
+    });
   }
   RxCarry c;
   c.rxq = a.rx_queued[hh] + tm.sum(n);
@@ -229,21 +231,21 @@ __device__ __forceinline__ RxPick rx_round(const DeliverArgs& a,
   const int64_t limit = r == 0 ? c.tick : c.bound;
   int64_t tmin = INV, kmin = INV;
   int32_t col = ki;
-  for (int k = tm.lane(); k < ki && c.act; k += Team::W) {
+  if (c.act) {
     // The stage column first: a row is read only for a live slot.
-    const int64_t slot = base + k;
-    const int32_t st = a.ib_stage[slot];
-    if (st != STAGE_RX_QUEUED && (r == 0 || st != STAGE_IN_FLIGHT)) continue;
-    const int32_t* rk = a.ib_blk + slot * ic;
-    const int64_t t = dec_i64(rk[ICOL_TIME_LO], rk[ICOL_TIME_HI]);
-    if (st == STAGE_IN_FLIGHT && t > limit) continue;
-    const int64_t key = ((int64_t)rk[ICOL_SRC] << 40) |
-                        dec_i64(rk[ICOL_CTR_LO], rk[ICOL_CTR_HI]);
-    if (t < tmin || (t == tmin && key < kmin)) {
-      tmin = t;
-      kmin = key;
-      col = k;
-    }
+    each_slot(tm, a.ib_stage + base, ki, [&](int k, int32_t st) {
+      if (st != STAGE_RX_QUEUED && (r == 0 || st != STAGE_IN_FLIGHT)) return;
+      const int32_t* rk = a.ib_blk + (base + k) * ic;
+      const int64_t t = dec_i64(rk[ICOL_TIME_LO], rk[ICOL_TIME_HI]);
+      if (st == STAGE_IN_FLIGHT && t > limit) return;
+      const int64_t key = ((int64_t)rk[ICOL_SRC] << 40) |
+                          dec_i64(rk[ICOL_CTR_LO], rk[ICOL_CTR_HI]);
+      if (t < tmin || (t == tmin && key < kmin)) {
+        tmin = t;
+        kmin = key;
+        col = k;
+      }
+    });
   }
   tm.min3(tmin, kmin, col);
   const bool have = c.act && col < ki && tmin <= limit;

@@ -84,8 +84,9 @@ __device__ __forceinline__ void ex_count_row(const ExchangeArgs& x,
 // threads (at most 1024) all take part, each over a run of h / blockDim
 // counts.  A run is read EX_SCAN_BATCH counts at a time, every load of a
 // batch issued before its first use (a store to `start` between two
-// loads would order them, one L2 latency a count).
-constexpr int EX_SCAN_BATCH = 8;
+// loads would order them, one L2 latency a count): K_WINDOW's 128-thread
+// block walks 16,384 counts in 4 batches a thread.
+constexpr int EX_SCAN_BATCH = 32;
 
 __device__ __forceinline__ void ex_scan_block(const ExchangeArgs& x) {
   __shared__ int32_t part[1024];

@@ -248,12 +248,12 @@ __device__ __forceinline__ void phold_tick(const PholdArgs& p,
   // window end.
   int64_t bound = INV;
   const int64_t base = (int64_t)hh * d.ki;
-  for (int k = 0; k < d.ki; ++k) {
-    if (d.ib_stage[base + k] == STAGE_FREE) continue;
+  each_slot(Solo{}, d.ib_stage + base, d.ki, [&](int k, int32_t st) {
+    if (st == STAGE_FREE) return;
     const int32_t* row = d.ib_blk + (base + k) * d.ic;
     bound = imin(bound, imax(dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]),
                              tick));
-  }
+  });
   bound = imin(bound, window_end);
 
   const int xb = pc - OEXT_COLS;

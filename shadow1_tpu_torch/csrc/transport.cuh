@@ -87,11 +87,11 @@ __device__ __forceinline__ int64_t scan_host(const TransportArgs& a,
                                              int64_t cpu_avail) {
   int64_t t_in = INV;
   const int64_t ibase = (int64_t)hh * a.ki;
-  for (int k = tm.lane(); k < a.ki; k += Team::W) {
-    if (a.ib_stage[ibase + k] != STAGE_IN_FLIGHT) continue;
+  each_slot(tm, a.ib_stage + ibase, a.ki, [&](int k, int32_t st) {
+    if (st != STAGE_IN_FLIGHT) return;
     const int32_t* row = a.ib_blk + (ibase + k) * a.ic;
     t_in = imin(t_in, dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]));
-  }
+  });
   t_in = tm.min64(t_in);
   int64_t th = imin(t_in, aux);
   if (cpu_ns > 0 && th != INV && a.cpu_threshold >= 0) {
@@ -159,8 +159,8 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   const int64_t budget = tokens;
   const int32_t txq0 = a.tx_queued[hh];
   int n_free = 0;
-  for (int k = tm.lane(); k < ko; k += Team::W)
-    n_free += pstage[k] == STAGE_FREE;
+  each_slot(tm, pstage, ko,
+            [&](int, int32_t st) { n_free += st == STAGE_FREE; });
   n_free = tm.sum(n_free);
   int64_t t_resume = a.t_resume[hh];
   if (tcp != nullptr) tcp_transmit(tm, *tcp, hh, tp, act, n_free, t_resume);
@@ -258,13 +258,15 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   // ---- _tx_drain_body (skip_refill: staging refilled at this instant) ----
   int64_t tmin = INV;
   int32_t jsel = ko;
-  for (int k = tm.lane(); k < ko && act; k += Team::W) {
-    if (pstage[k] != STAGE_TX_QUEUED) continue;
-    const int64_t t = a.pool_time[pbase + k];
-    if (t <= tp && t < tmin) {
-      tmin = t;
-      jsel = k;
-    }
+  if (act) {
+    each_slot(tm, pstage, ko, [&](int k, int32_t st) {
+      if (st != STAGE_TX_QUEUED) return;
+      const int64_t t = a.pool_time[pbase + k];
+      if (t <= tp && t < tmin) {
+        tmin = t;
+        jsel = k;
+      }
+    });
   }
   tm.min2(tmin, jsel);
   if (jsel < ko) {

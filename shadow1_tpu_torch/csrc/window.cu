@@ -65,9 +65,9 @@
 // 128 blocks, one on each of 128 of the card's 132 SMs (256-thread blocks
 // filled only 64).  A micro-step has no barrier inside it.
 //
-// TCP (k_window_tcp): one window a launch.  One warp per host (the Warp
-// team, common.cuh),
-// hosts walked warp-stride.  A host's slab and socket walks -- the router
+// TCP (k_window_tcp): one window a launch (status 2 when it was asked for
+// one and the predicate still holds, as k_window).  One warp per host
+// (the Warp team, common.cuh), hosts walked warp-stride.  A host's slab and socket walks -- the router
 // enqueue, each round's candidate pick, the socket match, the timer pick,
 // transmit's eligibility, the sink, the free-slot count, the staging
 // cursor, the drain's pick and the scan -- stride the 32 lanes (coalesced
@@ -245,12 +245,14 @@ struct BulkTick {
 // bounds from `now`.  Returns gmin; every block gets the same values.  The
 // exchange is one thread per destination; with a Solo `Team` each
 // destination's thread then scans its host, with Warp a grid sync parts
-// the exchange from a scan on one warp per host.  B is the block size.
+// the exchange from a scan on one warp per host.  B is the block size;
+// `clk` marks the exchange's passes.
 template <class Tick, class Team, int B>
 __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
                                                cg::grid_group& grid,
                                                int& buf, int64_t now,
-                                               int64_t& ws, int64_t& we) {
+                                               int64_t& ws, int64_t& we,
+                                               Clk& clk) {
   const int h = a.x.h;
   const int64_t gtid = (int64_t)blockIdx.x * B + threadIdx.x;
   const int64_t gstride = (int64_t)gridDim.x * B;
@@ -262,10 +264,13 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
   grid.sync();
   for (int64_t i = gtid; i < a.x.p0; i += gstride) ex_count_row(a.x, i);
   grid.sync();
+  clk.mark(CLK_EX_COUNT);
   if (blockIdx.x == 0) ex_scan_block(a.x);
   grid.sync();
+  clk.mark(CLK_EX_SCAN);
   for (int64_t i = gtid; i < a.x.p0; i += gstride) ex_bucket_row(a.x, i);
   grid.sync();
+  clk.mark(CLK_EX_BUCKET);
   const Team tm{};
   constexpr bool solo = Team::W == 1;
   HostOut o{INV, 0, 0};
@@ -288,6 +293,7 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
       o.th = imin(o.th, th);
     }
   }
+  clk.mark(CLK_EX_PLACE);
   if (!solo) {
     grid.sync();
     const int64_t nw = gstride / Team::W;
@@ -373,8 +379,8 @@ __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
   int64_t status = 0;
   for (;;) {
     int64_t ws, we;
-    int64_t gmin =
-        window_open<PholdTick, Solo, kWinBlock>(a, grid, buf, now, ws, we);
+    int64_t gmin = window_open<PholdTick, Solo, kWinBlock>(a, grid, buf,
+                                                          now, ws, we, clk);
     clk.mark(CLK_OPEN);
     int64_t steps = 0;
     while (gmin < we) {                // gmin is the same in every block
@@ -448,7 +454,7 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
   int buf = 0;
   int64_t ws, we;
   int64_t gmin = window_open<Tick, Warp, kBlock>(a, grid, buf, *a.now, ws,
-                                                 we);
+                                                 we, clk);
   clk.mark(CLK_OPEN);
 
   int64_t steps = 0;
@@ -504,7 +510,13 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
     ++steps;
   }
   clk.start();
-  window_close<kBlock>(a, grid, buf, gmin, ws, we);
+  const int64_t pend = window_close<kBlock>(a, grid, buf, gmin, ws, we);
+  // One window a launch.  Asked for one, a stop with the window loop's
+  // predicate true is the window cap, as k_window and window_plain say;
+  // asked for more, it is not (the host's loop launches again).
+  if (status == 0 && a.max_windows == 1 && we < a.t_target &&
+      imin(gmin, pend) < a.t_target)
+    status = STATUS_WINDOW_CAP;
   write_status(a, status);
   clk.mark(CLK_WCLOSE);
 }
