@@ -1391,9 +1391,9 @@ def run_pairs(dev) -> tuple:
     state, params, app = pairs_world(dev, PAIRS_H, True)
     call, best = mk.window_call, [None, -1]
 
-    def probe(st, p, a, t_target):
+    def probe(st, p, a, t_target, max_windows=1):
         before = (engine.clone_state(st), int(st.n_events))
-        out = call(st, p, a, t_target)
+        out = call(st, p, a, t_target, max_windows)
         n = int(out[0].n_events) - before[1]
         if n > best[1]:
             best[:] = [(before[0], t_target), n]

@@ -139,15 +139,11 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _n_blocks(h: int) -> int:
-    return -(-h // _BLOCK)
-
-
 def _transport_blocks(h: int, tcp: bool) -> int:
     """Blocks (and block partials) of K_TRANSPORT for h hosts: one
     thread per host (k_transport), or one warp per host (k_transport_tcp,
     _BLOCK // 32 hosts a block)."""
-    return -(-h // (_BLOCK // 32)) if tcp else _n_blocks(h)
+    return -(-h // (_BLOCK // 32 if tcp else _BLOCK))
 
 
 # ---------------------------------------------------------------------------

@@ -30,10 +30,7 @@ __global__ void k_count(ExchangeArgs x) {
   if (i < x.p0) ex_count_row(x, i);
 }
 
-// One block of 1,024 threads: at most 64 registers a thread.
-__global__ void __launch_bounds__(1024) k_scan(ExchangeArgs x) {
-  ex_scan_block(x);
-}
+__global__ void k_scan(ExchangeArgs x) { ex_scan_block(x); }
 
 __global__ void k_bucket(ExchangeArgs x) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;

@@ -22,7 +22,8 @@
 //      (atomic counts; a count does not depend on order), and in TCP
 //      worlds whether any mover is a pure ACK;
 //   2. ex_scan_block (one block): exclusive scan of the histogram ->
-//      bucket starts; in TCP worlds, the two-class gate;
+//      bucket starts; in TCP worlds, the two-class gate (K_WINDOW spreads
+//      this pass over its whole grid instead: window.cu ex_scan_grid);
 //   3. ex_bucket_row (per pool row): each mover lands at some position of
 //      its destination's bucket (atomic, order undefined) and its outbox
 //      stage clears;
@@ -81,28 +82,15 @@ __device__ __forceinline__ void ex_count_row(const ExchangeArgs& x,
 }
 
 // Exclusive scan of cnt[0..h) into start[0..h]; the calling block's
-// threads (at most 1024) all take part, each over a run of h / blockDim
-// counts.  A run is read EX_SCAN_BATCH counts at a time, every load of a
-// batch issued before its first use (a store to `start` between two
-// loads would order them, one L2 latency a count): K_WINDOW's 128-thread
-// block walks 16,384 counts in 4 batches a thread.
-constexpr int EX_SCAN_BATCH = 32;
-
+// threads (at most 1024) all take part.
 __device__ __forceinline__ void ex_scan_block(const ExchangeArgs& x) {
   __shared__ int32_t part[1024];
   const int t = threadIdx.x;
   const int per = (x.h + blockDim.x - 1) / blockDim.x;
-  const int lo = min(t * per, x.h);
+  const int lo = t * per;
   const int hi = min(lo + per, x.h);
   int32_t s = 0;
-  for (int d0 = lo; d0 < hi; d0 += EX_SCAN_BATCH) {
-    int32_t c[EX_SCAN_BATCH];
-#pragma unroll
-    for (int j = 0; j < EX_SCAN_BATCH; ++j)
-      c[j] = d0 + j < hi ? x.cnt[d0 + j] : 0;
-#pragma unroll
-    for (int j = 0; j < EX_SCAN_BATCH; ++j) s += c[j];
-  }
+  for (int d = lo; d < hi; ++d) s += x.cnt[d];
   part[t] = s;
   __syncthreads();
   if (t == 0) {
@@ -116,30 +104,19 @@ __device__ __forceinline__ void ex_scan_block(const ExchangeArgs& x) {
   }
   __syncthreads();
   int32_t acc = part[t];
-  for (int d0 = lo; d0 < hi; d0 += EX_SCAN_BATCH) {
-    int32_t c[EX_SCAN_BATCH];
-#pragma unroll
-    for (int j = 0; j < EX_SCAN_BATCH; ++j)
-      c[j] = d0 + j < hi ? x.cnt[d0 + j] : 0;
-#pragma unroll
-    for (int j = 0; j < EX_SCAN_BATCH; ++j) {
-      if (d0 + j < hi) x.start[d0 + j] = acc;
-      acc += c[j];
+  bool over = false;
+  for (int d = lo; d < hi; ++d) {
+    x.start[d] = acc;
+    acc += x.cnt[d];
+    if (x.gate != nullptr && x.gate[0] != 0) {
+      int nf = 0;
+      for (int k = 0; k < x.ki; ++k)
+        nf += x.ib_stage[(int64_t)d * x.ki + k] == STAGE_FREE;
+      over = over || x.cnt[d] > nf;
     }
   }
-  if (x.gate != nullptr) {                // TCP worlds: the same in every thread
-    bool over = false;
-    if (x.gate[0] != 0) {
-      for (int d = lo; d < hi; ++d) {
-        int nf = 0;
-        for (int k = 0; k < x.ki; ++k)
-          nf += x.ib_stage[(int64_t)d * x.ki + k] == STAGE_FREE;
-        over = over || x.cnt[d] > nf;
-      }
-    }
-    over = __syncthreads_or(over) != 0;
-    if (t == 0) x.gate[1] = over ? 1 : 0;
-  }
+  over = __syncthreads_or(over) != 0;
+  if (x.gate != nullptr && t == 0) x.gate[1] = over ? 1 : 0;
   __syncthreads();
 }
 

@@ -24,8 +24,9 @@
 // barriers (cooperative_groups this_grid().sync()) separate what must be
 // ordered:
 //   * the exchange's four passes (exchange.cuh, with the two-class
-//     re-rank in TCP worlds), then each host's scan (transport.cuh
-//     scan_host);
+//     re-rank in TCP worlds; its scan spread over the whole grid,
+//     ex_scan_grid, one more barrier), then each host's scan
+//     (transport.cuh scan_host);
 //   * each micro-step: every host runs its phases on its team (the
 //     staging rows go through a scratch tensor, written and read by that
 //     team only), then each block folds its (th min, event sum, error
@@ -36,8 +37,9 @@
 //   * the window close: the outbox-pending min over the pool, published
 //     and folded the same way by every block; block 0 writes the state
 //     scalars and the result vector.
-// The partials are double-buffered: every publish -- the window's
-// opening, each micro-step, the window's close -- flips one parity bit
+// The partials are double-buffered: every publish -- the exchange scan's
+// chunk sums, the window's opening, each micro-step, the window's close
+// -- flips one parity bit
 // carried through the whole launch.  A block folds parity p right after
 // the barrier that follows its publish; the next publish into p comes two
 // publishes later, after the next barrier, which no block passes before
@@ -210,6 +212,94 @@ __device__ __forceinline__ HostOut all_reduce(const WindowArgs& a,
   return fold(a, buf);
 }
 
+// Exclusive scan of one value a thread over the block (B threads, a
+// multiple of 32): warp shuffles, then the warps' sums through shared
+// memory.  Every thread gets its prefix, and the block's total in
+// `total`.
+template <int B>
+__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
+                                                        int32_t& total) {
+  constexpr int NW = B / 32;
+  __shared__ int32_t wsum[NW];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int32_t inc = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t y = __shfl_up_sync(Warp::FULL, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) wsum[w] = inc;
+  __syncthreads();
+  int32_t before = 0;
+  total = 0;
+  for (int i = 0; i < NW; ++i) {
+    const int32_t ws = wsum[i];
+    before += i < w ? ws : 0;
+    total += ws;
+  }
+  __syncthreads();                 // wsum is rewritten by the next call
+  return before + inc - v;
+}
+
+// The exchange scan (exchange.cuh ex_scan_block's result: start[d] = the
+// movers of the destinations before d, start[h] = all of them) over the
+// whole grid instead of one block.  Each block takes a contiguous chunk
+// of the counts, one count a thread a tile (coalesced loads), and
+// publishes its chunk's sum with the parity protocol of the partials;
+// after one grid barrier every block folds the sums of the blocks before
+// it and adds them to a block-wide scan of its chunk.  In TCP worlds each
+// destination's thread also ORs the two-class gate's second word (some
+// destination has more movers than free slots; zeroed by window_open).
+// The caller's next grid barrier publishes `start`.
+template <int B>
+__device__ __forceinline__ void ex_scan_grid(const WindowArgs& a,
+                                             cg::grid_group& grid, int& buf) {
+  const ExchangeArgs& x = a.x;
+  const int64_t chunk = (x.h + gridDim.x - 1) / gridDim.x;
+  const int64_t lo = imin((int64_t)blockIdx.x * chunk, x.h);
+  const int64_t hi = imin(lo + chunk, x.h);
+  int64_t s = 0;
+  for (int64_t d = lo + threadIdx.x; d < hi; d += B) s += x.cnt[d];
+  publish<B>(a, buf, HostOut{INV, s, 0});
+  grid.sync();
+  __shared__ int64_t s_before, s_total;
+  if (threadIdx.x < Warp::W) {
+    const Warp w{};
+    int64_t before = 0, total = 0;
+    const int64_t off = (int64_t)buf * a.n_blocks;
+    for (int b = w.lane(); b < a.n_blocks; b += Warp::W) {
+      const int64_t v = __ldcg((const long long*)a.part_ev + off + b);
+      total += v;
+      before += b < (int)blockIdx.x ? v : 0;
+    }
+    before = w.sum64(before);
+    total = w.sum64(total);
+    if (w.leader()) {
+      s_before = before;
+      s_total = total;
+    }
+  }
+  __syncthreads();
+  int32_t acc = (int32_t)s_before;
+  if (blockIdx.x == 0 && threadIdx.x == 0) x.start[x.h] = (int32_t)s_total;
+  const bool gate = x.gate != nullptr && x.gate[0] != 0;
+  for (int64_t t0 = lo; t0 < hi; t0 += B) {
+    const int64_t d = t0 + threadIdx.x;
+    const int32_t c = d < hi ? x.cnt[d] : 0;
+    int32_t tile;
+    const int32_t ex = block_exclusive_scan<B>(c, tile);
+    if (d < hi) {
+      x.start[d] = acc + ex;
+      if (gate) {
+        int nf = 0;
+        for (int k = 0; k < x.ki; ++k)
+          nf += x.ib_stage[d * x.ki + k] == STAGE_FREE;
+        if (c > nf) atomicOr(&x.gate[1], 1);
+      }
+    }
+    acc += tile;
+  }
+}
+
 // The app policies of the two kernels: the app's wake time after its
 // tick, and the non-packet term of the next-event scan
 // (engine._aux_times: re-ticks, in TCP worlds the socket timers, the app).
@@ -265,7 +355,7 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
   for (int64_t i = gtid; i < a.x.p0; i += gstride) ex_count_row(a.x, i);
   grid.sync();
   clk.mark(CLK_EX_COUNT);
-  if (blockIdx.x == 0) ex_scan_block(a.x);
+  ex_scan_grid<B>(a, grid, buf);
   grid.sync();
   clk.mark(CLK_EX_SCAN);
   for (int64_t i = gtid; i < a.x.p0; i += gstride) ex_bucket_row(a.x, i);
