@@ -163,6 +163,9 @@ TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
 # Windows of the persistent TCP main path timed again with CUDA events,
 # traced by phase and bounded.
 BUSY_WINDOWS = 8
+# The GPU spin (ms) before each K_TRANSPORT launch timed in
+# transport_main_path: longer than the wrapper's host time (~0.3 ms).
+SPIN_MS = 2
 
 # The "pairs" TCP world (pairs_world): 20,000 client -> server pairs, more
 # hosts than one resident thread each would fit on the card, to 100 ms.
@@ -467,14 +470,20 @@ def tcp_tick_bound(st, out, em, active) -> tuple[int, int]:
                             + (fired + running) * 200)
 
 
-def window_bound(state, params, app, t_target, keep=False):
+def window_bound(state, params, app, t_target, keep=False, kt=None):
     """(bytes, operations, micro-steps) of one K_WINDOW call on `state`:
     the sum of what its phases must move and do, counted from this
     window's data by replaying it phase by phase through the per-phase
     kernels -- the exchange, the scan, per micro-step the tick setup,
     K_DELIVER, (TCP) run_timers, the tick and K_TRANSPORT, and the
     closing outbox scan.  With `keep`, the state after the window comes
-    fourth (now = we, one more window), to count the next one."""
+    fourth (now = we, one more window), to count the next one.  With `kt`
+    (a dict), each K_TRANSPORT launch of the replay also adds its own
+    bytes and operations to kt["b"] / kt["ops"] and its CUDA events --
+    recorded behind a SPIN_MS GPU spin, so that they bracket only the
+    launch's work on the card -- to kt["ev"] (kt["late"] counts launches
+    whose host call outran the spin)."""
+    import torch
     from shadow1_tpu_torch.core import emit, engine
     from shadow1_tpu_torch.core import megakernel as mk
     from shadow1_tpu_torch.core.state import STAGE_IN_FLIGHT
@@ -515,10 +524,24 @@ def window_bound(state, params, app, t_target, keep=False):
         b, ops = b + tb, ops + to
         t_app = app.next_time(st)
         s_in = clone(st)
+        if kt is not None:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(kt["spin"])
+            h0 = time.perf_counter()
+            e0.record()
         st, t_h, gmin = mk.transport_kernel(st, params, app, em, tick_t, tp,
                                             active, bw_up, dn, t_app)
-        b += transport_bytes(s_in, st, em, active, params, tcp)
-        ops += transport_ops(s_in, em, active, tcp)
+        if kt is not None:
+            e1.record()
+            kt["ev"].append((e0, e1))
+            kt["late"] += time.perf_counter() - h0 > SPIN_MS / 1e3
+        tb = transport_bytes(s_in, st, em, active, params, tcp)
+        to = transport_ops(s_in, em, active, tcp)
+        b, ops = b + tb, ops + to
+        if kt is not None:
+            kt["b"] += tb
+            kt["ops"] += to
     # Window close: the pool's stage column and its in-flight times.
     n_out = int((st.pool.stage == STAGE_IN_FLIGHT).sum())
     b += st.pool.stage.numel() * 4 + n_out * 8 + 5 * 8
@@ -530,12 +553,12 @@ def window_bound(state, params, app, t_target, keep=False):
     return b, ops, steps
 
 
-def windows_bound(warm, params, app, n: int) -> tuple[int, int, int]:
+def windows_bound(warm, params, app, n: int, kt=None) -> tuple:
     """(bytes, operations, micro-steps) of the windows of one run from
     `warm` to t_end = now + n x min latency on the persistent path (the
     schedule of busy_windows and of check_window's span; at most n
     windows): the sum of window_bound over them, while the window loop's
-    predicate holds."""
+    predicate holds.  `kt` collects K_TRANSPORT's share (window_bound)."""
     from shadow1_tpu_torch.core import engine
     st = engine.clone_state(warm)
     t_end = int(st.now) + n * params.min_latency_ns
@@ -543,9 +566,34 @@ def windows_bound(warm, params, app, n: int) -> tuple[int, int, int]:
     while int(st.now) < t_end and min(
             int(engine._scan_all(st, params, app)[1]),
             int(engine._outbox_pending(st))) < t_end:
-        wb, wo, ws, st = window_bound(st, params, app, t_end, keep=True)
+        wb, wo, ws, st = window_bound(st, params, app, t_end, keep=True,
+                                      kt=kt)
         b, ops, steps = b + wb, ops + wo, steps + ws
     return b, ops, steps
+
+
+def transport_main_path(warm, params, app, n: int) -> tuple:
+    """K_TRANSPORT on its own (per-phase) path over the first `n` windows
+    after `warm`, replayed by windows_bound: the launches, their mean
+    device ms (CUDA events behind a spin) and their mean bound (ms).
+    Returns (printable line, (bytes, operations) of the replayed windows,
+    micro-steps)."""
+    import torch
+    kt = {"b": 0, "ops": 0, "ev": [], "late": 0,
+          "spin": int(SPIN_MS * _spin_cycles_per_ms())}
+    b, ops, steps = windows_bound(warm, params, app, n, kt=kt)
+    torch.cuda.synchronize()
+    ms = [e0.elapsed_time(e1) for e0, e1 in kt["ev"]]
+    k = len(ms)
+    return (f"K_TRANSPORT (TCP) on its per-phase path, the first {n} "
+            f"windows replayed: {k} launches, device "
+            f"{statistics.mean(ms):.4f} ms a launch (CUDA events behind a "
+            f"spin; min {min(ms):.4f}, median {statistics.median(ms):.4f}, "
+            f"max {max(ms):.4f}); they must move {kt['b']} bytes and do "
+            f"{kt['ops']} operations: bound "
+            f"{bound_ms(kt['b'], kt['ops']) / k:.6f} ms a launch; "
+            f"{kt['late']} host calls outran the spin"), \
+        (b, ops), steps
 
 
 def _on_device(e) -> bool:
@@ -1559,6 +1607,13 @@ def main() -> int:
     line, window_dev_ms = profile_persistent(warm, params, app, RUN_NS,
                                              chunks)
     print(line, flush=True)
+    bw, ow, sw = windows_bound(warm, params, app,
+                               (RUN_NS - WARM_NS) // params.min_latency_ns)
+    print(f"main path (persistent): the timed launch's "
+          f"{JAX_FINAL['n_windows'] - JAX_WARM['n_windows']} windows ({sw} "
+          f"micro-steps) must move {bw} bytes and do {ow} operations: bound "
+          f"{bound_ms(bw, ow):.6f} ms, K_WINDOW device {window_dev_ms:.4f} "
+          f"ms (profiler)", flush=True)
     for line in phold_trace(warm, params, app, BUSY_WINDOWS):
         print(line, flush=True)
 
@@ -1624,7 +1679,9 @@ def main() -> int:
         print(line, flush=True)
     require_equal(trace_st, busy_st, "phase trace vs the untraced windows")
     del busy_st, trace_st
-    b8, o8, s8 = windows_bound(warm_tp, params, app, BUSY_WINDOWS)
+    line, (b8, o8), s8 = transport_main_path(warm_tp, params, app,
+                                             BUSY_WINDOWS)
+    print(line, flush=True)
     print(f"tcp main path (persistent): the first {BUSY_WINDOWS} windows "
           f"({s8} micro-steps) must move {b8} bytes and do {o8} operations: "
           f"bound {bound_ms(b8, o8):.6f} ms, K_WINDOW device "

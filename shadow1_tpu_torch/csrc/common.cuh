@@ -51,7 +51,7 @@ constexpr int64_t ONE_MS = 1000000LL;
 // thread -- the thread (k_window) or lane 0 of the warp (k_window_tcp)
 // that runs the traced host -- adds the clock64() cycles since its
 // previous mark to acc[phase].  Phases: the window's opening -- the
-// exchange's zeroing and count pass, its scan (block 0), its bucket pass,
+// exchange's zeroing and count pass, its scan, its bucket pass,
 // its placement (with k_window's host scan), then the rest of the opening
 // (the host scan of k_window_tcp, the fold) -- the tick setup (k_window),
 // the router enqueue, per
