@@ -23,7 +23,11 @@ Phases, each reported on its own line:
    against the CPU (the plain torch emulation on the card, and K_WINDOW's
    device log1p), CoDel's f32 spacing on 2^20 counts, and runs a congested
    lossy world through K_WINDOW, through the per-phase kernels and through
-   the plain versions, which must agree leaf for leaf.
+   the plain versions, which must agree leaf for leaf.  Also: K_WINDOW's
+   windows again with ex_run's exchange instead of k_window's default
+   (the previous passes), equal and timed; K_TRANSPORT's general path (the
+   KO world's 12-slot slabs) against its plain version at every micro-step
+   of a congested, lossy window.
 4. main path -- the bench world (H = 16,384, 4 messages per host, 10 ms
    mean delay, rx_batch = 2, pool H*8) for 2 simulated seconds through
    engine.run_until / run_chunked with the defaults (megakernel and
@@ -47,7 +51,9 @@ Phases, each reported on its own line:
    (at the arrival-heaviest of a window's micro-steps) and K_WINDOW's TCP
    kernel (the whole window at that boundary) against their plain
    versions, torch.equal on every output leaf, timed and bounded as in
-   phase 3.  Then a lossy 16-host bulk world to 3 s through K_WINDOW,
+   phase 3; the exchange also on crafted fan-ins (FAN_IN movers to one
+   host, pure ACKs shed first), where its time at 20,000 movers must stay
+   under 20x its time at 2,000.  Then a lossy 16-host bulk world to 3 s through K_WINDOW,
    through the per-phase kernels and through the plain versions, leaf for
    leaf, with retransmissions reached.
 7. TCP per-phase path -- BULK with persistent=False through run_until /
@@ -62,9 +68,13 @@ Phases, each reported on its own line:
    and the final state the per-phase path's, leaf for leaf.  Then the
    timed part again, and its first BUSY_WINDOWS windows, with CUDA events
    around each K_WINDOW call (device time per window, the device's busy
-   share); those windows through K_WINDOW's phase-clock build (the split
-   of the server's micro-step by phase, final state equal to the untraced
-   run's), and their bound (window_bound over each).
+   share); those windows through K_WINDOW's phase-clock build, opened by
+   the previous exchange passes and by ex_run (the split of the server's
+   micro-step by phase, the open's exchange stages among them; final
+   state equal to the untraced run's), the exchange's bound at their
+   opens beside its traced time, and the first TR_WINDOWS windows
+   replayed through the per-phase kernels (K_TRANSPORT's time and bound
+   there, and the windows' bound, window_bound over each).
 9. pairs world -- PAIRS_H = 40,000 hosts in client -> server pairs to
    100 ms on both paths, counters zeroed just before and read just
    after, final states equal leaf for leaf; k_window_tcp against
@@ -103,6 +113,13 @@ STRESS = dict(num_hosts=2048, msgs_per_host=8, mean_delay_ns=10 * MS,
               bw_up_Bps=50_000, bw_down_Bps=6_000, reliability=0.95,
               bootstrap_end=20 * MS)
 STRESS_NS = 400 * MS
+# A world like it with 12-slot slabs, 12 messages a host and a 3 kB/s
+# uplink: K_TRANSPORT's general path (slabs above transport_small's
+# eight), checked against its plain version at every micro-step of one
+# window, where hosts park, lose and overflow packets.
+KO = dict(STRESS, pool_capacity=2048 * 12, msgs_per_host=12,
+          bw_up_Bps=3_000)
+KO_NS = 150 * MS
 
 # The JAX package's trajectory of that world and schedule (warm-up to
 # 10 ms with run_until, then run_chunked to 2 s; reference graph, which
@@ -163,6 +180,9 @@ TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
 # Windows of the persistent TCP main path timed again with CUDA events,
 # traced by phase and bounded.
 BUSY_WINDOWS = 8
+# Windows of the TCP main path replayed through the per-phase kernels to
+# time and bound K_TRANSPORT there (transport_main_path).
+TR_WINDOWS = 4
 # The GPU spin (ms) before each K_TRANSPORT launch timed in
 # transport_main_path: longer than the wrapper's host time (~0.3 ms).
 SPIN_MS = 2
@@ -794,7 +814,7 @@ def check_kernels(state, params, app, dev):
     ki = state.inbox.capacity // h
     bounds["exchange"] = exchange_bound(state)
     times["exchange"] = (time_call(mk.exchange_kernel, ex_args,
-                                   kernel="k_place"),
+                                   kernel="k_exchange"),
                          time_call(mk.exchange_plain, ex_args))
     print(f"kernels: exchange equal ({n_mov} movers)", flush=True)
 
@@ -852,6 +872,62 @@ def check_kernels(state, params, app, dev):
     return times, bounds, errs
 
 
+def check_transport_ko(dev) -> str:
+    """K_TRANSPORT against transport_plain at every micro-step of the
+    window after KO_NS in the KO world (12-slot outbox slabs, congested,
+    lossy, PDS trail and CPU model on), torch.equal on every output; the
+    compared steps must park, lose and overflow packets."""
+    import torch
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core import emit, engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    state, params, app = sim.build_phold(**KO, megakernel=True,
+                                         persistent=False, device=dev)
+    params = params.replace(pds_trail=True, cpu_threshold_ns=0,
+                            cpu_ns_per_event=torch.full_like(
+                                params.cpu_ns_per_event, 50_000))
+    state = engine.run_until(state, params, app, KO_NS)
+    clone = engine.clone_state
+    h = state.hosts.num_hosts
+    ctx = engine._window_ctx(state, params)
+    st = engine._exchange(clone(state), params, fused=True)
+    t_h, gmin = engine._scan_all(st, params, app)
+    we = min(max(int(st.now), int(gmin)) + params.min_latency_ns,
+             params.stop_time)
+    steps, took = 0, {"parked": 0, "lost": 0, "overflow": 0}
+    while int(gmin) < we:
+        s1, active, tick_t = engine._tick_setup(clone(st), t_h, we)
+        aux0 = engine._aux_times(s1, params, app)
+        em0 = emit.empty(h, engine._n_lanes(app), s1.pool.blk.shape[1], dev)
+        s2, em, dn, tp = mk.deliver_plain(s1, params, app, em0, tick_t,
+                                          active, we, ctx[1], aux0)
+        s2, em = engine._app_tick(s2, params, app, em, tp, active, we)
+        t_app = app.next_time(s2)
+
+        def args(s=s2):
+            return (clone(s), params, app, em, tick_t, tp, active, ctx[0],
+                    dn, t_app)
+        out_k = mk.transport_kernel(*args())
+        out_p = mk.transport_plain(*args())
+        require_equal(out_k, out_p, f"transport (KO world, step {steps})")
+        hp, h0 = out_p[0].hosts, s2.hosts
+        took["parked"] += int((hp.tx_queued - h0.tx_queued).clamp(min=0)
+                              .sum())
+        took["lost"] += int((hp.pkts_dropped_inet - h0.pkts_dropped_inet)
+                            .sum())
+        took["overflow"] += int((hp.pkts_dropped_pool - h0.pkts_dropped_pool)
+                                .sum())
+        st, t_h, gmin = mk.microstep_fused(st, params, app, t_h, we, ctx)
+        steps += 1
+    if min(took.values()) <= 0:
+        _fail(f"KO world: the compared steps did not park, lose and "
+              f"overflow packets: {took}")
+    return (f"kernels: transport (KO world, H={KO['num_hosts']}, "
+            f"{KO['pool_capacity'] // KO['num_hosts']}-slot outbox slabs) "
+            f"equal at all {steps} micro-steps of the window after "
+            f"{KO_NS // MS} ms; {took}")
+
+
 def check_window(state, params, app, advance=3, label="kernels: window",
                  kernel="k_window", plain_reps=7, span=None):
     """K_WINDOW (`kernel`) against window_plain on clones of `state`
@@ -861,9 +937,9 @@ def check_window(state, params, app, advance=3, label="kernels: window",
     engine._run_windows hands down, which a right predicate never
     reaches).  Every leaf of the state and t_h / gmin / ws / we / outbox
     pending / status must be equal; the plain version is timed over
-    `plain_reps` calls.  Returns ((kernel (device ms, call ms), plain
-    (device ms, call ms)), (bytes, operations) bound, max |kernel -
-    plain|)."""
+    `plain_reps` calls (not at all when 0).  Returns ((kernel (device
+    ms, call ms), plain (device ms, call ms)), (bytes, operations) bound,
+    max |kernel - plain|)."""
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     params = params.replace(persistent=True)
@@ -891,7 +967,8 @@ def check_window(state, params, app, advance=3, label="kernels: window",
             _fail(f"{label}: {windows} windows to {int(out_k[0].now)} ns "
                   f"(status {int(out_k[2][4])}) for t_target {t_target}")
     times = (time_call(mk.window_kernel, args, kernel=kernel),
-             time_call(mk.window_plain, args, reps=plain_reps))
+             time_call(mk.window_plain, args, reps=plain_reps)
+             if plain_reps else (float("nan"), float("nan")))
     (kd, kc), (pd, pc) = times
     print(f"{label} equal ({windows} window{'s' * (windows > 1)} in one "
           f"call, {steps} micro-steps, last window "
@@ -1002,6 +1079,113 @@ def _ack_shed_input(dev, n_data, n_acks, n_free):
                          inbox=ib.replace(stage=ib_stage)), params
 
 
+# The exchange's fan-in probe: movers to one destination (host 0 of a
+# 4-host bulk world), a quarter of its slab taken, pure ACKs mixed in.
+FAN_IN = (2_000, 20_000)
+
+
+def fan_in_arrays(n_movers: int, seed: int = 1, slab: int = 0,
+                  taken: float = 0.25) -> dict:
+    """A crafted TCP fan-in as numpy arrays for a 4-host world whose
+    slabs hold ko = max(slab, ceil(1.2 x n_movers / 3)) slots: hosts 1-3
+    each have a third of `n_movers` rows in flight to host 0, a third of
+    them pure ACKs and the rest 100-byte data segments in shuffled order,
+    and a twentieth more to the other clients; a fraction `taken` of host
+    0's inbox slab is taken (by default a quarter, so host 0 overflows and
+    the two-class gate is on).  Returns the pool's dst / proto / flags /
+    len columns, stage and time and the inbox's stage, which
+    tests/test_torch_exchange.py applies to a JAX world of the same
+    shape."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    h, per = 4, -(-n_movers // 3)
+    ko = max(slab, -(-per * 6 // 5))
+    p0 = h * ko
+    stage = np.zeros(p0, np.int32)
+    dst = np.zeros(p0, np.int32)
+    for s in range(1, h):
+        base = s * ko
+        stage[base:base + per] = 2
+        extra = per // 20
+        stage[base + per:base + per + extra] = 2
+        dst[base + per:base + per + extra] = r.choice(
+            [d for d in range(1, h) if d != s], extra)
+    ack = r.random(p0) < 1 / 3
+    istage = np.zeros(p0, np.int32)
+    istage[r.permutation(ko)[:int(ko * taken)]] = 3
+    return dict(h=h, ko=ko, dst=dst, stage=stage,
+                proto=np.full(p0, 6, np.int32),
+                flags=np.full(p0, 16, np.int32),
+                length=np.where(ack, 0, 100).astype(np.int32),
+                time=r.integers(1, 1 << 40, p0).astype(np.int64),
+                istage=istage)
+
+
+def _fan_in_input(dev, n_movers: int):
+    """fan_in_arrays on a 4-host bulk world of the port on `dev`."""
+    import torch
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core.state import (
+        ICOL_FLAGS, ICOL_LEN, ICOL_PROTO, ext_base)
+    f = fan_in_arrays(n_movers)
+    state, params, _ = sim.build_bulk(num_hosts=f["h"], server=0,
+                                      bytes_per_client=1000, stop_time=SEC,
+                                      seed=1, persistent=False,
+                                      pool_capacity=f["h"] * f["ko"],
+                                      device=dev)
+    pool, ib = state.pool, state.inbox
+    t = {k: torch.from_numpy(v).to(dev) for k, v in f.items()
+         if not isinstance(v, int)}
+    blk = pool.blk.clone()
+    blk[:, ICOL_PROTO] = t["proto"]
+    blk[:, ICOL_FLAGS] = t["flags"]
+    blk[:, ICOL_LEN] = t["length"]
+    blk[:, ext_base(blk.shape[1])] = t["dst"]
+    return state.replace(
+        pool=pool.replace(blk=blk, stage=t["stage"], time=t["time"]),
+        inbox=ib.replace(stage=t["istage"])), params
+
+
+def check_fan_in(dev) -> list:
+    """The exchange kernel on the crafted fan-ins (FAN_IN movers to one
+    destination, gate on) against the plain version, torch.equal on every
+    output; its device time at each size, and the ratio, which a step
+    quadratic in one destination's movers would blow up.  Returns
+    printable lines and {n: (kernel (device ms, call ms), bytes, ops)}."""
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    lines, out = [], {}
+    for n in FAN_IN:
+        state, params = _fan_in_input(dev, n)
+        h = state.hosts.num_hosts
+
+        def args(s=state):
+            c = engine.clone_state(s)
+            return c.pool, c.inbox, h, params
+        ok = mk.exchange_kernel(*args())
+        op = mk.exchange_plain(*args())
+        require_equal(ok, op, f"fan-in exchange ({n} movers)")
+        tot, tprot, nf = (int(v[0]) for v in op[2:])
+        if not (tot >= n and tprot < tot and nf < tot):
+            _fail(f"fan-in probe ({n}): host 0 takes {tot} movers, {tprot} "
+                  f"protected, {nf} free: not the crafted overflow")
+        b, ops = exchange_bound(state)
+        times = time_call(mk.exchange_kernel, args, kernel="k_exchange")
+        out[n] = (times, b, ops)
+        lines.append(f"fan-in exchange: {tot} movers to host 0 ({tprot} "
+                     f"protected, {nf} free slots, pool {state.pool.capacity} "
+                     f"rows): equal; kernel device {times[0]:.4f} ms (call "
+                     f"{times[1]:.4f} ms), bound {b} bytes, {ops} operations "
+                     f"({bound_ms(b, ops):.6f} ms)")
+    lo, hi = (out[n][0][0] for n in FAN_IN)
+    lines.append(f"fan-in exchange: {FAN_IN[1]} movers take {hi / lo:.2f}x "
+                 f"the device time of {FAN_IN[0]}")
+    if hi >= 20 * lo:
+        _fail(f"fan-in exchange: {FAN_IN[1]} movers take {hi / lo:.2f}x the "
+              f"time of {FAN_IN[0]} (20x or more)")
+    return lines, out
+
+
 def check_ack_shed(dev) -> list:
     """The exchange kernel's two-class re-rank against the plain version
     on crafted overflows (pure ACKs shed first; data overflow raises
@@ -1058,7 +1242,7 @@ def check_tcp_kernels(state, params, app, dev):
     n_mov = int((state.pool.stage == STAGE_IN_FLIGHT).sum())
     bounds["exchange_tcp"] = exchange_bound(state)
     times["exchange_tcp"] = (time_call(mk.exchange_kernel, ex_args,
-                                       kernel="k_place"),
+                                       kernel="k_exchange"),
                              time_call(mk.exchange_plain, ex_args))
     print(f"tcp kernels: exchange equal ({n_mov} movers)", flush=True)
 
@@ -1230,17 +1414,20 @@ def drive_tcp(dev, persistent: bool):
     return out, warm, params, app, launches, wall
 
 
-def _timed_windows(warm, params, app, n: int | None):
+def _timed_windows(warm, params, app, n: int | None, before=None):
     """The first `n` windows after `warm` through the engine's persistent
     loop (n None: the main path's run_chunked to BULK_RUN_NS), with CUDA
-    events around each K_WINDOW call (megakernel.window_call wrapped).
-    Returns (final state, wall seconds, device ms of each window)."""
+    events around each K_WINDOW call (megakernel.window_call wrapped);
+    `before`, if given, sees each call's input state first.  Returns
+    (final state, wall seconds, device ms of each window)."""
     import torch
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     call, marks = mk.window_call, []
 
     def timed(*a):
+        if before is not None:
+            before(a[0])
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1290,8 +1477,9 @@ def busy_windows(warm, params, app, n: int | None):
 
 
 # K_WINDOW's traced phases (csrc/common.cuh ClkPhase), in kernel order.
-CLK_PHASES = [(27, "open: zero + count"), (28, "open: scan"),
-              (29, "open: bucket"), (30, "open: place (+ host scan)"),
+CLK_PHASES = [(27, "open: exchange count"), (28, "open: exchange scans"),
+              (29, "open: exchange sort passes (v1: bucket)"),
+              (30, "open: exchange place (v1: + host scan)"),
               (0, "open: rest (scan, fold)"), (25, "tick setup"),
               (1, "router enqueue")] + [
     (2 + 4 * r + i, f"round {r} {part}") for r in range(4)
@@ -1339,7 +1527,11 @@ def phase_trace(warm, params, app, n: int, host: int = 0,
                or name == "step close")
     lines.append(f"{label}: grid barriers (gates + step close) "
                  f"{gate / total * 100:.2f} % of the traced host's cycles")
-    return lines, st
+    ex = sum(cyc[i] for i in (27, 28, 29, 30))
+    lines.append(f"{label}: the window open's exchange (count, scans, sort, "
+                 f"place) {ex / max(windows, 1):.1f} cycles and "
+                 f"{dev_ms * ex / total / max(windows, 1):.4f} ms a window")
+    return lines, st, dev_ms * ex / total / max(windows, 1)
 
 
 def phold_trace(warm, params, app, n: int) -> list:
@@ -1361,8 +1553,8 @@ def phold_trace(warm, params, app, n: int) -> list:
     order = torch.argsort(ev, stable=True)
     busiest, typical = int(order[-1]), int(order[len(order) // 2])
     for host, kind in ((busiest, "most events"), (typical, "median")):
-        out, st = phase_trace(warm, params, app, n, host,
-                              label="phold phase trace")
+        out, st, _ = phase_trace(warm, params, app, n, host,
+                                 label="phold phase trace")
         require_equal(st, ref, f"phold phase trace (host {host}) vs the "
                                f"untraced windows")
         lines.append(f"phold phase trace: host {host} ({kind}: "
@@ -1544,7 +1736,16 @@ def main() -> int:
                  plain_reps=1)
     times["window"], bounds["window"], errs["window"] = check_window(
         state, params, app, span=BUSY_WINDOWS, plain_reps=1)
+    # k_window opens its windows with the previous exchange passes (v1,
+    # its default); the same windows with ex_run, for the comparison.
+    mk.set_window_exchange_v1(False)
+    try:
+        check_window(state, params, app, span=BUSY_WINDOWS, plain_reps=0,
+                     label="kernels: window with ex_run's exchange")
+    finally:
+        mk.set_window_exchange_v1(None)
     del state
+    print(check_transport_ko(dev), flush=True)
 
     # f64 log1p of the delay draw on all 2^24 inputs, card vs CPU: the
     # plain torch emulation (per-phase path) and K_WINDOW's device log1p.
@@ -1669,6 +1870,8 @@ def main() -> int:
     del state
     for line in check_ack_shed(dev):
         print(f"tcp kernels: {line}", flush=True)
+    for line in check_fan_in(dev)[0]:
+        print(f"tcp kernels: {line}", flush=True)
     print(check_lossy_tcp(dev), flush=True)
 
     _phase_done("6")
@@ -1688,21 +1891,43 @@ def main() -> int:
     del out_tcp, out_tp
     line, window_tcp_ms, _ = busy_windows(warm_tp, params, app, None)
     print(line, flush=True)
-    line, first_ms, busy_st = busy_windows(warm_tp, params, app,
-                                           BUSY_WINDOWS)
+    line, _, busy_st = busy_windows(warm_tp, params, app, BUSY_WINDOWS)
     print(line, flush=True)
-    lines, trace_st = phase_trace(warm_tp, params, app, BUSY_WINDOWS)
-    for line in lines:
-        print(line, flush=True)
-    require_equal(trace_st, busy_st, "phase trace vs the untraced windows")
-    del busy_st, trace_st
+    # The server's phases with the window open's previous exchange passes
+    # (v1) and with ex_run, the default.
+    for v1 in (True, False):
+        mk.set_window_exchange_v1(v1)
+        try:
+            lines, trace_st, ex_ms = phase_trace(
+                warm_tp, params, app, BUSY_WINDOWS,
+                label=f"phase trace ({'v1 exchange' if v1 else 'exchange'})")
+        finally:
+            mk.set_window_exchange_v1(None)
+        for line in lines:
+            print(line, flush=True)
+        require_equal(trace_st, busy_st,
+                      "phase trace vs the untraced windows")
+    del trace_st
+    del busy_st
+    # The exchange's bound at each of those windows' opens.
+    xb = [0, 0]
+
+    def ex_share(st):
+        b, ops = exchange_bound(st)
+        xb[0] += b
+        xb[1] += ops
+    _timed_windows(warm_tp, params, app, BUSY_WINDOWS, before=ex_share)
+    print(f"tcp main path (persistent): the exchange in k_window_tcp's "
+          f"window open, the first {BUSY_WINDOWS} windows: {ex_ms:.4f} ms a "
+          f"window (phase trace share of the device time), bound "
+          f"{bound_ms(*xb) / BUSY_WINDOWS:.6f} ms a window ({xb[0]} bytes, "
+          f"{xb[1]} operations in all)", flush=True)
     line, (b8, o8), s8 = transport_main_path(warm_tp, params, app,
-                                             BUSY_WINDOWS)
+                                             TR_WINDOWS)
     print(line, flush=True)
-    print(f"tcp main path (persistent): the first {BUSY_WINDOWS} windows "
+    print(f"tcp main path (persistent): the first {TR_WINDOWS} windows "
           f"({s8} micro-steps) must move {b8} bytes and do {o8} operations: "
-          f"bound {bound_ms(b8, o8):.6f} ms, K_WINDOW device "
-          f"{first_ms * BUSY_WINDOWS:.4f} ms", flush=True)
+          f"bound {bound_ms(b8, o8):.6f} ms", flush=True)
 
     _phase_done("8")
 

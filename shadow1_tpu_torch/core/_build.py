@@ -35,9 +35,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The C entry points of each library and their argument types.
 _ARGTYPES = {
-    "exchange": {"exchange_launch":
-                 [_P, _I, _I64, _P, _P, _P, _P, _I, _P, _P, _I64, _I, _I,
-                  _P, _P, _P, _P, _P, _P]},
+    "exchange": {"exchange_launch": [_P, _I, _P],
+                 "exchange_occupancy": [_P, _P]},
     "deliver": {"deliver_launch": [_P, _P, _P]},
     "transport": {"transport_launch": [_P, _P, _P]},
     "window": {"window_launch": [_P, _P], "window_tcp_launch": [_P, _P],

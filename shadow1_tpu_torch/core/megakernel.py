@@ -21,15 +21,17 @@ sm_90a in `csrc/` and built by core/_build.py:
   worlds with phold's tick (csrc/phold_tick.cuh), which also loops the
   windows of a whole run_until call on the card, and k_window_tcp, one
   window a launch, for TCP worlds with tcp.run_timers (csrc/tcp.cuh) and
-  bulk's tick (csrc/bulk_tick.cuh).  The three phases are one copy of device code
-  (csrc/*.cuh) that the per-phase kernels share.
+  bulk's tick (csrc/bulk_tick.cuh).  The three phases are one copy of
+  device code (csrc/*.cuh) that the per-phase kernels share.
 
 The TCP kernels of K_DELIVER, K_TRANSPORT and K_WINDOW run one warp per
 host -- K_DELIVER's and K_WINDOW's hosts walked warp-stride over a
 cooperative grid sized from the occupancy query, K_TRANSPORT's as a plain
 launch of one warp per host -- so no host count is refused; the UDP
 kernels run one thread per host (csrc/common.cuh, the Solo and Warp
-teams).
+teams).  The exchange is one cooperative launch of a
+stable radix sort of the movers by destination (csrc/exchange.cuh
+ex_run), which K_WINDOW's window open shares.
 
 Dispatch rule, the same for every wrapper: a CUDA tensor launches the
 kernel (or raises); a CPU tensor runs the plain version, which is built
@@ -65,6 +67,7 @@ INV = engine.INV
 LAUNCHES = {"exchange": 0, "deliver": 0, "transport": 0, "window": 0}
 
 _BLOCK = 256     # threads per block of the per-host kernels
+_TR_BLOCK = 128  # threads per block of k_transport (csrc/transport.cu)
 _WIN_BLOCK = 128  # threads per block of k_window (csrc/window.cu kWinBlock)
 
 # K_WINDOW's micro-step cap per window: far above any real window (the
@@ -75,6 +78,10 @@ MAX_STEPS = 1 << 20
 STATUS_STEP_CAP = 1     # a window reached MAX_STEPS micro-steps
 STATUS_WINDOW_CAP = 2   # the launch ran max_windows windows with the
                         # window loop's predicate still true
+
+# Cooperative grid sizes from the occupancy queries, per (device, library,
+# kernel).
+_OCCUPANCY: dict = {}
 
 
 def _phase(name: str):
@@ -141,9 +148,21 @@ def _raise_on(rc: int, name: str) -> None:
 
 def _transport_blocks(h: int, tcp: bool) -> int:
     """Blocks (and block partials) of K_TRANSPORT for h hosts: one
-    thread per host (k_transport), or one warp per host (k_transport_tcp,
-    _BLOCK // 32 hosts a block)."""
-    return -(-h // (_BLOCK // 32 if tcp else _BLOCK))
+    thread per host in _TR_BLOCK-thread blocks (k_transport), or one warp
+    per host (k_transport_tcp, _BLOCK // 32 hosts a block)."""
+    return -(-h // (_BLOCK // 32 if tcp else _TR_BLOCK))
+
+
+# k_transport's ticket word per device: zero between launches (the last
+# block resets it).
+_TICKETS: dict = {}
+
+
+def _ticket(device) -> torch.Tensor:
+    key = str(device)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((1,), dtype=I32, device=device)
+    return _TICKETS[key]
 
 
 # ---------------------------------------------------------------------------
@@ -156,10 +175,39 @@ def exchange_plain(pool, ib, h, params):
     return engine._exchange_core(pool, ib, h, params)
 
 
-def exchange_kernel(pool, ib, h, params):
-    """Launch csrc/exchange.cu.  Updates pool.stage and the inbox in
-    place; returns (pool, ib, total, total_prot, n_free)."""
-    from . import _build
+# The exchange's sort (csrc/exchange.cuh): at most EX_RBITS bits a pass.
+EX_RBITS = 8
+
+
+def _ex_plan(h: int, tcp: bool) -> tuple[int, int]:
+    """(passes, digit bits) of the exchange's radix sort for h
+    destinations: one pass over the whole key ((d << 1) | pure_ack in TCP
+    worlds, d in UDP worlds) when it fits in 2^EX_RBITS bins, else two or
+    more passes over d alone, each of at most EX_RBITS bits."""
+    keys = h << int(tcp)
+    if keys <= 1 << EX_RBITS:
+        return 1, max(1, (keys - 1).bit_length())
+    bits = (h - 1).bit_length()
+    passes = max(2, -(-bits // EX_RBITS))
+    return passes, -(-bits // passes)
+
+
+class _ExchangeArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "pool_blk", "pool_stage", "pool_time", "pool_status", "ib_blk",
+        "ib_stage", "ib_status", "total", "total_prot", "n_free", "fbase",
+        "flist", "keys", "vals", "table", "start", "prot", "part")] + [
+        ("p0", ctypes.c_int64)] + [(n, ctypes.c_int32) for n in (
+            "pc", "ic", "ki", "h", "pds_trail", "tcp", "passes", "dbits",
+            "v1")]
+
+
+def _ex_struct(pool, ib, h, params, grid: int, v1: bool = False):
+    """The exchange's arguments (csrc/exchange.cuh ExchangeArgs) for a
+    grid of `grid` blocks, state tensors checked and its scratch
+    allocated.  `v1` asks K_WINDOW for the previous design's passes.
+    Returns (struct, the tensors it points at: keep them referenced until
+    the launch is enqueued, and (total, total_prot, n_free))."""
     p0, pc = pool.blk.shape
     p1, ic = ib.blk.shape
     if p0 % h or p1 % h:
@@ -171,19 +219,63 @@ def exchange_kernel(pool, ib, h, params):
     _check(ib.blk, I32, (p1, ic), "inbox.blk")
     _check(ib.stage, I32, (p1,), "inbox.stage")
     _check(ib.status, I32, (p1,), "inbox.status")
+    if max(p0, p1) >= 1 << 31:
+        raise ValueError("the exchange takes pools and inboxes below 2^31 "
+                         "rows")
+    tcp_on = ic >= ICOLS
+    passes, dbits = _ex_plan(h, tcp_on)
     dev = pool.blk.device
-    scratch = torch.empty((3 * h + 3,), dtype=I32, device=dev)
-    lst = torch.empty((p0,), dtype=I32, device=dev)
-    total = torch.empty((h,), dtype=I32, device=dev)
-    total_prot = torch.empty((h,), dtype=I32, device=dev)
-    n_free = torch.empty((h,), dtype=I32, device=dev)
+
+    def buf(n):
+        return torch.empty((n,), dtype=I32, device=dev)
+    two = 2 if passes > 1 else 1   # the sort's buffers (v1: bucket lists)
+    t = dict(total=buf(h), total_prot=buf(h), n_free=buf(h),
+             fbase=buf(h + 1), flist=buf(p1), keys=buf(two * p0),
+             vals=buf(two * p0),
+             table=buf(passes * (1 << dbits) * grid + h + 1),
+             start=buf(h + 1) if passes > 1 or v1 else None,
+             prot=buf(p0 + 1) if passes > 1 and tcp_on else None,
+             part=buf(2 * grid * 4))
+    x = _ExchangeArgs(
+        pool_blk=_addr(pool.blk), pool_stage=_addr(pool.stage),
+        pool_time=_addr(pool.time), pool_status=_addr(pool.status),
+        ib_blk=_addr(ib.blk), ib_stage=_addr(ib.stage),
+        ib_status=_addr(ib.status), **{k: _addr(v) for k, v in t.items()},
+        p0=p0, pc=pc, ic=ic, ki=p1 // h, h=h,
+        pds_trail=int(bool(params.pds_trail)), tcp=int(tcp_on),
+        passes=passes, dbits=dbits, v1=int(bool(v1)))
+    return x, t, (t["total"], t["total_prot"], t["n_free"])
+
+
+def _exchange_grid(lib, p0: int, p1: int) -> int:
+    """Blocks of the exchange's cooperative grid: one per 1,024 pool rows
+    or inbox slots, at most one per SM (the stages' barriers cost more
+    with more blocks than the work gains), and no more than the card
+    keeps resident.  Raises if the card cannot launch it cooperatively."""
+    key = (torch.cuda.current_device(), id(lib), "exchange")
+    if key not in _OCCUPANCY:
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.exchange_occupancy(ctypes.byref(per_sm), ctypes.byref(sms))
+        if rc == -1:
+            raise RuntimeError("exchange: the device cannot launch "
+                               "cooperative kernels")
+        _raise_on(rc, "exchange (occupancy query)")
+        _OCCUPANCY[key] = (per_sm.value, sms.value)
+    per_sm, sms = _OCCUPANCY[key]
+    return max(1, min(-(-max(p0, p1) // 1024), sms, per_sm * sms))
+
+
+def exchange_kernel(pool, ib, h, params):
+    """Launch csrc/exchange.cu: one cooperative launch.  Updates
+    pool.stage and the inbox in place; returns (pool, ib, total,
+    total_prot, n_free)."""
+    from . import _build
     lib = _build.load("exchange")
-    rc = lib.exchange_launch(
-        _addr(pool.blk), pc, ctypes.c_int64(p0), _addr(pool.time),
-        _addr(pool.stage), _addr(pool.status), _addr(ib.blk), ic,
-        _addr(ib.stage), _addr(ib.status), ctypes.c_int64(p1), h,
-        int(bool(params.pds_trail)), _addr(scratch), _addr(lst),
-        _addr(total), _addr(total_prot), _addr(n_free), _stream())
+    grid = _exchange_grid(lib, pool.blk.shape[0], ib.blk.shape[0])
+    x, keep, (total, total_prot, n_free) = _ex_struct(pool, ib, h, params,
+                                                      grid)
+    rc = lib.exchange_launch(ctypes.byref(x), grid, _stream())
+    del keep
     _raise_on(rc, "exchange")
     LAUNCHES["exchange"] += 1
     return pool, ib, total, total_prot, n_free
@@ -448,7 +540,8 @@ class _TransportArgs(ctypes.Structure):
         "bytes_sent", "pkts_dropped_inet", "pkts_dropped_pool", "cpu_avail",
         "host_vertex", "route_blk", "bw_up", "cpu_ns_per_event", "tick_t",
         "t_post", "active", "delivered_n", "t_app", "th", "blk_ev",
-        "blk_min", "blk_err", "n_events", "n_steps", "err", "gmin")] + [
+        "blk_min", "blk_err", "n_events", "n_steps", "err", "gmin",
+        "ticket")] + [
         ("bootstrap_end", ctypes.c_int64),
         ("cpu_threshold", ctypes.c_int64),
         ("cpu_precision", ctypes.c_int64),
@@ -464,7 +557,7 @@ class _TransportArgs(ctypes.Structure):
 def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
                       tick_t=None, t_post=None, active=None,
                       delivered_n=None, t_app=None, th=None, blk_ev=None,
-                      blk_min=None, blk_err=None, gmin=None,
+                      blk_min=None, blk_err=None, gmin=None, ticket=None,
                       n_blocks=0) -> _TransportArgs:
     """K_TRANSPORT's arguments, state tensors checked.  The per-host
     inputs and the partial/scalar outputs from `th` on are the per-phase
@@ -518,7 +611,7 @@ def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
         delivered_n=_addr(delivered_n), t_app=_addr(t_app), th=_addr(th),
         blk_ev=_addr(blk_ev), blk_min=_addr(blk_min), blk_err=_addr(blk_err),
         n_events=_addr(state.n_events), n_steps=_addr(state.n_steps),
-        err=_addr(state.err), gmin=_addr(gmin),
+        err=_addr(state.err), gmin=_addr(gmin), ticket=_addr(ticket),
         bootstrap_end=params.bootstrap_end,
         cpu_threshold=params.cpu_threshold_ns,
         cpu_precision=params.cpu_precision_ns, drop_k0=k0, drop_k1=k1,
@@ -531,8 +624,9 @@ def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
 def transport_kernel(state, params, app, em, tick_t, t_post, active, bw_up,
                      delivered_n, t_app):
     """Launch csrc/transport.cu: transmit (TCP worlds) + staging + drain
-    + CPU accounting + scan with one thread per host (k_transport) or, in
-    TCP worlds, one warp per host (k_transport_tcp), then the fixed-order
+    + CPU accounting + scan with one thread per host (k_transport, one
+    launch that also folds the block partials) or, in TCP worlds, one
+    warp per host (k_transport_tcp, then k_reduce): the fixed-order
     reduction of the per-block partials into gmin / n_events / n_steps /
     err.  Updates the pool, hosts, socket tensors, state scalars and the
     TX lanes of `em` in place."""
@@ -557,7 +651,7 @@ def transport_kernel(state, params, app, em, tick_t, t_post, active, bw_up,
     gmin = torch.empty((), dtype=I64, device=dev)
     a = _transport_struct(state, params, em.valid, em.blk, e, bw_up, tick_t,
                           t_post, active, delivered_n, t_app, th, blk_ev,
-                          blk_min, blk_err, gmin, nb)
+                          blk_min, blk_err, gmin, _ticket(dev), nb)
     tcp = _tcp_struct(state, params, em) if uses_tcp else None
     lib = _build.load("transport")
     _raise_on(lib.transport_launch(
@@ -639,15 +733,6 @@ def window_plain(state, params, app, t_target, max_windows: int = 1):
     return state, t_h, win
 
 
-class _ExchangeArgs(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in (
-        "pool_blk", "pool_stage", "pool_time", "pool_status", "ib_blk",
-        "ib_stage", "ib_status", "cnt", "fill", "start", "lst", "gate")] + [
-        ("p0", ctypes.c_int64), ("pc", ctypes.c_int32),
-        ("ic", ctypes.c_int32), ("ki", ctypes.c_int32),
-        ("h", ctypes.c_int32), ("pds_trail", ctypes.c_int32)]
-
-
 class _PholdArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "next_send", "pending", "sent", "recv", "rng_ctr")] + [
@@ -681,6 +766,23 @@ class _WindowArgs(ctypes.Structure):
 _PHASE_CLOCKS = {"buf": None, "host": 0}
 CLK_WORDS = 32
 
+# K_WINDOW's exchange at the window open: the previous design's passes
+# (csrc/exchange.cuh ex_*_v1: atomic buckets, a thread per destination
+# sorting its bucket) or ex_run (the radix sort over the grid).  Each
+# kernel takes the one measured faster on its main path (PERF.md):
+# k_window (phold: ~2 movers a destination, where the per-destination
+# sort is short and the radix sort's extra barriers cost more) the
+# previous passes, k_window_tcp (the bulk server's fan-in) ex_run.
+# chip_smoke.py forces either with set_window_exchange_v1.
+_WINDOW_EXCHANGE_V1 = {False: True, True: False}   # by kernel is TCP
+_WINDOW_EXCHANGE = {"v1": None}
+
+
+def set_window_exchange_v1(on: bool | None) -> None:
+    """Open K_WINDOW's windows with the previous exchange passes (True),
+    with ex_run (False), or with each kernel's default (None)."""
+    _WINDOW_EXCHANGE["v1"] = None if on is None else bool(on)
+
 
 def set_phase_clocks(buf=None, host: int = 0) -> None:
     """Trace host `host`'s phases of K_WINDOW (either kernel) into
@@ -690,8 +792,6 @@ def set_phase_clocks(buf=None, host: int = 0) -> None:
         _check(buf, I64, (CLK_WORDS,), "phase clock buffer")
     _PHASE_CLOCKS.update(buf=buf, host=int(host))
 
-
-_OCCUPANCY: dict = {}
 
 
 def _window_grid(lib, h: int, tcp: bool) -> int:
@@ -796,8 +896,10 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
     dev = pool.blk.device
     e = engine._n_lanes(app)
     bw_up, bw_dn = engine._window_ctx(state, params)
-    scratch = torch.empty((3 * h + 3,), dtype=I32, device=dev)
-    lst = torch.empty((p0,), dtype=I32, device=dev)
+    v1 = _WINDOW_EXCHANGE["v1"]
+    x, ex_keep, _ = _ex_struct(pool, ib, h, params, grid,
+                               v1=_WINDOW_EXCHANGE_V1[tcp_on] if v1 is None
+                               else v1)
     t_h = torch.empty((h,), dtype=I64, device=dev)
     part_min = torch.empty((2 * grid,), dtype=I64, device=dev)
     part_ev = torch.empty((2 * grid,), dtype=I64, device=dev)
@@ -806,15 +908,6 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
     em = emit.Emissions(
         valid=torch.empty((h, e), dtype=torch.bool, device=dev),
         blk=torch.empty((h, e, pc), dtype=I32, device=dev))
-    x = _ExchangeArgs(
-        pool_blk=_addr(pool.blk), pool_stage=_addr(pool.stage),
-        pool_time=_addr(pool.time), pool_status=_addr(pool.status),
-        ib_blk=_addr(ib.blk), ib_stage=_addr(ib.stage),
-        ib_status=_addr(ib.status), cnt=_addr(scratch),
-        fill=_addr(scratch) + 4 * h, start=_addr(scratch) + 8 * h,
-        lst=_addr(lst), gate=_addr(scratch) + 4 * (3 * h + 1) if tcp_on
-        else 0, p0=p0, pc=pc, ic=ic, ki=p1 // h, h=h,
-        pds_trail=int(bool(params.pds_trail)))
     if tcp_on:
         rx_batch = max(1, int(getattr(app, "rx_batch", 1)))
         gates = torch.empty((2 * rx_batch,), dtype=I32, device=dev)
@@ -835,7 +928,9 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
         max_steps=MAX_STEPS, max_windows=int(max_windows), n_blocks=grid,
         clk_host=_PHASE_CLOCKS["host"])
     launch = lib.window_tcp_launch if tcp_on else lib.window_launch
-    _raise_on(launch(ctypes.byref(args), _stream()), "window")
+    rc = launch(ctypes.byref(args), _stream())
+    del ex_keep
+    _raise_on(rc, "window")
     LAUNCHES["window"] += 1
     return state, t_h, win
 

@@ -3,73 +3,63 @@
 // Replaces the TPU kernel `exchange_call` (shadow1_tpu/core/megakernel.py,
 // exchange_call, pallas_call at line 280), whose body is
 // shadow1_tpu/core/engine.py _exchange_core, with the ACK-before-data
-// two-class re-rank of TCP worlds.  What it computes and the four passes
-// are described in exchange.cuh, whose
-// device functions K_WINDOW (window.cu) shares; here each pass is its own
-// kernel on the caller's stream, deterministic by construction -- no
+// two-class re-rank of TCP worlds.  What it computes and how
+// (a stable radix sort of the movers by destination over the grid, free
+// lists by a grid scan, rows copied by groups of lanes) is described in
+// exchange.cuh, whose ex_run K_WINDOW (window.cu) shares.  Here ex_run is
+// one cooperative launch on the caller's stream (its stages parted by grid
+// syncs; nothing to zero beforehand), deterministic by construction -- no
 // atomic order decides a rank or a slot.
 //
-// What bounds it on the H100: bytes.  Per window it reads the pool stage
-// and dst column (P0 * 8 B), and for each mover one packed row (56 B of
-// the 72 B row) plus its time, and writes one inbox row, stage and
-// status; the per-destination pass reads each slab's stage (H * ki * 4 B).
-// At the bench world (P0 = 131,072, ~6 * 6,349 movers per window) that is
-// under 5 MB -- a few microseconds of HBM time; the four launches and the
-// per-destination thread's serial walk dominate, which is what K_WINDOW
-// removes.  In a TCP fan-in world one destination (the server) takes
-// thousands of movers a window, so its thread's insertion sort and slab
-// walk (ki = 3,200 at the bulk bench world) set the time.
+// What bounds it on the H100: bytes.  Per window it reads the pool's and
+// the inbox's stage words, and for each mover its dst (and, in TCP worlds,
+// three header words), one packed row and its time, and writes one inbox
+// row, stage and status, the free lists and the movers' keys: at the bench
+// world (p0 = p1 = 131,072, ~6 x 6,349 movers a window) a few MB, a few
+// microseconds of HBM time; at the bulk world's boundary (p0 = p1 =
+// 320,000) ~2.8 MB.  The stages' grid barriers (three with one sort
+// pass, seven with two), their chains of dependent loads and the launch
+// set the time.  The grid is one block per 1,024 pool rows or inbox
+// slots, at most one per SM (core/megakernel.py _exchange_grid).
 #include "exchange.cuh"
 
 using namespace s1;
 
 namespace {
 
-__global__ void k_count(ExchangeArgs x) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < x.p0) ex_count_row(x, i);
-}
+constexpr int kExBlock = 256;   // threads per block of k_exchange
 
-__global__ void k_scan(ExchangeArgs x) { ex_scan_block(x); }
-
-__global__ void k_bucket(ExchangeArgs x) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < x.p0) ex_bucket_row(x, i);
-}
-
-__global__ void k_place(ExchangeArgs x, int32_t* __restrict__ total,
-                        int32_t* __restrict__ total_prot,
-                        int32_t* __restrict__ n_free) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d < x.h) ex_place_dest(x, d, total[d], total_prot[d], n_free[d]);
+__global__ void __launch_bounds__(kExBlock) k_exchange(ExchangeArgs x) {
+  cg::grid_group grid = cg::this_grid();
+  Clk clk = make_clk(nullptr, false);
+  ex_run<kExBlock>(x, grid, clk);
 }
 
 }  // namespace
 
-// scratch: int32[3h + 3] = cnt[h] | fill[h] | start[h + 1] | gate[2];
-// lst: int32[p0].  The two-class gate exists in full-width (TCP) worlds.
-extern "C" int exchange_launch(const int32_t* pool_blk, int pc, int64_t p0,
-                               const int64_t* pool_time, int32_t* pool_stage,
-                               const int32_t* pool_status, int32_t* ib_blk,
-                               int ic, int32_t* ib_stage, int32_t* ib_status,
-                               int64_t p1, int h, int pds_trail,
-                               int32_t* scratch, int32_t* lst,
-                               int32_t* total, int32_t* total_prot,
-                               int32_t* n_free, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  ExchangeArgs x{pool_blk, pool_stage, pool_time, pool_status, ib_blk,
-                 ib_stage, ib_status, scratch, scratch + h,
-                 scratch + 2 * (int64_t)h, lst,
-                 ic >= ICOLS ? scratch + 3 * (int64_t)h + 1 : nullptr, p0, pc,
-                 ic, (int32_t)(p1 / h), h, pds_trail};
-  cudaError_t e = cudaMemsetAsync(scratch, 0,
-                                  sizeof(int32_t) * (3 * (size_t)h + 3), st);
+// Blocks per SM of k_exchange and the card's SM count (the wrapper sizes
+// the cooperative grid from them).  Returns a CUDA error code, or -1 when
+// the device cannot launch cooperative kernels.
+extern "C" int exchange_occupancy(int* per_sm, int* sms) {
+  int dev = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k_exchange,
+                                                      kExBlock, 0);
   if (e != cudaSuccess) return (int)e;
-  const int tb = 256;
-  const unsigned gp = (unsigned)((p0 + tb - 1) / tb);
-  k_count<<<gp, tb, 0, st>>>(x);
-  k_scan<<<1, 1024, 0, st>>>(x);
-  k_bucket<<<gp, tb, 0, st>>>(x);
-  k_place<<<(h + tb - 1) / tb, tb, 0, st>>>(x, total, total_prot, n_free);
-  return (int)cudaGetLastError();
+  return (!coop || *per_sm < 1) ? -1 : 0;
+}
+
+// One cooperative launch of `n_blocks` blocks; the scratch in `x` is
+// sized by the wrapper (core/megakernel.py _ex_scratch).
+extern "C" int exchange_launch(const ExchangeArgs* x, int n_blocks,
+                               void* stream) {
+  void* params[] = {(void*)x};
+  return (int)cudaLaunchCooperativeKernel((const void*)k_exchange,
+                                          dim3(n_blocks), dim3(kExBlock),
+                                          params, 0, (cudaStream_t)stream);
 }

@@ -64,6 +64,7 @@ struct TransportArgs {
   int64_t* n_steps;
   int32_t* err;
   int64_t* gmin;
+  uint32_t* ticket;    // k_transport: blocks finished (0 between launches)
   int64_t bootstrap_end;
   int64_t cpu_threshold;
   int64_t cpu_precision;
@@ -130,6 +131,134 @@ __device__ __forceinline__ HostOut block_reduce(HostOut o) {
   return out;
 }
 
+// What staging hands back to transport_host: the host's counts (the same
+// in every lane of the team).
+struct StageOut {
+  int32_t nvalid, parked_n;
+  int64_t placed_n, sent_bytes, dropped_n, pool_drop_n, spent, t_park;
+  bool overflow;
+};
+
+// The row of emission `er` placed in pool slot `slot`, as
+// engine._patched_rows builds it: the source, the pkt_id counter, the
+// arrival (admitted) or send (parked) time, the TS send stamp of
+// full-width rows, the route's latency.
+__device__ __forceinline__ void stage_row(const TransportArgs& a, int hh,
+                                          const int32_t* er, int64_t slot,
+                                          int64_t ctr2, int64_t time_v,
+                                          int64_t send_t, int32_t dst,
+                                          int64_t lat, bool admit) {
+  const int pc = a.pc, xb = pc - OEXT_COLS;
+  int32_t* pr = a.pool_blk + slot * pc;
+  pr[ICOL_SRC] = hh;
+  for (int c = ICOL_SPORT; c < ICOL_TIME_LO; ++c) pr[c] = er[c];
+  pr[ICOL_TIME_LO] = enc_lo(time_v);
+  pr[ICOL_TIME_HI] = enc_hi(time_v);
+  pr[ICOL_CTR_LO] = enc_lo(ctr2);
+  pr[ICOL_CTR_HI] = enc_hi(ctr2);
+  if (xb >= ICOLS) {                      // full-width TCP row
+    pr[ICOL_TS_LO] = enc_lo(send_t);
+    pr[ICOL_TS_HI] = enc_hi(send_t);
+    for (int c = ICOL_TSE_LO; c < ICOLS; ++c) pr[c] = er[c];
+  }
+  pr[xb + OEXT_DST] = dst;
+  pr[xb + OEXT_LAT_LO] = enc_lo(lat);
+  pr[xb + OEXT_LAT_HI] = enc_hi(lat);
+  pr[xb + OEXT_PRIO] = er[xb + OEXT_PRIO];
+  a.pool_stage[slot] = admit ? STAGE_IN_FLIGHT : STAGE_TX_QUEUED;
+  a.pool_time[slot] = time_v;
+  if (a.pds_trail) {
+    a.pool_status[slot] =
+        admit ? (PDS_SND_CREATED | PDS_SND_INTERFACE_SENT | PDS_INET_SENT)
+              : PDS_SND_CREATED;
+  }
+}
+
+// Whether host hh's emission with pkt_id counter ctr2 is lost: the keyed
+// loss draw against the route's reliability (worlds with loss only).
+__device__ __forceinline__ bool stage_lost(const TransportArgs& a, int hh,
+                                           int64_t ctr2, float rel) {
+  if (!a.has_loss) return false;
+  const uint32_t bits = keyed_bits3(a.drop_k0, a.drop_k1, (uint32_t)hh,
+                                    (uint32_t)ctr2, (uint32_t)(ctr2 >> 32));
+  return __fmul_rn((float)(bits >> 8), 5.9604644775390625e-8f) >= rel;
+}
+
+// Emission j of host hh: its destination, route latency and whether it
+// survives the keyed loss draw (counter ctr2).
+__device__ __forceinline__ bool stage_route(const TransportArgs& a, int hh,
+                                            int32_t vs, const int32_t* er,
+                                            int64_t ctr2, int32_t& dst,
+                                            int64_t& lat) {
+  dst = er[a.pc - OEXT_COLS + OEXT_DST];
+  const int32_t dcl = dst < 0 ? 0 : (dst > a.n_hv - 1 ? a.n_hv - 1 : dst);
+  const int32_t vd = a.host_vertex[dcl];
+  const int32_t* rr = a.route_blk +
+                      ((int64_t)vs * a.n_vertices + vd) * RCOLS;
+  lat = imax(dec_i64(rr[0], rr[1]), 1);
+  float rel = __int_as_float(rr[2]);
+  if (dst == hh) {                        // same-host path (never taken
+    lat = 1;                              // by phold; kept for parity)
+    rel = 1.0f;
+  }
+  return !stage_lost(a, hh, ctr2, rel);
+}
+
+// engine._stage_emissions for host hh, its emission lanes in order on
+// uniform values (Solo and Warp teams): the r-th survivor takes the r-th
+// free outbox slot (next_free from the previous pick), the token bucket
+// admits while the byte prefix of the placed rows fits `budget`, and the
+// leader writes each row.
+template <class Team>
+__device__ __forceinline__ StageOut stage_serial(const TransportArgs& a,
+                                                 const Team& tm, int hh,
+                                                 int64_t ctr, int64_t budget,
+                                                 int32_t txq0, bool boot,
+                                                 int64_t tp, int n_free,
+                                                 int32_t vs) {
+  const int e = a.e, pc = a.pc, ko = a.ko;
+  const int64_t pbase = (int64_t)hh * ko;
+  const int32_t* const pstage = a.pool_stage + pbase;
+  StageOut o{0, 0, 0, 0, 0, 0, 0, INV, false};
+  int nlive = 0, cursor = 0;
+  int64_t prefix = 0;
+  for (int j = 0; j < e; ++j) {
+    if (!a.em_valid[(int64_t)hh * e + j]) continue;
+    const int64_t ctr2 = ctr + o.nvalid++;
+    const int32_t* er = a.em_blk + ((int64_t)hh * e + j) * pc;
+    int32_t dst;
+    int64_t lat;
+    if (!stage_route(a, hh, vs, er, ctr2, dst, lat)) {
+      ++o.dropped_n;
+      continue;
+    }
+    if (nlive++ >= n_free) {                // slab exhausted: counted drop
+      ++o.pool_drop_n;
+      o.overflow = true;
+      continue;
+    }
+    cursor = next_free(tm, pstage, cursor, ko);
+    const int64_t slot = pbase + cursor++;
+    ++o.placed_n;
+    const int64_t t_send = dec_i64(er[ICOL_TIME_LO], er[ICOL_TIME_HI]);
+    const int64_t send_t = t_send > 0 ? t_send : tp;
+    const int32_t len = er[ICOL_LEN];
+    const int64_t size = wire_size(er[ICOL_PROTO], len);
+    prefix += size;
+    const bool admit = boot || (txq0 == 0 && prefix <= budget);
+    if (admit && !boot) o.spent += size;
+    if (!admit) {
+      ++o.parked_n;
+      o.t_park = imin(o.t_park, send_t);
+    }
+    o.sent_bytes += len;
+    if (tm.leader())                        // the leader writes the row
+      stage_row(a, hh, er, slot, ctr2, admit ? send_t + lat : send_t,
+                send_t, dst, lat, admit);
+  }
+  return o;
+}
+
 // Transmit (TCP) + staging + drain + CPU accounting + post-step scan for
 // host hh on team `tm`: `tick` is its tick_t, `tp` its t_post,
 // `delivered` K_DELIVER's count and `t_app` the app's wake time after the
@@ -145,7 +274,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
                                                   int64_t tp, bool act,
                                                   int32_t delivered,
                                                   int64_t t_app, Clk& clk) {
-  const int e = a.e, pc = a.pc, ko = a.ko;
+  const int pc = a.pc, ko = a.ko;
   const int xb = pc - OEXT_COLS;                // extension base column
   const bool boot = tp < a.bootstrap_end;
   const int64_t rate = a.bw_up[hh];
@@ -156,7 +285,6 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   const int64_t ctr = a.send_ctr[hh];
   int64_t tokens = a.tokens_tx[hh], last = a.last_refill_tx[hh];
   refill(tokens, last, rate, tp, act);
-  const int64_t budget = tokens;
   const int32_t txq0 = a.tx_queued[hh];
   int n_free = 0;
   each_slot(tm, pstage, ko,
@@ -165,91 +293,19 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   int64_t t_resume = a.t_resume[hh];
   if (tcp != nullptr) tcp_transmit(tm, *tcp, hh, tp, act, n_free, t_resume);
   const int32_t vs = a.host_vertex[hh];
-  int nvalid = 0, nlive = 0, cursor = 0;
-  int64_t prefix = 0, spent = 0, t_park = INV;
-  int64_t placed_n = 0, sent_bytes = 0, dropped_n = 0, pool_drop_n = 0;
-  int32_t parked_n = 0;
-  bool overflow = false;
-  for (int j = 0; j < e; ++j) {
-    if (!a.em_valid[(int64_t)hh * e + j]) continue;
-    const int64_t ctr2 = ctr + nvalid++;
-    const int32_t* er = a.em_blk + ((int64_t)hh * e + j) * pc;
-    const int32_t dst = er[xb + OEXT_DST];
-    const int32_t dcl = dst < 0 ? 0 : (dst > a.n_hv - 1 ? a.n_hv - 1 : dst);
-    const int32_t vd = a.host_vertex[dcl];
-    const int32_t* rr = a.route_blk +
-                        ((int64_t)vs * a.n_vertices + vd) * RCOLS;
-    int64_t lat = imax(dec_i64(rr[0], rr[1]), 1);
-    float rel = __int_as_float(rr[2]);
-    if (dst == hh) {                        // same-host path (never taken
-      lat = 1;                              // by phold; kept for parity)
-      rel = 1.0f;
-    }
-    if (a.has_loss) {
-      const uint32_t bits = keyed_bits3(a.drop_k0, a.drop_k1, (uint32_t)hh,
-                                        (uint32_t)ctr2,
-                                        (uint32_t)(ctr2 >> 32));
-      const float u = __fmul_rn((float)(bits >> 8), 5.9604644775390625e-8f);
-      if (u >= rel) {
-        ++dropped_n;
-        continue;
-      }
-    }
-    if (nlive++ >= n_free) {                // slab exhausted: counted drop
-      ++pool_drop_n;
-      overflow = true;
-      continue;
-    }
-    cursor = next_free(tm, pstage, cursor, ko);
-    const int64_t slot = pbase + cursor++;
-    ++placed_n;
-    const int64_t t_send = dec_i64(er[ICOL_TIME_LO], er[ICOL_TIME_HI]);
-    const int64_t send_t = t_send > 0 ? t_send : tp;
-    const int32_t len = er[ICOL_LEN];
-    const int64_t size = wire_size(er[ICOL_PROTO], len);
-    prefix += size;
-    const bool admit = boot || (txq0 == 0 && prefix <= budget);
-    if (admit && !boot) spent += size;
-    if (!admit) {
-      ++parked_n;
-      t_park = imin(t_park, send_t);
-    }
-    sent_bytes += len;
-    const int64_t time_v = admit ? send_t + lat : send_t;
-    if (!tm.leader()) continue;             // the leader writes the row
-    int32_t* pr = a.pool_blk + slot * pc;
-    pr[ICOL_SRC] = hh;
-    for (int c = ICOL_SPORT; c < ICOL_TIME_LO; ++c) pr[c] = er[c];
-    pr[ICOL_TIME_LO] = enc_lo(time_v);
-    pr[ICOL_TIME_HI] = enc_hi(time_v);
-    pr[ICOL_CTR_LO] = enc_lo(ctr2);
-    pr[ICOL_CTR_HI] = enc_hi(ctr2);
-    if (xb >= ICOLS) {                      // full-width TCP row
-      pr[ICOL_TS_LO] = enc_lo(send_t);
-      pr[ICOL_TS_HI] = enc_hi(send_t);
-      for (int c = ICOL_TSE_LO; c < ICOLS; ++c) pr[c] = er[c];
-    }
-    pr[xb + OEXT_DST] = dst;
-    pr[xb + OEXT_LAT_LO] = enc_lo(lat);
-    pr[xb + OEXT_LAT_HI] = enc_hi(lat);
-    pr[xb + OEXT_PRIO] = er[xb + OEXT_PRIO];
-    a.pool_stage[slot] = admit ? STAGE_IN_FLIGHT : STAGE_TX_QUEUED;
-    a.pool_time[slot] = time_v;
-    if (a.pds_trail) {
-      a.pool_status[slot] =
-          admit ? (PDS_SND_CREATED | PDS_SND_INTERFACE_SENT | PDS_INET_SENT)
-                : PDS_SND_CREATED;
-    }
-  }
-  tokens -= spent;
-  int32_t txq = txq0 + parked_n;
-  t_resume = imin(t_resume, t_park);
+  const StageOut so =
+      stage_serial(a, tm, hh, ctr, tokens, txq0, boot, tp, n_free, vs);
+  const int nvalid = so.nvalid;
+  const bool overflow = so.overflow;
+  tokens -= so.spent;
+  int32_t txq = txq0 + so.parked_n;
+  t_resume = imin(t_resume, so.t_park);
   if (tm.leader()) {
     a.send_ctr[hh] = ctr + nvalid;
-    a.pkts_sent[hh] += placed_n;
-    a.bytes_sent[hh] += sent_bytes;
-    a.pkts_dropped_inet[hh] += dropped_n;
-    a.pkts_dropped_pool[hh] += pool_drop_n;
+    a.pkts_sent[hh] += so.placed_n;
+    a.bytes_sent[hh] += so.sent_bytes;
+    a.pkts_dropped_inet[hh] += so.dropped_n;
+    a.pkts_dropped_pool[hh] += so.pool_drop_n;
     a.last_refill_tx[hh] = last;
   }
   tm.sync();
@@ -312,6 +368,297 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   const int64_t th = scan_host(a, tm, hh, aux, cpu_ns, cpu_avail);
   tm.sync();
   clk.mark(CLK_SCAN);
+  return HostOut{th, events, overflow ? 1 : 0};
+}
+
+// ---------------------------------------------------------------------------
+// transport_small: transport_host's UDP body on one thread for slabs and
+// emission lanes of at most SMALL (the bench world: 8-slot slabs, 6
+// lanes), written so that a host's chain of dependent loads is three deep.
+// Everything that depends only on the host -- its fields, its outbox
+// slab's stage words and times, its inbox slab's stage words and arrival
+// times, its emission rows' dst / time / length / protocol -- is loaded
+// at once; then the destinations' vertices; then their route entries.
+// Staging, the drain's pick, the CPU accounting and the post-step scan
+// then run on registers (a slab slot staged this step carries its row's
+// size and latency in registers; a row parked before is read when the
+// drain picks it).  Register arrays are indexed by unrolled constants.
+// The same values as transport_host<Solo> with tcp == nullptr.
+// ---------------------------------------------------------------------------
+
+constexpr int SMALL = 8;
+
+// Pins a loaded value before this point: an empty asm that takes it as an
+// input keeps the compiler from sinking its load past here, so the loads
+// of one step of transport_small's chains are in flight together.
+__device__ __forceinline__ void keep(int64_t x) { asm volatile("" ::"l"(x)); }
+__device__ __forceinline__ void keep(int32_t x) { asm volatile("" ::"r"(x)); }
+
+// Words [0, n) of p (n <= 8) into v[0..8), `fill` past n: two 16-byte
+// loads where all eight are there and aligned.
+__device__ __forceinline__ void load8(const int32_t* p, int n, int32_t* v,
+                                      int32_t fill) {
+  if (n == 8 && (reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+    const int4 lo = *reinterpret_cast<const int4*>(p);
+    const int4 hi = *reinterpret_cast<const int4*>(p + 4);
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = k < n ? p[k] : fill;
+  }
+}
+
+__device__ __forceinline__ bool transport_small_fits(const TransportArgs& a) {
+  return a.ko <= SMALL && a.ki <= SMALL && a.e <= SMALL &&
+         a.pc - OEXT_COLS < ICOLS;
+}
+
+__device__ __forceinline__ HostOut transport_small(const TransportArgs& a,
+                                                   int hh, int64_t tick,
+                                                   int64_t tp, bool act,
+                                                   int32_t delivered,
+                                                   int64_t t_app) {
+  const int e = a.e, pc = a.pc, ko = a.ko, ki = a.ki;
+  const int xb = pc - OEXT_COLS;
+  const int64_t pbase = (int64_t)hh * ko, ibase = (int64_t)hh * ki;
+  const bool boot = tp < a.bootstrap_end;
+
+  // ---- the host's own words, in chains of at most four loads --------------
+  // Stage words eight at a time; the arrival time of an in-flight inbox
+  // slot and of a parked outbox slot, and the rows of valid emission
+  // lanes, once their stage or valid flag is in; then the valid lanes'
+  // destination vertices, then their routes.
+  int32_t pst[SMALL], ist[SMALL];
+  load8(a.pool_stage + pbase, ko, pst, -1);      // past the slab: never
+  load8(a.ib_stage + ibase, ki, ist, STAGE_FREE);  // picked
+  bool v[SMALL];
+#pragma unroll
+  for (int u = 0; u < SMALL; ++u)
+    v[u] = u < e && a.em_valid[(int64_t)hh * e + u];
+  const int64_t ctr = a.send_ctr[hh];
+  int64_t tokens = a.tokens_tx[hh], last = a.last_refill_tx[hh];
+  const int64_t rate = a.bw_up[hh];
+  const int32_t txq0 = a.tx_queued[hh];
+  int64_t t_resume = a.t_resume[hh];
+  const int32_t vs = a.host_vertex[hh];
+  const int64_t cpu_ns = a.cpu_ns_per_event[hh];
+  int64_t cpu_avail = a.cpu_avail[hh];
+  const int64_t sent0 = a.pkts_sent[hh], bytes0 = a.bytes_sent[hh];
+  const int64_t inet0 = a.pkts_dropped_inet[hh];
+  const int64_t pool0 = a.pkts_dropped_pool[hh];
+#pragma unroll
+  for (int k = 0; k < SMALL; ++k) {
+    keep(pst[k]);
+    keep(ist[k]);
+    keep((int32_t)v[k]);
+  }
+  keep(ctr);
+  keep(tokens);
+  keep(last);
+  keep(rate);
+  keep(txq0);
+  keep(t_resume);
+  keep(vs);
+  keep(cpu_ns);
+  keep(cpu_avail);
+  keep(sent0);
+  keep(bytes0);
+  keep(inet0);
+  keep(pool0);
+  int64_t ptm[SMALL], itm[SMALL];
+#pragma unroll
+  for (int k = 0; k < SMALL; ++k) {
+    ptm[k] = pst[k] == STAGE_TX_QUEUED ? a.pool_time[pbase + k] : INV;
+    itm[k] = INV;
+    if (ist[k] == STAGE_IN_FLIGHT) {
+      const int2 tw = *reinterpret_cast<const int2*>(
+          a.ib_blk + (ibase + k) * a.ic + ICOL_TIME_LO);
+      itm[k] = dec_i64(tw.x, tw.y);
+    }
+  }
+  int32_t dst[SMALL], len[SMALL], proto[SMALL];
+  int64_t t_send[SMALL];
+#pragma unroll
+  for (int u = 0; u < SMALL; ++u) {
+    dst[u] = len[u] = proto[u] = 0;
+    t_send[u] = 0;
+    if (v[u]) {
+      const int32_t* er = a.em_blk + ((int64_t)hh * e + u) * pc;
+      const int2 tw = *reinterpret_cast<const int2*>(er + ICOL_TIME_LO);
+      dst[u] = er[xb + OEXT_DST];
+      t_send[u] = dec_i64(tw.x, tw.y);
+      len[u] = er[ICOL_LEN];
+      proto[u] = er[ICOL_PROTO];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < SMALL; ++k) {
+    keep(ptm[k]);
+    keep(itm[k]);
+    keep(dst[k]);
+    keep(t_send[k]);
+    keep(len[k]);
+    keep(proto[k]);
+  }
+  int32_t vd[SMALL];
+#pragma unroll
+  for (int u = 0; u < SMALL; ++u) {
+    const int32_t d = dst[u] < 0 ? 0 : (dst[u] > a.n_hv - 1 ? a.n_hv - 1
+                                                             : dst[u]);
+    vd[u] = v[u] ? a.host_vertex[d] : 0;
+  }
+#pragma unroll
+  for (int u = 0; u < SMALL; ++u) keep(vd[u]);
+  int64_t lat[SMALL];
+  float rel[SMALL];
+#pragma unroll
+  for (int u = 0; u < SMALL; ++u) {
+    lat[u] = 1;
+    rel[u] = 1.0f;
+    if (v[u] && dst[u] != hh) {            // the same-host path keeps 1, 1
+      const int32_t* rr = a.route_blk +
+                          ((int64_t)vs * a.n_vertices + vd[u]) * RCOLS;
+      lat[u] = imax(dec_i64(rr[0], rr[1]), 1);
+      rel[u] = __int_as_float(rr[2]);
+    }
+  }
+
+  // ---- _stage_emissions, on registers -------------------------------------
+  refill(tokens, last, rate, tp, act);
+  const int64_t budget = tokens;
+  int n_free = 0;
+#pragma unroll
+  for (int k = 0; k < SMALL; ++k) n_free += pst[k] == STAGE_FREE;
+  int64_t psize[SMALL], plat[SMALL];     // rows staged this step
+  bool pnew[SMALL];
+#pragma unroll
+  for (int k = 0; k < SMALL; ++k) {
+    pnew[k] = false;
+    psize[k] = 0;
+    plat[k] = 0;
+  }
+  int nvalid = 0, nlive = 0;
+  int64_t prefix = 0, spent = 0, t_park = INV;
+  int64_t placed_n = 0, sent_bytes = 0, dropped_n = 0, pool_drop_n = 0;
+  int32_t parked_n = 0;
+  bool overflow = false;
+#pragma unroll
+  for (int u = 0; u < SMALL; ++u) {
+    if (!v[u]) continue;
+    const int64_t ctr2 = ctr + nvalid++;
+    if (stage_lost(a, hh, ctr2, rel[u])) {
+      ++dropped_n;
+      continue;
+    }
+    if (nlive++ >= n_free) {                // slab exhausted: counted drop
+      ++pool_drop_n;
+      overflow = true;
+      continue;
+    }
+    // The lowest free slot left (slots fill in ascending order).
+    int slot_k = 0;
+#pragma unroll
+    for (int k = SMALL - 1; k >= 0; --k)
+      if (pst[k] == STAGE_FREE) slot_k = k;
+    ++placed_n;
+    const int64_t send_t = t_send[u] > 0 ? t_send[u] : tp;
+    const int64_t size = wire_size(proto[u], len[u]);
+    prefix += size;
+    const bool admit = boot || (txq0 == 0 && prefix <= budget);
+    if (admit && !boot) spent += size;
+    if (!admit) {
+      ++parked_n;
+      t_park = imin(t_park, send_t);
+    }
+    sent_bytes += len[u];
+    const int64_t time_v = admit ? send_t + lat[u] : send_t;
+#pragma unroll
+    for (int k = 0; k < SMALL; ++k)
+      if (k == slot_k) {
+        pst[k] = admit ? STAGE_IN_FLIGHT : STAGE_TX_QUEUED;
+        ptm[k] = time_v;
+        pnew[k] = true;
+        psize[k] = size;
+        plat[k] = lat[u];
+      }
+    stage_row(a, hh, a.em_blk + ((int64_t)hh * e + u) * pc, pbase + slot_k,
+              ctr2, time_v, send_t, dst[u], lat[u], admit);
+  }
+  tokens -= spent;
+  int32_t txq = txq0 + parked_n;
+  t_resume = imin(t_resume, t_park);
+  a.send_ctr[hh] = ctr + nvalid;
+  a.pkts_sent[hh] = sent0 + placed_n;
+  a.bytes_sent[hh] = bytes0 + sent_bytes;
+  a.pkts_dropped_inet[hh] = inet0 + dropped_n;
+  a.pkts_dropped_pool[hh] = pool0 + pool_drop_n;
+  a.last_refill_tx[hh] = last;
+
+  // ---- _tx_drain_body (skip_refill) ---------------------------------------
+  int64_t tmin = INV;
+  int jsel = ko;
+  if (act) {
+#pragma unroll
+    for (int k = 0; k < SMALL; ++k)
+      if (pst[k] == STAGE_TX_QUEUED && ptm[k] <= tp && ptm[k] < tmin) {
+        tmin = ptm[k];
+        jsel = k;
+      }
+  }
+  if (jsel < ko) {
+    const int64_t slot = pbase + jsel;
+    bool fresh = false;
+    int64_t size = 0, dlat = 0;
+#pragma unroll
+    for (int k = 0; k < SMALL; ++k)
+      if (k == jsel && pnew[k]) {
+        fresh = true;
+        size = psize[k];
+        dlat = plat[k];
+      }
+    if (!fresh) {                           // parked before this step
+      const int32_t* row = a.pool_blk + slot * pc;
+      size = wire_size(row[ICOL_PROTO], row[ICOL_LEN]);
+      dlat = dec_i64(row[xb + OEXT_LAT_LO], row[xb + OEXT_LAT_HI]);
+    }
+    const bool funded = boot || tokens >= size;
+    if (funded) {
+      if (!boot) tokens -= size;
+      a.pool_stage[slot] = STAGE_IN_FLIGHT;
+      a.pool_time[slot] = tp + dlat;
+      if (a.pds_trail) a.pool_status[slot] |= PDS_SND_INTERFACE_SENT |
+                                               PDS_INET_SENT;
+      --txq;
+      if (txq > 0) t_resume = imin(t_resume, tp);
+    } else {
+      t_resume = imin(t_resume, tp + time_until(size - tokens, rate));
+    }
+  }
+  a.tokens_tx[hh] = tokens;
+  a.tx_queued[hh] = txq;
+  a.t_resume[hh] = t_resume;
+
+  // ---- virtual-CPU accounting ---------------------------------------------
+  const int64_t events = (int64_t)delivered + nvalid;
+  if (cpu_ns > 0 && act) {
+    cpu_avail = imax(cpu_avail, tick) + cpu_ns * events;
+    a.cpu_avail[hh] = cpu_avail;
+  }
+
+  // ---- post-step scan (scan_host on the loaded inbox words) ---------------
+  int64_t t_in = INV;
+#pragma unroll
+  for (int k = 0; k < SMALL; ++k)
+    if (ist[k] == STAGE_IN_FLIGHT) t_in = imin(t_in, itm[k]);
+  int64_t th = imin(t_in, imin(t_resume, t_app));
+  if (cpu_ns > 0 && th != INV && a.cpu_threshold >= 0) {
+    const int64_t prec = a.cpu_precision > 1 ? a.cpu_precision : 1;
+    int64_t ready = cpu_avail - a.cpu_threshold;
+    const int64_t rem = floormod(ready, prec);
+    ready = ready - rem + (rem >= prec / 2 ? prec : 0);
+    th = imax(th, ready);
+  }
   return HostOut{th, events, overflow ? 1 : 0};
 }
 

@@ -23,9 +23,9 @@
 // blocks (cudaLaunchCooperativeKernel) runs the window, and grid-wide
 // barriers (cooperative_groups this_grid().sync()) separate what must be
 // ordered:
-//   * the exchange's four passes (exchange.cuh, with the two-class
-//     re-rank in TCP worlds; its scan spread over the whole grid,
-//     ex_scan_grid, one more barrier), then each host's scan
+//   * the exchange's stages (exchange.cuh ex_run: the free lists and
+//     the radix sort's counts, grid scans and scatters, with the
+//     two-class re-rank in TCP worlds), then each host's scan
 //     (transport.cuh scan_host);
 //   * each micro-step: every host runs its phases on its team (the
 //     staging rows go through a scratch tensor, written and read by that
@@ -37,10 +37,11 @@
 //   * the window close: the outbox-pending min over the pool, published
 //     and folded the same way by every block; block 0 writes the state
 //     scalars and the result vector.
-// The partials are double-buffered: every publish -- the exchange scan's
-// chunk sums, the window's opening, each micro-step, the window's close
-// -- flips one parity bit
-// carried through the whole launch.  A block folds parity p right after
+// The partials are double-buffered: every publish -- the window's
+// opening, each micro-step, the window's close (and the v1 exchange
+// scan's chunk sums) -- flips one parity bit carried through the whole
+// launch (the exchange's own stages publish into its own partials, with
+// the same protocol: exchange.cuh ex_publish).  A block folds parity p right after
 // the barrier that follows its publish; the next publish into p comes two
 // publishes later, after the next barrier, which no block passes before
 // every block has finished that fold.  So one barrier per publish
@@ -59,10 +60,10 @@
 // have run (then status 2 if the predicate still holds).  One launch thus
 // runs a whole run_until call: the same windows, micro-steps and
 // n_windows as one launch per window.  The scratch each window reuses is
-// rewritten by the window before it is read: the exchange's counts and
-// fill cursors zeroed, its bucket starts and lists written by the scan
-// and bucket passes, every host's t_h by the scan and its staging lanes
-// by its tick.  One thread per host (the Solo team) in blocks of
+// rewritten by the window before it is read: the exchange's tables,
+// free lists and sort buffers by its stages (ex_run zeroes what it
+// counts into), every host's t_h by the scan and its staging lanes by
+// its tick.  One thread per host (the Solo team) in blocks of
 // kWinBlock = 128 threads: at the bench world (16,384 hosts) the grid is
 // 128 blocks, one on each of 128 of the card's 132 SMs (256-thread blocks
 // filled only 64).  A micro-step has no barrier inside it.
@@ -114,7 +115,6 @@
 #include "phold_tick.cuh"
 #include "transport.cuh"
 
-namespace cg = cooperative_groups;
 using namespace s1;
 
 // Mirrored field for field by the ctypes.Structure in
@@ -212,53 +212,26 @@ __device__ __forceinline__ HostOut all_reduce(const WindowArgs& a,
   return fold(a, buf);
 }
 
-// Exclusive scan of one value a thread over the block (B threads, a
-// multiple of 32): warp shuffles, then the warps' sums through shared
-// memory.  Every thread gets its prefix, and the block's total in
-// `total`.
-template <int B>
-__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
-                                                        int32_t& total) {
-  constexpr int NW = B / 32;
-  __shared__ int32_t wsum[NW];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int32_t inc = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int32_t y = __shfl_up_sync(Warp::FULL, inc, o);
-    if (lane >= o) inc += y;
-  }
-  if (lane == 31) wsum[w] = inc;
-  __syncthreads();
-  int32_t before = 0;
-  total = 0;
-  for (int i = 0; i < NW; ++i) {
-    const int32_t ws = wsum[i];
-    before += i < w ? ws : 0;
-    total += ws;
-  }
-  __syncthreads();                 // wsum is rewritten by the next call
-  return before + inc - v;
-}
-
-// The exchange scan (exchange.cuh ex_scan_block's result: start[d] = the
-// movers of the destinations before d, start[h] = all of them) over the
-// whole grid instead of one block.  Each block takes a contiguous chunk
-// of the counts, one count a thread a tile (coalesced loads), and
-// publishes its chunk's sum with the parity protocol of the partials;
-// after one grid barrier every block folds the sums of the blocks before
-// it and adds them to a block-wide scan of its chunk.  In TCP worlds each
+// The previous exchange design's scan (ExchangeArgs.v1, exchange.cuh):
+// start[d] = the movers of the destinations before d, start[h] = all of
+// them, over the whole grid.  Each block takes a contiguous chunk of the
+// counts, one count a thread a tile (coalesced loads), and publishes its
+// chunk's sum with the parity protocol of the partials; after one grid
+// barrier every block folds the sums of the blocks before it and adds
+// them to a block-wide scan of its chunk.  In TCP worlds each
 // destination's thread also ORs the two-class gate's second word (some
 // destination has more movers than free slots; zeroed by window_open).
 // The caller's next grid barrier publishes `start`.
 template <int B>
-__device__ __forceinline__ void ex_scan_grid(const WindowArgs& a,
-                                             cg::grid_group& grid, int& buf) {
+__device__ __forceinline__ void ex_scan_grid_v1(const WindowArgs& a,
+                                                cg::grid_group& grid,
+                                                int& buf) {
   const ExchangeArgs& x = a.x;
   const int64_t chunk = (x.h + gridDim.x - 1) / gridDim.x;
   const int64_t lo = imin((int64_t)blockIdx.x * chunk, x.h);
   const int64_t hi = imin(lo + chunk, x.h);
   int64_t s = 0;
-  for (int64_t d = lo + threadIdx.x; d < hi; d += B) s += x.cnt[d];
+  for (int64_t d = lo + threadIdx.x; d < hi; d += B) s += x.total[d];
   publish<B>(a, buf, HostOut{INV, s, 0});
   grid.sync();
   __shared__ int64_t s_before, s_total;
@@ -281,10 +254,10 @@ __device__ __forceinline__ void ex_scan_grid(const WindowArgs& a,
   __syncthreads();
   int32_t acc = (int32_t)s_before;
   if (blockIdx.x == 0 && threadIdx.x == 0) x.start[x.h] = (int32_t)s_total;
-  const bool gate = x.gate != nullptr && x.gate[0] != 0;
+  const bool gate = x.tcp && x.part[0] != 0;
   for (int64_t t0 = lo; t0 < hi; t0 += B) {
     const int64_t d = t0 + threadIdx.x;
-    const int32_t c = d < hi ? x.cnt[d] : 0;
+    const int32_t c = d < hi ? x.total[d] : 0;
     int32_t tile;
     const int32_t ex = block_exclusive_scan<B>(c, tile);
     if (d < hi) {
@@ -293,7 +266,7 @@ __device__ __forceinline__ void ex_scan_grid(const WindowArgs& a,
         int nf = 0;
         for (int k = 0; k < x.ki; ++k)
           nf += x.ib_stage[d * x.ki + k] == STAGE_FREE;
-        if (c > nf) atomicOr(&x.gate[1], 1);
+        if (c > nf) atomicOr(&x.part[1], 1);
       }
     }
     acc += tile;
@@ -333,10 +306,12 @@ struct BulkTick {
 // The boundary exchange, its drop accounting (pure ACKs shed first in
 // TCP worlds: engine._exchange_tail), the per-window scan and the window
 // bounds from `now`.  Returns gmin; every block gets the same values.  The
-// exchange is one thread per destination; with a Solo `Team` each
-// destination's thread then scans its host, with Warp a grid sync parts
-// the exchange from a scan on one warp per host.  B is the block size;
-// `clk` marks the exchange's passes.
+// exchange is exchange.cuh ex_run over the whole grid (k_window_tcp's
+// default) or, with x.v1, the previous design's passes (k_window's
+// default, measured faster on phold); after a grid sync each
+// destination's thread does its drop accounting and, with a Solo `Team`,
+// scans its host; with Warp one warp per host scans.  B is the block
+// size; `clk` marks the exchange's stages.
 template <class Tick, class Team, int B>
 __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
                                                cg::grid_group& grid,
@@ -346,28 +321,41 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
   const int h = a.x.h;
   const int64_t gtid = (int64_t)blockIdx.x * B + threadIdx.x;
   const int64_t gstride = (int64_t)gridDim.x * B;
-  for (int64_t d = gtid; d < h; d += gstride) {
-    a.x.cnt[d] = 0;
-    a.x.fill[d] = 0;
-  }
-  if (a.x.gate != nullptr && gtid < 2) a.x.gate[gtid] = 0;
-  grid.sync();
-  for (int64_t i = gtid; i < a.x.p0; i += gstride) ex_count_row(a.x, i);
-  grid.sync();
-  clk.mark(CLK_EX_COUNT);
-  ex_scan_grid<B>(a, grid, buf);
-  grid.sync();
-  clk.mark(CLK_EX_SCAN);
-  for (int64_t i = gtid; i < a.x.p0; i += gstride) ex_bucket_row(a.x, i);
-  grid.sync();
-  clk.mark(CLK_EX_BUCKET);
   const Team tm{};
   constexpr bool solo = Team::W == 1;
   HostOut o{INV, 0, 0};
+  if (a.x.v1) {
+    for (int64_t d = gtid; d < h; d += gstride) {
+      a.x.total[d] = 0;
+      a.x.n_free[d] = 0;
+    }
+    if (gtid < 2) a.x.part[gtid] = 0;
+    grid.sync();
+    for (int64_t i = gtid; i < a.x.p0; i += gstride)
+      ex_count_row_v1(a.x, i);
+    grid.sync();
+    clk.mark(CLK_EX_COUNT);
+    ex_scan_grid_v1<B>(a, grid, buf);
+    grid.sync();
+    clk.mark(CLK_EX_SCAN);
+    for (int64_t i = gtid; i < a.x.p0; i += gstride)
+      ex_bucket_row_v1(a.x, i);
+    grid.sync();
+    clk.mark(CLK_EX_BUCKET);
+  } else {
+    ex_run<B>(a.x, grid, clk);
+    grid.sync();
+  }
   for (int64_t dd = gtid; dd < h; dd += gstride) {
     const int d = (int)dd;
     int32_t total, total_prot, n_free;
-    ex_place_dest(a.x, d, total, total_prot, n_free);
+    if (a.x.v1) {
+      ex_place_dest_v1(a.x, d, total, total_prot, n_free);
+    } else {
+      total = __ldcg(a.x.total + d);
+      total_prot = __ldcg(a.x.total_prot + d);
+      n_free = __ldcg(a.x.n_free + d);
+    }
     const int32_t drops = imax32(total - n_free, 0);
     const int32_t data_drops = imin32(drops, imax32(total_prot - n_free, 0));
     if (data_drops > 0) {
@@ -383,9 +371,9 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
       o.th = imin(o.th, th);
     }
   }
-  clk.mark(CLK_EX_PLACE);
+  if (a.x.v1) clk.mark(CLK_EX_PLACE);
   if (!solo) {
-    grid.sync();
+    if (a.x.v1) grid.sync();    // the v1 rows were placed in the loop above
     const int64_t nw = gstride / Team::W;
     for (int64_t dd = gtid / Team::W; dd < h; dd += nw) {
       const int d = (int)dd;

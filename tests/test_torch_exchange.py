@@ -64,3 +64,58 @@ def test_exchange_equals_jax_kernel(h, seed, pds):
     ref = {n: jax_tree(v) for n, v in zip(names, jout)}
     assert (ref["total"] > ref["n_free"]).any(), "no destination overflowed"
     assert_same(port, ref, f"exchange h={h} seed={seed} pds={pds}")
+
+
+def _chip_smoke():
+    """chip_smoke.py (the repo root's), whose fan-in inputs the card's
+    exchange kernel is held to."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fan_in_world(n_movers, slab, taken):
+    """A JAX bulk world of 4 hosts with chip_smoke.fan_in_arrays applied:
+    about n_movers full-width rows in flight to host 0 from the three
+    others, in shuffled flat order with pure ACKs mixed in, into a slab of
+    `slab` slots of which a fraction `taken` is taken."""
+    f = _chip_smoke().fan_in_arrays(n_movers, slab=slab, taken=taken)
+    h, ko = f["h"], f["ko"]
+    state, params, _app = jsim.build_bulk(num_hosts=h, pool_capacity=h * ko,
+                                          seed=1)
+    pool, ib = state.pool, state.inbox
+    assert pool.blk.shape[0] == h * ko and ib.blk.shape[0] == h * ko
+    blk = np.array(pool.blk)
+    pc = blk.shape[1]
+    blk[:, 3], blk[:, 4], blk[:, 8] = f["proto"], f["flags"], f["length"]
+    blk[:, pc - 4] = f["dst"]
+    pool = pool.replace(blk=blk, stage=f["stage"], time=f["time"])
+    ib = ib.replace(stage=f["istage"])
+    return pool, ib, params
+
+
+@pytest.mark.parametrize("taken,gate", [(0.5, True), (0.1, False)])
+def test_fan_in_exchange_equals_jax_kernel(taken, gate):
+    """The TCP fan-in the card's fan-in probe crafts (chip_smoke.py
+    check_fan_in), cut to 1,600 movers into a 2,048-slot slab: with half
+    the slab taken the destination overflows and the two-class gate is
+    on; with a tenth taken every mover fits and it is off."""
+    h = 4
+    pool, ib, params = _fan_in_world(1_600, 2_048, taken)
+    jout = jax.jit(lambda p, i: jmk.exchange_call(p, i, h, params))(pool, ib)
+    tpool = convert._build(convert.st.PacketPool, jax_tree(pool), "cpu")
+    tib = convert._build(convert.st.Inbox, jax_tree(ib), "cpu")
+    tparams = convert.params_from_jax(jax_tree(params),
+                                      jax_statics(params), device="cpu")
+    tout = tmk.exchange_call(tpool, tib, h, tparams)
+    names = ("pool", "inbox", "total", "total_prot", "n_free")
+    port = {n: convert.to_numpy(v) for n, v in zip(names, tout)}
+    ref = {n: jax_tree(v) for n, v in zip(names, jout)}
+    assert ref["total"][0] >= 1_500, "fewer than 1,500 movers to host 0"
+    assert bool((ref["total_prot"] < ref["total"]).any()) == gate, \
+        "the two-class gate is not as crafted"
+    assert_same(port, ref, f"fan-in exchange taken={taken}")

@@ -6,9 +6,14 @@ side runs its microstep_fused on CPU tensors: the plain deliver -> tick
 -> transport versions the CUDA kernels are held against on the card.
 Inputs are phold H=16 states taken mid-run (mid-window, after the
 exchange and a micro-step), for rx_batch 1 and 2; the full state, the
-per-host next times and their min must be equal."""
+per-host next times and their min must be equal.  A congested, lossy
+case with 12-slot slabs takes K_TRANSPORT's parking, loss and overflow
+branches (against the JAX package's plain micro-step)."""
+
+import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -16,12 +21,23 @@ from shadow1_tpu import sim as jsim
 from shadow1_tpu.core import engine as jeng
 from shadow1_tpu.core import megakernel as jmk
 from shadow1_tpu_torch import convert
+from shadow1_tpu_torch import sim as tsim
 from shadow1_tpu_torch.apps import phold as tphold
+from shadow1_tpu_torch.core import engine as teng
 from shadow1_tpu_torch.core import megakernel as tmk
 
 from _torch_parity import assert_same, jax_statics, jax_tree
 
 MS = 1_000_000
+
+
+# A congested, lossy phold world with 12-slot slabs (the shape of
+# chip_smoke.py's KO world, cut to 16 hosts): at its compared micro-step
+# hosts park packets under the token bucket, lose them to the loss draw
+# and overflow their slabs.
+CONGESTED = dict(num_hosts=16, msgs_per_host=36, mean_delay_ns=2 * MS,
+                 pool_capacity=16 * 12, seed=9, bw_up_Bps=8_000,
+                 bw_down_Bps=6_000, reliability=0.8, bootstrap_end=20 * MS)
 
 
 def _mid_window(rx_batch, t_ms):
@@ -62,3 +78,53 @@ def test_microstep_equals_jax_kernels(rx_batch, t_ms):
                 {"state": jax_tree(js), "th": np.asarray(jth),
                  "gmin": np.asarray(jg)},
                 f"microstep rx_batch={rx_batch} t={t_ms}ms")
+
+
+def _to_jax(obj, tree):
+    """The JAX struct `obj` with every leaf replaced from a numpy tree
+    (convert.to_numpy's layout)."""
+    if dataclasses.is_dataclass(obj):
+        return obj.replace(**{k: _to_jax(getattr(obj, k), v)
+                              for k, v in tree.items()})
+    return jnp.asarray(tree)
+
+
+@pytest.mark.parametrize("rx_batch,t_ms", [(2, 60)])
+def test_congested_microstep_equals_jax_kernels(rx_batch, t_ms):
+    """K_TRANSPORT's branches the light world never takes: the compared
+    micro-step parks, loses and overflows packets, with 12-slot outbox
+    slabs.  The state before it comes from the port's plain path (the
+    same world in both packages) and is carried into JAX, and JAX takes
+    the step through its plain reference (_microstep_core, then
+    _scan_all), which tests/test_megakernel.py pins to the fused kernels:
+    JAX compiles only that step."""
+    kw = dict(CONGESTED, stop_time=2_000 * MS, rx_batch=rx_batch)
+    js, jp, japp = jsim.build_phold(**kw)
+    ts, tp, tapp = tsim.build_phold(**kw, megakernel=False, device="cpu")
+    assert ts.pool.capacity // 16 == 12
+    ts = teng.run_until(ts, tp, tapp, t_ms * MS)
+    ts = teng._exchange(ts, tp)
+    t_h, gmin = teng._scan_all(ts, tp, tapp)
+    we = int(min(max(int(ts.now), int(gmin)) + int(tp.min_latency_ns),
+                 2_000 * MS))
+    ts = teng._microstep_core(ts, tp, tapp, t_h, we)
+    t_h, gmin = teng._scan_all(ts, tp, tapp)
+    assert int(gmin) < we, "the probe window has no second micro-step"
+    state = _to_jax(js, convert.to_numpy(ts))
+    def step(s, th):
+        s = jeng._microstep_core(s, jp, japp, th, we)
+        return (s, *jeng._scan_all(s, jp, japp))
+    js2, jth, jg = jax.jit(step)(state, jnp.asarray(t_h.numpy()))
+    h0, h1 = state.hosts, js2.hosts
+    assert int((h1.tx_queued - h0.tx_queued).max()) > 0, "no packet parked"
+    assert int((h1.pkts_dropped_inet - h0.pkts_dropped_inet).sum()) > 0, \
+        "no packet lost"
+    assert int((h1.pkts_dropped_pool - h0.pkts_dropped_pool).sum()) > 0, \
+        "no slab overflowed"
+    tp = tp.replace(megakernel=True, persistent=False)
+    ts2, th2, g2 = tmk.microstep_fused(ts, tp, tapp, t_h, we)
+    assert_same({"state": convert.to_numpy(ts2), "th": th2.numpy(),
+                 "gmin": g2.numpy()},
+                {"state": jax_tree(js2), "th": np.asarray(jth),
+                 "gmin": np.asarray(jg)},
+                f"congested microstep t={t_ms}ms")

@@ -255,6 +255,6 @@ def test_tcp_transport_takes_one_warp_per_host(h):
     """K_TRANSPORT's TCP kernel (k_transport_tcp) is a plain launch of
     one warp per host, 8 hosts a 256-thread block: its blocks, and so
     its block partials, are ceil(h / 8); the UDP kernel keeps one thread
-    per host."""
+    per host, in 128-thread blocks."""
     assert tmk._transport_blocks(h, True) == -(-h // 8)
-    assert tmk._transport_blocks(h, False) == -(-h // 256)
+    assert tmk._transport_blocks(h, False) == -(-h // 128)
