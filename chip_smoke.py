@@ -25,9 +25,11 @@ Phases, each reported on its own line:
    lossy world through K_WINDOW, through the per-phase kernels and through
    the plain versions, which must agree leaf for leaf.  Also: K_WINDOW's
    windows again with ex_run's exchange instead of k_window's default
-   (the previous passes), equal and timed; K_TRANSPORT's general path (the
-   KO world's 12-slot slabs) against its plain version at every micro-step
-   of a congested, lossy window.
+   (the previous passes), equal and timed; the general paths of K_DELIVER
+   and K_TRANSPORT (the KO world's 12-slot slabs) against their plain
+   versions at every micro-step of a congested, lossy window, and
+   K_WINDOW's (its micro-step's deliver_host) over that window.  Each
+   K_DELIVER check prints the path it took (megakernel.deliver_path).
 4. main path -- the bench world (H = 16,384, 4 messages per host, 10 ms
    mean delay, rx_batch = 2, pool H*8) for 2 simulated seconds through
    engine.run_until / run_chunked with the defaults (megakernel and
@@ -38,7 +40,8 @@ Phases, each reported on its own line:
    window and the device's busy share.  Then its first BUSY_WINDOWS
    windows through K_WINDOW's phase-clock build, traced for the host with
    the most events and for the median host (the split of a micro-step by
-   phase; final state equal to the untraced run's).
+   phase, K_DELIVER's phases summed; final state equal to the untraced
+   run's), and K_DELIVER's bound over those windows' micro-steps.
 5. per-phase path -- the same world and schedule with persistent=False
    (exchange, K_DELIVER, app tick in torch, K_TRANSPORT), counters zeroed
    just before and read just after; its final state must equal the
@@ -175,6 +178,9 @@ REPLACES = {
     "window": "shadow1_tpu/core/megakernel.py:391",
 }
 PER_PHASE = ("exchange", "deliver", "transport")
+# K_DELIVER's CUDA kernel by the path megakernel.deliver_path names.
+DELIVER_KERNELS = {"small": "k_deliver_small", "general": "k_deliver",
+                   "tcp": "k_deliver_tcp"}
 TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
             "transport_tcp": "transport", "window_tcp": "window"}
 # Windows of the persistent TCP main path timed again with CUDA events,
@@ -490,7 +496,8 @@ def tcp_tick_bound(st, out, em, active) -> tuple[int, int]:
                             + (fired + running) * 200)
 
 
-def window_bound(state, params, app, t_target, keep=False, kt=None):
+def window_bound(state, params, app, t_target, keep=False, kt=None,
+                 shares=None):
     """(bytes, operations, micro-steps) of one K_WINDOW call on `state`:
     the sum of what its phases must move and do, counted from this
     window's data by replaying it phase by phase through the per-phase
@@ -502,7 +509,9 @@ def window_bound(state, params, app, t_target, keep=False, kt=None):
     bytes and operations to kt["b"] / kt["ops"] and its CUDA events --
     recorded behind a SPIN_MS GPU spin, so that they bracket only the
     launch's work on the card -- to kt["ev"] (kt["late"] counts launches
-    whose host call outran the spin)."""
+    whose host call outran the spin).  With `shares` (a dict), the
+    exchange's and K_DELIVER's bytes and operations add to
+    shares["exchange"] / shares["deliver"] ([bytes, operations])."""
     import torch
     from shadow1_tpu_torch.core import emit, engine
     from shadow1_tpu_torch.core import megakernel as mk
@@ -514,6 +523,9 @@ def window_bound(state, params, app, t_target, keep=False, kt=None):
     tcp = engine._uses_tcp(app)
     bw_up, bw_dn = engine._window_ctx(state, params)
     b, ops = exchange_bound(state)
+    if shares is not None:
+        shares["exchange"][0] += b
+        shares["exchange"][1] += ops
     st = engine._exchange(clone(state), params, fused=True)
     n_if = int((st.inbox.stage == STAGE_IN_FLIGHT).sum())
     # Scan: slab stages, in-flight times, resume, app and CPU state; t_h.
@@ -533,8 +545,12 @@ def window_bound(state, params, app, t_target, keep=False, kt=None):
                         st.device)
         st, em, dn, tp = mk.deliver_kernel(st, params, app, em, tick_t,
                                            active, we, bw_dn, aux0)
-        b += deliver_bytes(s_in, st, dn, active, app, em if tcp else None)
-        ops += deliver_ops(s_in, dn, active, app, tcp)
+        db = deliver_bytes(s_in, st, dn, active, app, em if tcp else None)
+        do = deliver_ops(s_in, dn, active, app, tcp)
+        b, ops = b + db, ops + do
+        if shares is not None:
+            shares["deliver"][0] += db
+            shares["deliver"][1] += do
         s_in = clone(st)
         if tcp:
             st, em = tcp_mod.run_timers(st, params, em, tp, active)
@@ -573,12 +589,14 @@ def window_bound(state, params, app, t_target, keep=False, kt=None):
     return b, ops, steps
 
 
-def windows_bound(warm, params, app, n: int, kt=None) -> tuple:
+def windows_bound(warm, params, app, n: int, kt=None,
+                  shares=None) -> tuple:
     """(bytes, operations, micro-steps) of the windows of one run from
     `warm` to t_end = now + n x min latency on the persistent path (the
     schedule of busy_windows and of check_window's span; at most n
     windows): the sum of window_bound over them, while the window loop's
-    predicate holds.  `kt` collects K_TRANSPORT's share (window_bound)."""
+    predicate holds.  `kt` collects K_TRANSPORT's share, `shares` the
+    exchange's and K_DELIVER's (window_bound)."""
     from shadow1_tpu_torch.core import engine
     st = engine.clone_state(warm)
     t_end = int(st.now) + n * params.min_latency_ns
@@ -587,7 +605,7 @@ def windows_bound(warm, params, app, n: int, kt=None) -> tuple:
             int(engine._scan_all(st, params, app)[1]),
             int(engine._outbox_pending(st))) < t_end:
         wb, wo, ws, st = window_bound(st, params, app, t_end, keep=True,
-                                      kt=kt)
+                                      kt=kt, shares=shares)
         b, ops, steps = b + wb, ops + wo, steps + ws
     return b, ops, steps
 
@@ -836,6 +854,10 @@ def check_kernels(state, params, app, dev):
         return (clone(s), params, app,
                 emit.empty(h, lanes, s.pool.blk.shape[1], dev), tick_t,
                 active, we, ctx[1], aux0)
+    path = mk.deliver_path(st, params, app)
+    if path != "small":
+        _fail(f"the bench world's K_DELIVER takes the {path} path, not "
+              f"deliver_small")
     out_k = mk.deliver_kernel(*dl_args())
     out_p = mk.deliver_plain(*dl_args())
     errs["deliver"] = require_equal(out_k, out_p, "deliver")
@@ -843,10 +865,10 @@ def check_kernels(state, params, app, dev):
     bounds["deliver"] = (deliver_bytes(st, s2, delivered_n, active, app),
                          deliver_ops(st, delivered_n, active, app))
     times["deliver"] = (time_call(mk.deliver_kernel, dl_args,
-                                  kernel="k_deliver"),
+                                  kernel=DELIVER_KERNELS[path]),
                         time_call(mk.deliver_plain, dl_args))
-    print(f"kernels: deliver equal ({int(delivered_n.sum())} deliveries)",
-          flush=True)
+    print(f"kernels: deliver equal ({int(delivered_n.sum())} deliveries; "
+          f"{path} path, {DELIVER_KERNELS[path]})", flush=True)
 
     s2, em = engine._app_tick(s2, params, app, em, t_post, active, we)
     t_app = app.next_time(s2)
@@ -872,11 +894,15 @@ def check_kernels(state, params, app, dev):
     return times, bounds, errs
 
 
-def check_transport_ko(dev) -> str:
-    """K_TRANSPORT against transport_plain at every micro-step of the
-    window after KO_NS in the KO world (12-slot outbox slabs, congested,
-    lossy, PDS trail and CPU model on), torch.equal on every output; the
-    compared steps must park, lose and overflow packets."""
+def check_ko(dev) -> list:
+    """The general paths on the KO world (12-slot slabs, congested, lossy,
+    PDS trail and CPU model on), torch.equal on every output: K_DELIVER
+    (deliver_host, which slabs above deliver_small's eight take) and
+    K_TRANSPORT against their plain versions at every micro-step of the
+    window after KO_NS, where the compared steps must park, lose and
+    overflow packets; then K_WINDOW, whose micro-step takes deliver_host
+    too, against window_plain over that window.  Returns printable
+    lines."""
     import torch
     from shadow1_tpu_torch import sim
     from shadow1_tpu_torch.core import emit, engine
@@ -887,6 +913,9 @@ def check_transport_ko(dev) -> str:
                             cpu_ns_per_event=torch.full_like(
                                 params.cpu_ns_per_event, 50_000))
     state = engine.run_until(state, params, app, KO_NS)
+    path = mk.deliver_path(state, params, app)
+    if path != "general":
+        _fail(f"KO world: K_DELIVER takes the {path} path, not deliver_host")
     clone = engine.clone_state
     h = state.hosts.num_hosts
     ctx = engine._window_ctx(state, params)
@@ -895,12 +924,23 @@ def check_transport_ko(dev) -> str:
     we = min(max(int(st.now), int(gmin)) + params.min_latency_ns,
              params.stop_time)
     steps, took = 0, {"parked": 0, "lost": 0, "overflow": 0}
+    rx = {"delivered": 0, "router drops": 0}
     while int(gmin) < we:
         s1, active, tick_t = engine._tick_setup(clone(st), t_h, we)
         aux0 = engine._aux_times(s1, params, app)
-        em0 = emit.empty(h, engine._n_lanes(app), s1.pool.blk.shape[1], dev)
-        s2, em, dn, tp = mk.deliver_plain(s1, params, app, em0, tick_t,
-                                          active, we, ctx[1], aux0)
+
+        def dl_args(s=s1):
+            return (clone(s), params, app,
+                    emit.empty(h, engine._n_lanes(app),
+                               s.pool.blk.shape[1], dev),
+                    tick_t, active, we, ctx[1], aux0)
+        out_k = mk.deliver_kernel(*dl_args())
+        s2, em, dn, tp = mk.deliver_plain(*dl_args())
+        require_equal(out_k, (s2, em, dn, tp),
+                      f"deliver (KO world, step {steps})")
+        rx["delivered"] += int(dn.sum())
+        rx["router drops"] += int((s2.hosts.pkts_dropped_router
+                                   - s1.hosts.pkts_dropped_router).sum())
         s2, em = engine._app_tick(s2, params, app, em, tp, active, we)
         t_app = app.next_time(s2)
 
@@ -922,10 +962,22 @@ def check_transport_ko(dev) -> str:
     if min(took.values()) <= 0:
         _fail(f"KO world: the compared steps did not park, lose and "
               f"overflow packets: {took}")
-    return (f"kernels: transport (KO world, H={KO['num_hosts']}, "
-            f"{KO['pool_capacity'] // KO['num_hosts']}-slot outbox slabs) "
-            f"equal at all {steps} micro-steps of the window after "
-            f"{KO_NS // MS} ms; {took}")
+    if rx["delivered"] <= 0:
+        _fail(f"KO world: the compared steps delivered nothing: {rx}")
+    pw = params.replace(persistent=True)
+    win_k = mk.window_kernel(clone(state), pw, app, params.stop_time)
+    win_p = mk.window_plain(clone(state), pw, app, params.stop_time)
+    require_equal(win_k, win_p, "window (KO world)")
+    world = (f"KO world, H={KO['num_hosts']}, "
+             f"{KO['pool_capacity'] // KO['num_hosts']}-slot slabs")
+    return [f"kernels: deliver ({world}; {path} path, "
+            f"{DELIVER_KERNELS[path]}) equal at all {steps} micro-steps of "
+            f"the window after {KO_NS // MS} ms; {rx}",
+            f"kernels: transport ({world}) equal at all {steps} micro-steps "
+            f"of that window; {took}",
+            f"kernels: window ({world}; K_DELIVER's {path} path inside) "
+            f"equal over that window "
+            f"({int(win_p[0].n_steps) - int(state.n_steps)} micro-steps)"]
 
 
 def check_window(state, params, app, advance=3, label="kernels: window",
@@ -1487,6 +1539,8 @@ CLK_PHASES = [(27, "open: exchange count"), (28, "open: exchange scans"),
     (26, "rx write-back"), (18, "run_timers"), (19, "tick"),
     (20, "transmit+staging"), (21, "TX drain"), (22, "post-step scan"),
     (23, "step close"), (24, "window close")]
+# The phases of K_DELIVER's body among them.
+RX_PHASES = (25, 1, *range(2, 18), 26)
 
 
 def phase_trace(warm, params, app, n: int, host: int = 0,
@@ -1527,6 +1581,12 @@ def phase_trace(warm, params, app, n: int, host: int = 0,
                or name == "step close")
     lines.append(f"{label}: grid barriers (gates + step close) "
                  f"{gate / total * 100:.2f} % of the traced host's cycles")
+    rx = sum(cyc[i] for i in RX_PHASES)
+    lines.append(f"{label}: K_DELIVER's phases (tick setup, router "
+                 f"enqueue, the rounds, rx write-back) {rx / total * 100:.2f} "
+                 f"%, {rx / traced:.1f} cycles and "
+                 f"{dev_ms * rx / total / traced * 1e3:.3f} us per "
+                 f"micro-step")
     ex = sum(cyc[i] for i in (27, 28, 29, 30))
     lines.append(f"{label}: the window open's exchange (count, scans, sort, "
                  f"place) {ex / max(windows, 1):.1f} cycles and "
@@ -1543,12 +1603,23 @@ def phold_trace(warm, params, app, n: int) -> list:
     untraced run's.  Returns printable lines."""
     import torch
     ref, wall, ms = _timed_windows(warm, params, app, n)
-    b, ops, steps = windows_bound(warm, params, app, n)
+    sh = {"exchange": [0, 0], "deliver": [0, 0]}
+    b, ops, steps = windows_bound(warm, params, app, n, shares=sh)
+    windows = int(ref.n_windows) - int(warm.n_windows)
     lines = [f"main path (persistent): the first {n} windows ({steps} "
              f"micro-steps) in {len(ms)} K_WINDOW call(s): device "
              f"{sum(ms):.4f} ms (CUDA events), wall {wall:.4f} s; they must "
              f"move {b} bytes and do {ops} operations: bound "
-             f"{bound_ms(b, ops):.6f} ms"]
+             f"{bound_ms(b, ops):.6f} ms",
+             f"main path (persistent): K_DELIVER's share of those windows "
+             f"must move {sh['deliver'][0]} bytes and do "
+             f"{sh['deliver'][1]} operations: bound "
+             f"{bound_ms(*sh['deliver']) / max(steps, 1):.6f} ms a "
+             f"micro-step; the exchange's at their {windows} opens "
+             f"{sh['exchange'][0]} bytes and {sh['exchange'][1]} "
+             f"operations: bound "
+             f"{bound_ms(*sh['exchange']) / max(windows, 1):.6f} ms a "
+             f"window"]
     ev = (ref.app.sent + ref.app.recv) - (warm.app.sent + warm.app.recv)
     order = torch.argsort(ev, stable=True)
     busiest, typical = int(order[-1]), int(order[len(order) // 2])
@@ -1745,7 +1816,8 @@ def main() -> int:
     finally:
         mk.set_window_exchange_v1(None)
     del state
-    print(check_transport_ko(dev), flush=True)
+    for line in check_ko(dev):
+        print(line, flush=True)
 
     # f64 log1p of the delay draw on all 2^24 inputs, card vs CPU: the
     # plain torch emulation (per-phase path) and K_WINDOW's device log1p.
@@ -1799,10 +1871,15 @@ def main() -> int:
         "pkts_dropped_inet", "pkts_dropped_router", "pkts_dropped_pool")}
     if min(drops.values()) <= 0:
         _fail(f"stressed world did not take every drop path: {drops}")
+    path = mk.deliver_path(finals["plain"], p0, a0)
+    if path != "small":
+        _fail(f"the stressed world's K_DELIVER takes the {path} path, not "
+              f"deliver_small")
     print(f"kernels: stressed world (H={STRESS['num_hosts']}, "
           f"{STRESS_NS // MS} ms) equal through K_WINDOW, the per-phase "
-          f"kernels and the plain versions; {int(hs.pkts_sent.numel())} "
-          f"hosts, {int(finals['plain'].n_steps)} micro-steps, "
+          f"kernels and the plain versions (K_DELIVER's {path} path); "
+          f"{int(hs.pkts_sent.numel())} hosts, "
+          f"{int(finals['plain'].n_steps)} micro-steps, "
           f"{int(finals['plain'].n_windows)} windows, drops {drops}",
           flush=True)
     del finals

@@ -37,7 +37,8 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {
     "exchange": {"exchange_launch": [_P, _I, _P],
                  "exchange_occupancy": [_P, _P]},
-    "deliver": {"deliver_launch": [_P, _P, _P]},
+    "deliver": {"deliver_launch": [_P, _P, _P],
+                "deliver_fits_small": [_P]},
     "transport": {"transport_launch": [_P, _P, _P]},
     "window": {"window_launch": [_P, _P], "window_tcp_launch": [_P, _P],
                "window_occupancy": [_I, _P, _P],

@@ -29,7 +29,8 @@ host -- K_DELIVER's and K_WINDOW's hosts walked warp-stride over a
 cooperative grid sized from the occupancy query, K_TRANSPORT's as a plain
 launch of one warp per host -- so no host count is refused; the UDP
 kernels run one thread per host (csrc/common.cuh, the Solo and Warp
-teams).  The exchange is one cooperative launch of a
+teams), with the host's loads in a few dependent steps where its slabs
+fit (deliver_small, transport_small).  The exchange is one cooperative launch of a
 stable radix sort of the movers by destination (csrc/exchange.cuh
 ex_run), which K_WINDOW's window open shares.
 
@@ -460,9 +461,10 @@ def _deliver_struct(state, params, app, bw_dn, window_end=0, tick_t=None,
 
 def deliver_kernel(state, params, app, em, tick_t, active, window_end,
                    bw_dn, aux0):
-    """Launch csrc/deliver.cu: _rx_phase with one thread per host (in TCP
-    worlds one cooperative grid of one warp per host, process_arrivals
-    included, replies into `em`).  Updates the inbox, hosts, socket
+    """Launch csrc/deliver.cu: _rx_phase with one thread per host --
+    deliver_small where the world fits, else deliver_host (deliver_path
+    says which) -- or, in TCP worlds, one cooperative grid of one warp per
+    host, process_arrivals included, replies into `em`.  Updates the inbox, hosts, socket
     tensors, err and `em` in place; returns (state, em, delivered_n,
     t_post)."""
     from . import _build
@@ -490,6 +492,20 @@ def deliver_kernel(state, params, app, em, tick_t, active, window_end,
                                  _stream()), "deliver")
     LAUNCHES["deliver"] += 1
     return state, em, delivered_n, t_post
+
+
+def deliver_path(state, params, app) -> str:
+    """The body K_DELIVER (and phold's K_WINDOW micro-step) runs on this
+    world, as csrc/deliver.cu decides it: "tcp" (deliver_tcp_warps),
+    "small" (deliver_small, the world fits) or "general" (deliver_host).
+    Builds the library if needed (card only)."""
+    from . import _build
+    if engine._uses_tcp(app):
+        return "tcp"
+    a = _deliver_struct(state, params, app,
+                        engine._window_ctx(state, params)[1])
+    fits = _build.load("deliver").deliver_fits_small(ctypes.byref(a))
+    return "small" if fits else "general"
 
 
 def deliver_call(state, params, app, em, tick_t, active, window_end, bw_dn,

@@ -139,20 +139,31 @@ __device__ __forceinline__ int64_t wire_size(int32_t proto, int32_t len) {
   return (int64_t)w * SCALE;
 }
 
-// nic.refill: lazy continuous token refill (updates where mask).
+// nic.refill's longest counted interval: a function of the rate alone (an
+// int64 division), so a caller that refills more than once takes it once.
+__device__ __forceinline__ int64_t refill_span(int64_t rate) {
+  const int64_t r1 = rate > 1 ? rate : 1;
+  return REFILL_INTERVAL_NS + floordiv(MTU * SCALE, r1) + 1;
+}
+
+// nic.refill: lazy continuous token refill (updates where mask), given
+// refill_span(rate).
 __device__ __forceinline__ void refill(int64_t& tokens, int64_t& last,
-                                       int64_t rate, int64_t now,
-                                       bool mask) {
-  int64_t r1 = rate > 1 ? rate : 1;
-  int64_t fill_time = REFILL_INTERVAL_NS + floordiv(MTU * SCALE, r1) + 1;
+                                       int64_t rate, int64_t span,
+                                       int64_t now, bool mask) {
   int64_t dt = now - last;
-  dt = dt < 0 ? 0 : (dt > fill_time ? fill_time : dt);
+  dt = dt < 0 ? 0 : (dt > span ? span : dt);
   int64_t cap = rate * REFILL_INTERVAL_NS + MTU * SCALE;
   int64_t acc = imin(cap, tokens + dt * rate);
   if (mask) {
     tokens = acc;
     last = now;
   }
+}
+__device__ __forceinline__ void refill(int64_t& tokens, int64_t& last,
+                                       int64_t rate, int64_t now,
+                                       bool mask) {
+  refill(tokens, last, rate, refill_span(rate), now, mask);
 }
 
 // nic.time_until: ns until `deficit` more tokens accrue (ceil).
@@ -277,6 +288,41 @@ __device__ __forceinline__ void each_slot(const Team& tm,
   } else {
     for (int k = tm.lane(); k < n; k += Team::W) f(k, stage[k]);
   }
+}
+
+// Pins a loaded value before this point: an empty asm that takes it as an
+// input keeps the compiler from sinking its load past here, so the loads
+// of one step of a chain (transport_small, deliver_small) are in flight
+// together.
+__device__ __forceinline__ void keep(int64_t x) { asm volatile("" ::"l"(x)); }
+__device__ __forceinline__ void keep(int32_t x) { asm volatile("" ::"r"(x)); }
+
+// Words [0, n) of p (n <= 8) into v[0..8), `fill` past n: two 16-byte
+// loads where all eight are there and aligned.
+__device__ __forceinline__ void load8(const int32_t* p, int n, int32_t* v,
+                                      int32_t fill) {
+  if (n == 8 && (reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+    const int4 lo = *reinterpret_cast<const int4*>(p);
+    const int4 hi = *reinterpret_cast<const int4*>(p + 4);
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = k < n ? p[k] : fill;
+  }
+}
+
+// 8 bytes from global memory to the calling thread's shared memory
+// without passing through registers (cp.async); copy_wait() waits for every
+// copy the thread has issued and makes them visible to it.
+__device__ __forceinline__ void copy8_async(int2* dst, const int32_t* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The lowest index >= `from` (and < n) whose `stage` is STAGE_FREE, or n:

@@ -8,13 +8,23 @@
 // the NIC rx token bucket and CoDel, into the UDP socket ring or through
 // tcp.process_arrivals (tcp.cuh) with its reply segment.
 //
-// UDP worlds (k_deliver): one thread per host (deliver_host with the Solo
-// team, deliver.cuh, which phold's K_WINDOW shares).  Every phase is
-// row-local by the megakernel's blocking contract (megakernel.py:30-37):
-// a host touches only its own inbox slab, host row and socket rows, so
-// threads never share a written word and need no synchronisation.  The
-// inbox slab is re-scanned from global memory each round (ki = 8 rows at
-// the bench world; L1 keeps them).
+// UDP worlds: one thread per host in 128-thread blocks (kUdpBlock), so
+// the bench world's 16,384 hosts are 128 blocks, one on each of 128 of
+// the card's 132 SMs (256-thread blocks left half of them idle).  Every
+// phase is row-local by the megakernel's blocking contract
+// (megakernel.py:30-37): a host touches only its own inbox slab, host row
+// and socket rows, so threads never share a written word and need no
+// synchronisation.  A host's work is a chain of dependent loads, and what
+// sets the time is that chain's depth.  Worlds that fit
+// (deliver_small_fits: slabs and socket tables of at most 8 slots,
+// rx_batch at most 8, even row widths; the bench world does) take
+// k_deliver_small, deliver.cuh deliver_small, which phold's K_WINDOW
+// shares: the host's own words in one step, its live slots' rows in a
+// second, then the enqueue, the rounds, CoDel and the ring appends on
+// registers and one write-back.  Other UDP worlds take k_deliver,
+// deliver_host on the Solo team, which re-reads the slab's stage words
+// and live rows each round and walks the sockets after each pick.  The
+// launcher decides once per launch, from the arguments.
 //
 // TCP worlds (k_deliver_tcp): one warp per host, walked warp-stride over
 // a cooperative grid sized from the occupancy query, so any number of
@@ -33,20 +43,40 @@
 // state, the rows it consumes and the receivers' socket rows, and write
 // back the fields it changes, the ring entries and two [H] outputs --
 // about 1 MB at the bench world's mid-window step (chip_smoke.py
-// deliver_bytes counts it), a fraction of a microsecond of HBM time.  In
-// the bulk TCP world the server's 3,200-slot slab and 204 sockets set the
-// time: a warp walks them in ~100 coalesced steps a pass, then the TCP
-// machine runs serially on the matched socket.
+// deliver_bytes counts it), a fraction of a microsecond of HBM time.
+// What sets the UDP kernels' time is each host's chain of dependent loads
+// (~1-2 us a step inside these kernels, PERF.md): two steps in
+// deliver_small, against about a dozen in deliver_host.  In the bulk TCP
+// world the server's 3,200-slot slab and 204 sockets set the time: a warp
+// walks them in ~100 coalesced steps a pass, then the TCP machine runs
+// serially on the matched socket.
 #include "deliver.cuh"
 
 using namespace s1;
 
 namespace {
 
-constexpr int kDeliverBlock = 256;
+constexpr int kDeliverBlock = 256;    // k_deliver_tcp
+constexpr int kUdpBlock = 128;        // k_deliver_small, k_deliver
 
-__global__ void k_deliver(DeliverArgs a) {
-  const int hh = blockIdx.x * blockDim.x + threadIdx.x;
+// UDP worlds that fit (deliver_small_fits): the host's loads in two
+// dependent steps, the rest on registers.
+__global__ void __launch_bounds__(kUdpBlock) k_deliver_small(DeliverArgs a) {
+  __shared__ RxRows<kUdpBlock> rows;
+  const int hh = blockIdx.x * kUdpBlock + threadIdx.x;
+  if (hh >= a.h) return;
+  Clk clk = make_clk(nullptr, false);
+  RxIn in;
+  const DeliverOut o = deliver_small(a, hh, PhaseRxIn{a}, a.window_end, rows,
+                                     in, clk);
+  a.delivered_n[hh] = o.delivered;
+  a.t_post[hh] = o.t_post;
+}
+
+// Other UDP worlds (larger slabs or socket tables): deliver_host on one
+// thread.
+__global__ void __launch_bounds__(kUdpBlock) k_deliver(DeliverArgs a) {
+  const int hh = blockIdx.x * kUdpBlock + threadIdx.x;
   if (hh >= a.h) return;
   Clk clk = make_clk(nullptr, false);
   const DeliverOut o = deliver_host(a, Solo{}, hh, a.tick_t[hh],
@@ -79,17 +109,22 @@ __global__ void __launch_bounds__(kDeliverBlock, 2)
 
 }  // namespace
 
-// `tcp` is null in UDP worlds.  Returns a CUDA error code.  The TCP grid
-// is as many blocks as the card keeps resident (the occupancy query), at
-// most one warp per host.
+// `tcp` is null in UDP worlds, which take k_deliver_small where the world
+// fits (deliver_small_fits) and k_deliver otherwise.  Returns a CUDA error
+// code.  The TCP grid is as many blocks as the card keeps resident (the
+// occupancy query), at most one warp per host.
 extern "C" int deliver_launch(const DeliverArgs* args, const TcpArgs* tcp,
                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int tb = kDeliverBlock;
   if (tcp == nullptr) {
-    k_deliver<<<(args->h + tb - 1) / tb, tb, 0, st>>>(*args);
+    const int nb = (args->h + kUdpBlock - 1) / kUdpBlock;
+    if (deliver_small_fits(*args))
+      k_deliver_small<<<nb, kUdpBlock, 0, st>>>(*args);
+    else
+      k_deliver<<<nb, kUdpBlock, 0, st>>>(*args);
     return (int)cudaGetLastError();
   }
+  const int tb = kDeliverBlock;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -109,4 +144,10 @@ extern "C" int deliver_launch(const DeliverArgs* args, const TcpArgs* tcp,
   e = cudaLaunchCooperativeKernel((const void*)k_deliver_tcp, dim3(nb),
                                   dim3(tb), params, 0, st);
   return (int)e;
+}
+
+// 1 if a UDP world with these arguments takes deliver_small (k_deliver_small,
+// and k_window's micro-step), else 0.
+extern "C" int deliver_fits_small(const DeliverArgs* args) {
+  return deliver_small_fits(*args) ? 1 : 0;
 }

@@ -13,9 +13,13 @@
 // scoreboard gates (tcp.cuh), which GridGate ORs over the grid.
 //
 // The pieces (rx_open, rx_round, rx_close) take a team (common.cuh): the
-// UDP kernels run deliver_host on one thread per host, the TCP kernels
-// run deliver_tcp_warps, one warp per host, with each round split at its
-// gate barrier and the host's state parked in device scratch across it.
+// UDP kernels run deliver_host on one thread per host where the world is
+// larger than deliver_small takes, the TCP kernels run deliver_tcp_warps,
+// one warp per host, with each round split at its gate barrier and the
+// host's state parked in device scratch across it.  deliver_small (below)
+// is the UDP body for worlds of up to 8-slot slabs and 8 sockets (the
+// bench world): the same values as deliver_host on one thread, with the
+// host's loads in two dependent steps and the rest on registers.
 #pragma once
 #include <cooperative_groups.h>
 
@@ -371,6 +375,345 @@ __device__ __forceinline__ DeliverOut deliver_host(const DeliverArgs& a,
   const DeliverOut o = rx_close(a, tm, c, hh);
   clk.mark(CLK_RXCLOSE);
   return o;
+}
+
+// ---------------------------------------------------------------------------
+// deliver_small: deliver_host<Solo>'s body for the UDP kernels (k_deliver,
+// phold's k_window) in worlds that fit: inbox slabs and socket tables of
+// at most RX_SMALL slots, rx_batch at most RX_SMALL_BATCH, rows of an even
+// number of 4-byte columns from an 8-byte aligned base (the bench world:
+// 8-slot slabs, 4 sockets, rx_batch 2, 14 columns).  Written so that a
+// host's loads are two dependent steps deep:
+//   1. everything that depends only on the host, issued at once: the
+//      caller's four words that give its tick, active flag, rx_batch bound
+//      and resume time (`Setup`: the per-phase arrays, or K_WINDOW's tick
+//      setup), the slab's stage words (two 16-byte loads), the receive
+//      fields of its row and bw_dn, and its sockets' type, ports, peer and
+//      ring head and count;
+//   2. for the live slots (in flight or rx-queued) of an active host,
+//      predicated: the columns every round compares (time, src, ctr) into
+//      registers, and the three 8-byte pieces only a picked row needs
+//      ((src, sport), (dport, proto), (len, payload)) into the thread's
+//      rows of shared memory `rows` by cp.async, which spends no register.
+// Then the router enqueue, each round's lexicographic min over (time, key,
+// slot), the NIC refill and CoDel (rsqrt_tab is read only on CoDel's
+// spacing path), the socket score and the ring append run on registers and
+// slot bitmasks (in flight, rx-queued; a funded pick leaves both), the
+// picked row's pieces read from shared memory at its slot; each socket's
+// ring count is carried across the rounds (two deliveries of one step may
+// fill one ring).  One write-back at the end, for active hosts only (an
+// inactive host's words do not change): the stage words of the slots that
+// changed, the PDS trail's status bits and the socket's byte count added
+// by atomics whose result is not read (the thread is the words' only
+// writer, so the sums are exact).  Register arrays are indexed by unrolled
+// constants.  The same values as deliver_host<Solo> on the inputs
+// Setup::resolve gives (returned in `in`; K_WINDOW's re-armed resume time
+// is written back with the row).
+// ---------------------------------------------------------------------------
+
+constexpr int RX_SMALL = 8;
+constexpr int RX_SMALL_BATCH = 8;
+
+// Does the world fit deliver_small?  The same for every host of a launch
+// (deliver_launch and k_window decide once from the arguments).
+__host__ __device__ inline bool deliver_small_fits(const DeliverArgs& a) {
+  return a.ki <= RX_SMALL && a.slots <= RX_SMALL &&
+         a.rx_batch <= RX_SMALL_BATCH && (a.ic & 1) == 0 &&
+         (reinterpret_cast<uintptr_t>(a.ib_blk) & 7u) == 0;
+}
+
+// A host's inputs to its delivery phase: its tick, the rx_batch bound at
+// batch start (aux0), its resume time as the phase starts, and whether it
+// is active.
+struct RxIn {
+  int64_t tick, aux0, t_resume;
+  bool act;
+};
+
+// deliver_small's inputs in the per-phase kernel: K_DELIVER's arrays.
+struct PhaseRxIn {
+  const DeliverArgs& a;
+  __device__ void load(int hh, int64_t* w) const {
+    w[0] = a.tick_t[hh];
+    w[1] = a.active[hh];
+    w[2] = a.rx_batch > 1 ? a.aux0[hh] : INV;
+    w[3] = a.t_resume[hh];
+  }
+  __device__ RxIn resolve(const int64_t* w) const {
+    return RxIn{w[0], w[2], w[3], w[1] != 0};
+  }
+};
+
+// The shared memory deliver_small takes in a block of B threads: three
+// 8-byte pieces of RX_SMALL rows a thread, [piece][slot][thread].
+template <int B>
+struct RxRows {
+  int2 w[3 * RX_SMALL * B];
+};
+
+template <int B, class Setup>
+__device__ __forceinline__ DeliverOut deliver_small(
+    const DeliverArgs& a, int hh, const Setup& setup, int64_t window_end,
+    RxRows<B>& rows, RxIn& in, Clk& clk) {
+  const int ki = a.ki, ic = a.ic, S = a.slots, rb = a.rx_batch;
+  const int64_t base = (int64_t)hh * ki, sbase = (int64_t)hh * S;
+  int2* const mine = rows.w + threadIdx.x;   // piece f of slot k at
+                                             // mine[(f * RX_SMALL + k) * B]
+
+  // ---- step 1: the host's own words -------------------------------------
+  int64_t w_in[4];
+  setup.load(hh, w_in);
+  int32_t st[RX_SMALL];
+  load8(a.ib_stage + base, ki, st, STAGE_FREE);
+  int64_t tokens = a.tokens_rx[hh], last = a.last_refill_rx[hh];
+  const int64_t rate = a.bw_dn[hh];
+  int32_t rxq = a.rx_queued[hh];
+  const int32_t cd_count = a.codel_count[hh];
+  const int32_t cd_dropping = a.codel_dropping[hh];
+  const int64_t cd_first = a.codel_first_above[hh];
+  const int64_t cd_next = a.codel_drop_next[hh];
+  int64_t dropped = a.pkts_dropped_router[hh];
+  int64_t pkts = a.pkts_recv[hh], bytes = a.bytes_recv[hh];
+  int32_t s_type[RX_SMALL], s_port[RX_SMALL], s_phost[RX_SMALL],
+      s_pport[RX_SMALL], s_head[RX_SMALL], s_cnt[RX_SMALL];
+#pragma unroll
+  for (int s = 0; s < RX_SMALL; ++s) {
+    s_type[s] = s_port[s] = s_phost[s] = s_pport[s] = s_head[s] =
+        s_cnt[s] = 0;
+    if (s < S) {
+      s_type[s] = a.stype[sbase + s];
+      s_port[s] = a.local_port[sbase + s];
+      s_phost[s] = a.peer_host[sbase + s];
+      s_pport[s] = a.peer_port[sbase + s];
+      s_head[s] = a.udp_head[sbase + s];
+      s_cnt[s] = a.udp_count[sbase + s];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RX_SMALL; ++k) {
+    keep(st[k]);
+    keep(s_type[k]);
+    keep(s_port[k]);
+    keep(s_phost[k]);
+    keep(s_pport[k]);
+    keep(s_head[k]);
+    keep(s_cnt[k]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) keep(w_in[j]);
+  keep(tokens);
+  keep(last);
+  keep(rate);
+  keep(rxq);
+  keep(cd_count);
+  keep(cd_dropping);
+  keep(cd_first);
+  keep(cd_next);
+  keep(dropped);
+  keep(pkts);
+  keep(bytes);
+  in = setup.resolve(w_in);
+  const int64_t tick = in.tick;
+  const bool act = in.act;
+  int64_t t_resume = in.t_resume;
+  clk.mark(CLK_SETUP);
+
+  // Slot masks (bit k: slot k) and the UDP sockets' mask.
+  uint32_t inf_m = 0, rxq_m = 0, udp_m = 0;
+#pragma unroll
+  for (int k = 0; k < RX_SMALL; ++k) {
+    if (act && st[k] == STAGE_IN_FLIGHT) inf_m |= 1u << k;
+    if (act && st[k] == STAGE_RX_QUEUED) rxq_m |= 1u << k;
+    if (k < S && s_type[k] == SOCK_UDP) udp_m |= 1u << k;
+  }
+
+  // ---- step 2: the live slots' rows ---------------------------------------
+  int64_t tm[RX_SMALL], key[RX_SMALL];
+  int32_t src[RX_SMALL];
+#pragma unroll
+  for (int k = 0; k < RX_SMALL; ++k) {
+    tm[k] = key[k] = INV;
+    src[k] = 0;
+    if ((inf_m | rxq_m) & (1u << k)) {
+      const int32_t* row = a.ib_blk + (base + k) * ic;
+      const int2 wt = *reinterpret_cast<const int2*>(row + ICOL_TIME_LO);
+      const int2 wc = *reinterpret_cast<const int2*>(row + ICOL_CTR_LO);
+      src[k] = row[ICOL_SRC];
+      tm[k] = dec_i64(wt.x, wt.y);
+      key[k] = ((int64_t)src[k] << 40) | dec_i64(wc.x, wc.y);
+      copy8_async(mine + (0 * RX_SMALL + k) * B, row + ICOL_SRC);
+      copy8_async(mine + (1 * RX_SMALL + k) * B, row + ICOL_DPORT);
+      copy8_async(mine + (2 * RX_SMALL + k) * B, row + ICOL_LEN);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RX_SMALL; ++k) {
+    keep(tm[k]);
+    keep(key[k]);
+  }
+
+  // ---- router enqueue and the receive state, on registers -----------------
+  uint32_t enq_m = 0;                    // enqueued by this step
+#pragma unroll
+  for (int k = 0; k < RX_SMALL; ++k)
+    if ((inf_m & (1u << k)) && tm[k] <= tick) enq_m |= 1u << k;
+  inf_m &= ~enq_m;
+  rxq_m |= enq_m;
+  rxq += __popc(enq_m);
+  const bool boot = tick < a.bootstrap_end;
+  const int64_t span = refill_span(rate);
+  refill(tokens, last, rate, span, tick, act);
+  int64_t bound = tick;
+  if (rb > 1) {
+    bound = imin(in.aux0, tick + ONE_MS);
+    bound = imin(bound, window_end - 1);
+  }
+  uint32_t late_m = 0;                   // in flight and due by `bound`
+#pragma unroll
+  for (int k = 0; k < RX_SMALL; ++k)
+    if (tm[k] <= bound) late_m |= 1u << k;
+  Codel cd{cd_count, cd_dropping != 0, cd_first, cd_next};
+  int32_t delivered = 0;
+  int64_t t_post = tick;
+  uint32_t drop_m = 0, rcv_m = 0;        // funded picks, dropped / not
+  uint32_t pushed_m = 0;                 // sockets whose ring count grew
+  copy_wait();
+  clk.mark(CLK_ENQUEUE);
+
+  // ---- the delivery rounds, on registers ----------------------------------
+  for (int r = 0; r < rb; ++r) {
+    const int64_t limit = r == 0 ? tick : bound;
+    const uint32_t cand_m = rxq_m | (r > 0 ? inf_m & late_m : 0u);
+    int64_t tmin = INV, kmin = INV;
+    int col = ki;
+#pragma unroll
+    for (int k = 0; k < RX_SMALL; ++k) {
+      if ((cand_m & (1u << k)) &&
+          (tm[k] < tmin || (tm[k] == tmin && key[k] < kmin))) {
+        tmin = tm[k];
+        kmin = key[k];
+        col = k;
+      }
+    }
+    const bool have = col < ki && tmin <= limit;
+    int32_t p_src = 0, p_sport = 0, p_dport = 0, p_proto = 0, p_len = 0,
+            p_pay = 0;
+    if (have) {
+      const int2 w0 = mine[(0 * RX_SMALL + col) * B];
+      const int2 w1 = mine[(1 * RX_SMALL + col) * B];
+      const int2 w4 = mine[(2 * RX_SMALL + col) * B];
+      p_src = w0.x;
+      p_sport = w0.y;
+      p_dport = w1.x;
+      p_proto = w1.y;
+      p_len = w4.x;
+      p_pay = w4.y;
+    }
+    const uint32_t bit = have ? 1u << col : 0u;
+    const bool was_queued = (rxq_m & bit) != 0;
+    const int64_t t_eff = imax(tick, have ? tmin : 0);
+    const int64_t p_time = have ? tmin : 0;
+
+    if (r > 0) refill(tokens, last, rate, span, t_eff, have);
+    const int64_t size = wire_size(p_proto, p_len);
+    const bool loop = p_src == hh;
+    const bool free_pass = loop || boot;
+    const bool funded = have && (free_pass || tokens >= size);
+    const int64_t sojourn = imax(t_eff - p_time, 0);
+    const int32_t backlog_after = rxq - (was_queued ? 1 : 0);
+    const bool drop = cd.dequeue(funded && !loop, t_eff, sojourn,
+                                 backlog_after, a.rsqrt_tab);
+    const bool deliver = funded && !drop;
+    if (funded && !free_pass) tokens -= size;
+    if (funded) {
+      inf_m &= ~bit;
+      rxq_m &= ~bit;
+      if (drop)
+        drop_m |= bit;
+      else
+        rcv_m |= bit;
+    }
+    if (funded && was_queued) --rxq;
+    if (drop) ++dropped;
+    if (r == rb - 1) {
+      int64_t t_res = (funded && rxq > 0) ? tick : INV;
+      if (have && !funded) t_res = tick + time_until(size - tokens, rate);
+      t_resume = imin(t_resume, t_res);
+    }
+
+    if (deliver && p_proto == PROTO_UDP) {
+      // udp.lookup_socket: connected beats wildcard, lowest slot on ties.
+      int32_t best = 2 * S;             // (2 - score) * S + slot
+#pragma unroll
+      for (int s = 0; s < RX_SMALL; ++s) {
+        if (!(udp_m & (1u << s)) || s_port[s] != p_dport) continue;
+        const int32_t score =
+            (s_phost[s] == p_src && s_pport[s] == p_sport) ? 2
+            : (s_phost[s] == -1 ? 1 : 0);
+        if (score > 0) best = imin32(best, (2 - score) * S + s);
+      }
+      const int m = best < S ? best : best - S;
+#pragma unroll
+      for (int s = 0; s < RX_SMALL; ++s) {
+        // udp.push_ring: append unless the ring is full.
+        if (best == 2 * S || s != m || s_cnt[s] >= UDP_RING) continue;
+        const int64_t i = sbase + s;
+        const int64_t j = i * UDP_RING + (s_head[s] + s_cnt[s]) % UDP_RING;
+        a.udp_src[j] = p_src;
+        a.udp_sport[j] = p_sport;
+        a.udp_len[j] = p_len;
+        a.udp_payload[j] = p_pay;
+        atomicAdd(reinterpret_cast<unsigned long long*>(a.sock_bytes_recv +
+                                                        i),
+                  (unsigned long long)(int64_t)p_len);
+        ++s_cnt[s];
+        pushed_m |= 1u << s;
+      }
+    }
+    if (deliver) {
+      ++pkts;
+      bytes += p_len;
+      ++delivered;
+    }
+    if (r == 0) {
+      t_post = deliver ? t_eff : tick;
+    } else if (deliver) {
+      t_post = imax(t_post, t_eff);
+    }
+    clk.round(r, CLK_SELECT);
+  }
+
+  // ---- the write-back (an inactive host changes nothing) ------------------
+  if (act) {
+    const uint32_t done_m = drop_m | rcv_m;
+#pragma unroll
+    for (int k = 0; k < RX_SMALL; ++k) {
+      const uint32_t bit = 1u << k;
+      if (!((enq_m | done_m) & bit)) continue;
+      a.ib_stage[base + k] = (done_m & bit) ? STAGE_FREE : STAGE_RX_QUEUED;
+      if (a.pds_trail)
+        atomicOr(a.ib_status + base + k,
+                 PDS_ROUTER_ENQUEUED |
+                     ((drop_m & bit) ? PDS_ROUTER_DROPPED : 0) |
+                     ((rcv_m & bit) ? PDS_RCV_SOCKET_PROCESSED : 0));
+    }
+#pragma unroll
+    for (int s = 0; s < RX_SMALL; ++s)
+      if (pushed_m & (1u << s)) a.udp_count[sbase + s] = s_cnt[s];
+    a.rx_queued[hh] = rxq;
+    a.tokens_rx[hh] = tokens;
+    a.last_refill_rx[hh] = last;
+    a.codel_count[hh] = cd.count;
+    a.codel_dropping[hh] = cd.dropping ? 1 : 0;
+    a.codel_first_above[hh] = cd.first_above;
+    a.codel_drop_next[hh] = cd.drop_next;
+    a.t_resume[hh] = t_resume;
+    a.pkts_dropped_router[hh] = dropped;
+    a.pkts_recv[hh] = pkts;
+    a.bytes_recv[hh] = bytes;
+  }
+  clk.mark(CLK_RXCLOSE);
+  return DeliverOut{delivered, t_post};
 }
 
 // A host's carry across the TCP kernels' gate barriers.

@@ -388,27 +388,6 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
 
 constexpr int SMALL = 8;
 
-// Pins a loaded value before this point: an empty asm that takes it as an
-// input keeps the compiler from sinking its load past here, so the loads
-// of one step of transport_small's chains are in flight together.
-__device__ __forceinline__ void keep(int64_t x) { asm volatile("" ::"l"(x)); }
-__device__ __forceinline__ void keep(int32_t x) { asm volatile("" ::"r"(x)); }
-
-// Words [0, n) of p (n <= 8) into v[0..8), `fill` past n: two 16-byte
-// loads where all eight are there and aligned.
-__device__ __forceinline__ void load8(const int32_t* p, int n, int32_t* v,
-                                      int32_t fill) {
-  if (n == 8 && (reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
-    const int4 lo = *reinterpret_cast<const int4*>(p);
-    const int4 hi = *reinterpret_cast<const int4*>(p + 4);
-    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = k < n ? p[k] : fill;
-  }
-}
-
 __device__ __forceinline__ bool transport_small_fits(const TransportArgs& a) {
   return a.ko <= SMALL && a.ki <= SMALL && a.e <= SMALL &&
          a.pc - OEXT_COLS < ICOLS;

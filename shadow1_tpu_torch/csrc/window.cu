@@ -66,7 +66,10 @@
 // its tick.  One thread per host (the Solo team) in blocks of
 // kWinBlock = 128 threads: at the bench world (16,384 hosts) the grid is
 // 128 blocks, one on each of 128 of the card's 132 SMs (256-thread blocks
-// filled only 64).  A micro-step has no barrier inside it.
+// filled only 64).  A micro-step has no barrier inside it.  Its delivery
+// phase is deliver.cuh deliver_small where the world fits (the bench
+// world; the tick setup's loads are one step with its first), else
+// deliver_host on the Solo team; the choice is the same in every thread.
 //
 // TCP (k_window_tcp): one window a launch (status 2 when it was asked for
 // one and the predicate still holds, as k_window).  One warp per host
@@ -286,6 +289,26 @@ struct PholdTick {
   }
 };
 
+// deliver_small's inputs in k_window: the tick setup.  A host is active
+// when its next event falls before the window's end; its resume time is
+// re-armed then (deliver_small writes it back with the row), and the
+// rx_batch bound is the aux term after the re-arm (PholdTick::aux).
+struct PholdRxIn {
+  const WindowArgs& a;
+  int64_t we;
+  __device__ void load(int hh, int64_t* w) const {
+    w[0] = a.t_h[hh];
+    w[1] = a.p.pending[hh];
+    w[2] = a.p.next_send[hh];
+    w[3] = a.d.t_resume[hh];
+  }
+  __device__ RxIn resolve(const int64_t* w) const {
+    const bool act = w[0] < we;
+    const int64_t tr = act ? INV : w[3];
+    return RxIn{act ? w[0] : we, imin(tr, w[1] > 0 ? w[2] : INV), tr, act};
+  }
+};
+
 struct BulkTick {
   __device__ static int64_t next(const WindowArgs& a, int hh) {
     return bulk_next(a.b, hh);
@@ -455,6 +478,8 @@ __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
   int buf = 0;
   int64_t windows = 0;
   int64_t status = 0;
+  const bool small = deliver_small_fits(a.d);      // the same in every thread
+  __shared__ RxRows<kWinBlock> rx_rows;            // deliver_small's rows
   for (;;) {
     int64_t ws, we;
     int64_t gmin = window_open<PholdTick, Solo, kWinBlock>(a, grid, buf,
@@ -469,15 +494,26 @@ __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
       HostOut s{INV, 0, 0};
       for (int64_t i = gtid; i < h; i += gstride) {
         const int hh = (int)i;
-        // Tick setup: re-arm the resume time of active hosts only.
-        const int64_t th0 = a.t_h[hh];
-        const bool act = th0 < we;
-        const int64_t tick = act ? th0 : we;
-        if (act) a.d.t_resume[hh] = INV;
-        const int64_t aux0 = PholdTick::aux(a, tm, hh);
-        clk.mark(CLK_SETUP);
-        const DeliverOut dl = deliver_host(a.d, tm, hh, tick, act, aux0, we,
-                                           clk);
+        int64_t tick;
+        bool act;
+        DeliverOut dl;
+        if (small) {
+          // The tick setup's loads are deliver_small's first step.
+          RxIn in;
+          dl = deliver_small(a.d, hh, PholdRxIn{a, we}, we, rx_rows, in,
+                             clk);
+          tick = in.tick;
+          act = in.act;
+        } else {
+          // Tick setup: re-arm the resume time of active hosts only.
+          const int64_t th0 = a.t_h[hh];
+          act = th0 < we;
+          tick = act ? th0 : we;
+          if (act) a.d.t_resume[hh] = INV;
+          const int64_t aux0 = PholdTick::aux(a, tm, hh);
+          clk.mark(CLK_SETUP);
+          dl = deliver_host(a.d, tm, hh, tick, act, aux0, we, clk);
+        }
         phold_tick(a.p, a.d, hh, dl.t_post, act, we,
                    a.em_valid + (int64_t)hh * e,
                    a.em_blk + (int64_t)hh * e * pc, e, pc);
