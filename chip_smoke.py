@@ -56,7 +56,7 @@ Phases, each reported on its own line:
    versions, torch.equal on every output leaf, timed and bounded as in
    phase 3; the exchange also on crafted fan-ins (FAN_IN movers to one
    host, pure ACKs shed first), where its time at 20,000 movers must stay
-   under 20x its time at 2,000.  Then a lossy 16-host bulk world to 3 s through K_WINDOW,
+   under 20x its time at 2,000.  Then a lossy 16-host bulk world to 1.5 s through K_WINDOW,
    through the per-phase kernels and through the plain versions, leaf for
    leaf, with retransmissions reached.
 7. TCP per-phase path -- BULK with persistent=False through run_until /
@@ -82,9 +82,35 @@ Phases, each reported on its own line:
    100 ms on both paths, counters zeroed just before and read just
    after, final states equal leaf for leaf; k_window_tcp against
    window_plain on its heaviest window.
-10. kernels line -- one JSON object with each kernel's numbers (ms is
+10. tgen kernels -- the tgen world (TGEN_HOSTS = 100, sim.build_tgen's
+   defaults: Shadow's examples/tgen-100host at full width) on the
+   persistent path to PROBE_TGEN_NS, mid fan-in: K_WINDOW's tgen kernel
+   (k_window_tgen) against window_plain over the next window, timed and
+   bounded as in phase 3; then K_TRANSPORT's TCP kernel with the
+   staging's loopback insert against its plain version at every
+   micro-step of the loopback world's first window.
+11. tgen per-phase path -- the tgen world with persistent=False to
+   TGEN_MID_NS, counters zeroed just before and read just after; the
+   trajectory must equal the JAX package's and the launches its windows
+   and micro-steps.  Then one window under torch.profiler, as in phase 5.
+12. tgen main path, persistent -- the tgen world with sim.build_tgen's
+   defaults (one k_window_tgen launch per window) to TGEN_MID_NS and on
+   to TGEN_NS (120 s), counters zeroed just before and read just after:
+   the trajectory must equal the JAX package's, the launches one window
+   launch per window and nothing else, and the state at TGEN_MID_NS the
+   per-phase path's, leaf for leaf.  Then the part after TGEN_MID_NS
+   again with CUDA events around each K_WINDOW call (device time per
+   window, the device's busy share), and BUSY_WINDOWS windows from
+   PROBE_TGEN_NS traced by phase for the server (host 0) and a client
+   (final states equal to the untraced run's).
+13. loopback world -- LOOP_HOSTS = 4 hosts where host 0 streams to its
+   own listener, to LOOP_NS on both paths, counters zeroed just before
+   and read just after: both trajectories equal the JAX package's and the
+   final states each other, leaf for leaf.
+14. kernels line -- one JSON object with each kernel's numbers (ms is
    the device time, call_ms the call time); each kernel's launches come
-   from the run of its own path; the TCP branches are rows of their own.
+   from the run of its own path; the TCP branches and the tgen kernel are
+   rows of their own.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -115,7 +141,9 @@ STRESS = dict(num_hosts=2048, msgs_per_host=8, mean_delay_ns=10 * MS,
               stop_time=3 * SEC, pool_capacity=2048 * 8, rx_batch=2, seed=5,
               bw_up_Bps=50_000, bw_down_Bps=6_000, reliability=0.95,
               bootstrap_end=20 * MS)
-STRESS_NS = 400 * MS
+# Its depth: by 200 ms it has taken every drop path (loss, router, a full
+# slab; 149 micro-steps), so the three paths' run stops there.
+STRESS_NS = 200 * MS
 # A world like it with 12-slot slabs, 12 messages a host and a 3 kB/s
 # uplink: K_TRANSPORT's general path (slabs above transport_small's
 # eight), checked against its plain version at every micro-step of one
@@ -157,7 +185,9 @@ TCP_PROBE_NS = 60 * MS
 # A lossy bulk world for the kernels-vs-plain whole-run check.
 LOSSY = dict(num_hosts=16, bytes_per_client=200_000, reliability=0.97,
              seed=11, stop_time=4 * SEC)
-LOSSY_NS = 3 * SEC
+# Its depth: 709 of the 785 micro-steps to its end (2 s), 60 segments
+# retransmitted by then.
+LOSSY_NS = 1500 * MS
 
 # The JAX package's trajectory of BULK and its schedule (warm-up to 10 ms
 # with run_until, then run_chunked to BULK_RUN_NS; reference graph),
@@ -171,6 +201,36 @@ JAX_BULK_FINAL = dict(n_steps=21340, n_windows=47, n_events=106189,
                       bytes_recv=48340660, done=15, finish_sum=2578965422,
                       err=1)
 
+# The tgen world (sim.build_tgen at its defaults): Shadow's
+# examples/tgen-100host at full width -- 1 server and 99 clients, 50 KiB
+# up and 200 KiB down, 3 streams each with 1-2 s pauses, 20 ms full mesh,
+# 16 sockets a host, 32-slot slabs, rx_batch 4 -- to its full 120 s,
+# through run_until to TGEN_MID_NS and then to TGEN_NS.
+TGEN_HOSTS = 100
+TGEN_MID_NS = 10 * SEC
+TGEN_NS = 120 * SEC
+# The loopback world (loopback_world): 4 hosts of that shape where host
+# 0 also runs the client graph with itself as its peer, from 1 s, to
+# LOOP_NS; its segments to itself take the staging's loopback insert.
+LOOP_HOSTS = 4
+LOOP_NS = 6 * SEC
+# Where K_WINDOW's tgen kernel is checked against window_plain: the
+# window that holds PROBE_TGEN_NS, mid fan-in.
+PROBE_TGEN_NS = 5500 * MS
+
+# The JAX package's trajectories of those worlds and schedules
+# (reference graph), measured on the CPU with:
+#   env JAX_PLATFORMS=cpu python -m pytest tests/test_torch_tgen.py \
+#       -m slow -k tgen_bench_trajectory
+#   env JAX_PLATFORMS=cpu python -m pytest tests/test_torch_tgen_loopback.py
+# which assert these numbers.
+JAX_TGEN_MID = dict(n_steps=1747, n_windows=250, n_events=21033, done=35,
+                    failed=0, finished=6, err=3)
+JAX_TGEN_FINAL = dict(n_steps=11775, n_windows=1823, n_events=128982,
+                      done=237, failed=0, finished=79, err=3)
+JAX_LOOP_FINAL = dict(n_steps=443, n_windows=39, n_events=3440, done=6,
+                      failed=0, finished=1, err=1)
+
 REPLACES = {
     "exchange": "shadow1_tpu/core/megakernel.py:231",
     "deliver": "shadow1_tpu/core/megakernel.py:516",
@@ -182,7 +242,8 @@ PER_PHASE = ("exchange", "deliver", "transport")
 DELIVER_KERNELS = {"small": "k_deliver_small", "general": "k_deliver",
                    "tcp": "k_deliver_tcp"}
 TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
-            "transport_tcp": "transport", "window_tcp": "window"}
+            "transport_tcp": "transport", "window_tcp": "window",
+            "window_tgen": "window"}
 # Windows of the persistent TCP main path timed again with CUDA events,
 # traced by phase and bounded.
 BUSY_WINDOWS = 8
@@ -233,6 +294,49 @@ def tcp_summary(state) -> dict:
                 bytes_recv=int(state.socks.bytes_recv.sum()),
                 done=int(done.sum()), finish_sum=int(fin[done].sum()),
                 err=int(state.err))
+
+
+def tgen_summary(state) -> dict:
+    """A tgen world's trajectory: steps, windows, events, streams done and
+    failed, hosts finished, err."""
+    import numpy as np
+
+    def total(x):
+        return int(np.asarray(x.cpu() if hasattr(x, "cpu") else x).sum())
+
+    a = state.app
+    return dict(n_steps=int(state.n_steps), n_windows=int(state.n_windows),
+                n_events=int(state.n_events), done=total(a.streams_done),
+                failed=total(a.streams_failed), finished=total(a.finished),
+                err=int(state.err))
+
+
+def loopback_start_times(h: int):
+    """The loopback world's start times: host 0 at 1 s, the others at 5 s
+    (sim.build_tgen's server and client times)."""
+    import numpy as np
+    t = np.full(h, 5 * SEC, np.int64)
+    t[0] = SEC
+    return t
+
+
+def loopback_world(persistent: bool = True, device=None, **kw):
+    """sim.build_tgen(LOOP_HOSTS) with every host on the client graph:
+    host 0 keeps its listener and streams to itself (its peer is the
+    server, host 0), so its segments loop back."""
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.apps import tgen
+    state, params, app = sim.build_tgen(LOOP_HOSTS, persistent=persistent,
+                                        device=device, **kw)
+    srv = tgen.parse_tgen(sim._TGEN_SERVER_XML.format(port=sim.TGEN_PORT))
+    cli = tgen.parse_tgen(sim._TGEN_CLIENT_XML.format(
+        port=sim.TGEN_PORT, sendsize=50 * 1024, recvsize=200 * 1024,
+        streams=3))
+    app_state = tgen.build_state(
+        LOOP_HOSTS, [srv, cli], [1] * LOOP_HOSTS,
+        loopback_start_times(LOOP_HOSTS),
+        resolve_peer=lambda s: (0, sim.TGEN_PORT), device=state.device)
+    return state.replace(app=app_state), params, app
 
 
 def kernel_name(mangled: str) -> str:
@@ -496,6 +600,50 @@ def tcp_tick_bound(st, out, em, active) -> tuple[int, int]:
                             + (fired + running) * 200)
 
 
+def tgen_tick_bound(st, out, em, active) -> tuple[int, int]:
+    """(bytes, operations) of run_timers plus tgen's tick: the timers as
+    in tcp_tick_bound; every active host's registers and the table
+    entries at its cursor read, and the client socket of each host that
+    streams; the server pass and the sink read every socket's type,
+    parent, state, peer, closed flag and receive pointer, and each child
+    that may reply its byte counts, send pointers and buffer and its
+    peer's two stream registers; the changed elements and the timer
+    lane's rows written.  Operations: ~8 per timer compared, ~10 per
+    socket of the server pass and the sink, ~200 per fired timer or
+    stream step."""
+    from shadow1_tpu_torch.core import emit
+    from shadow1_tpu_torch.core.state import (SOCK_TCP, TCPS_CLOSEWAIT,
+                                              TCPS_ESTABLISHED)
+    h = st.hosts.num_hosts
+    s = st.socks.slots
+    n_act = int(active.sum())
+    fired = int((out.socks.t_rto != st.socks.t_rto).any(dim=1).sum()
+                + (out.socks.t_delack != st.socks.t_delack).any(dim=1).sum()
+                + (out.socks.t_tw != st.socks.t_tw).any(dim=1).sum()
+                + (out.socks.t_persist != st.socks.t_persist).any(dim=1)
+                .sum())
+    a0, a1 = st.app, out.app
+    streaming = int((active & (a0.stream_active
+                               | (a1.conn_ctr != a0.conn_ctr))).sum())
+    so = out.socks
+    child = ((so.stype == SOCK_TCP) & (so.parent >= 0)
+             & ((so.tcp_state == TCPS_ESTABLISHED)
+                | (so.tcp_state == TCPS_CLOSEWAIT))
+             & (so.peer_host >= 0) & ~so.app_closed)
+    n_child = int(child.sum())
+    row = sock_row_bytes(st.socks)
+    n_timer = int(em.valid[:, emit.SLOT_TIMER].sum())
+    regs = 4 + 8 * 2 + 1 + 1 + 8 * 3 + 1 + 8 * 3   # registers a host reads
+    tables = 4 + 4 + 8 * 3 + 4 + 4 * 3             # at its cursor
+    read = (n_act * s * 4 * 8 + (fired + streaming) * row
+            + n_act * (regs + tables)
+            + h * s * (4 + 4 + 4 + 4 + 1 + 8)
+            + n_child * (8 + 8 + 8 + 4 + 16))
+    written = changed_bytes(st, out) + n_timer * (em.blk.shape[-1] * 4 + 1)
+    return read + written, (n_act * s * 4 * 8 + h * s * 10
+                            + (fired + streaming) * 200)
+
+
 def window_bound(state, params, app, t_target, keep=False, kt=None,
                  shares=None):
     """(bytes, operations, micro-steps) of one K_WINDOW call on `state`:
@@ -555,8 +703,9 @@ def window_bound(state, params, app, t_target, keep=False, kt=None,
         if tcp:
             st, em = tcp_mod.run_timers(st, params, em, tp, active)
         st, em = engine._app_tick(st, params, app, em, tp, active, we)
-        tb, to = (tcp_tick_bound if tcp else tick_bound)(s_in, st, em,
-                                                         active)
+        bound = tick_bound if not tcp else tgen_tick_bound \
+            if hasattr(st.app, "conn_ctr") else tcp_tick_bound
+        tb, to = bound(s_in, st, em, active)
         b, ops = b + tb, ops + to
         t_app = app.next_time(st)
         s_in = clone(st)
@@ -1466,12 +1615,14 @@ def drive_tcp(dev, persistent: bool):
     return out, warm, params, app, launches, wall
 
 
-def _timed_windows(warm, params, app, n: int | None, before=None):
+def _timed_windows(warm, params, app, n: int | None, before=None,
+                   until: int | None = None):
     """The first `n` windows after `warm` through the engine's persistent
-    loop (n None: the main path's run_chunked to BULK_RUN_NS), with CUDA
-    events around each K_WINDOW call (megakernel.window_call wrapped);
-    `before`, if given, sees each call's input state first.  Returns
-    (final state, wall seconds, device ms of each window)."""
+    loop (n None: the main path's run_chunked to BULK_RUN_NS, or, given
+    `until`, its run_until to there), with CUDA events around each
+    K_WINDOW call (megakernel.window_call wrapped); `before`, if given,
+    sees each call's input state first.  Returns (final state, wall
+    seconds, device ms of each window)."""
     import torch
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
@@ -1492,7 +1643,9 @@ def _timed_windows(warm, params, app, n: int | None, before=None):
     mk.window_call = timed
     try:
         w0 = time.perf_counter()
-        if n is None:
+        if n is None and until is not None:
+            st = engine.run_until_impl(st, params, app, until)
+        elif n is None:
             st = engine.run_chunked(st, params, app, BULK_RUN_NS)
         else:
             st = engine.run_until_impl(
@@ -1509,16 +1662,18 @@ def bound_ms(b: int, ops: int) -> float:
     return max(b / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
 
 
-def busy_windows(warm, params, app, n: int | None):
+def busy_windows(warm, params, app, n: int | None,
+                 label: str = "tcp main path (persistent)",
+                 until: int | None = None):
     """The first `n` windows after `warm` on the persistent path again
-    (n None: the whole timed part), with CUDA events around each K_WINDOW
-    call: device ms per window (min, median, max) and the device's busy
-    share of the wall.  Returns (printable line, mean device ms per
-    launch, final state)."""
-    st, wall, ms = _timed_windows(warm, params, app, n)
+    (n None: the whole timed part, to `until` if given), with CUDA events
+    around each K_WINDOW call: device ms per window (min, median, max)
+    and the device's busy share of the wall.  Returns (printable line,
+    mean device ms per launch, final state)."""
+    st, wall, ms = _timed_windows(warm, params, app, n, until=until)
     steps = int(st.n_steps) - int(warm.n_steps)
     busy = sum(ms) / 1e3 / wall
-    return (f"tcp main path (persistent): {len(ms)} windows ({steps} "
+    return (f"{label}: {len(ms)} windows ({steps} "
             f"micro-steps{'' if n else ', the whole timed part'}) again "
             f"with CUDA events: wall {wall:.4f} s, "
             f"K_WINDOW device {statistics.mean(ms):.4f} ms per window (min "
@@ -1748,6 +1903,143 @@ def run_pairs(dev) -> tuple:
           f"{kd:.4f} ms (call {kc:.4f} ms), plain device {pd:.4f} ms (call "
           f"{pc:.4f} ms)", flush=True)
     return times, err
+
+
+def check_loopback_transport(dev) -> str:
+    """K_TRANSPORT's TCP kernel (k_transport_tcp) with the staging's
+    loopback insert against transport_plain, torch.equal on every output,
+    at every micro-step of the loopback world's first window (host 0's
+    first stream, all of it to itself at 1 ns a hop); the steps run
+    through the kernels between the checks.  The compared steps must
+    place loopback rows."""
+    import torch
+    from shadow1_tpu_torch.core import emit, engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    from shadow1_tpu_torch.transport import tcp as tcp_mod
+    state, params, app = loopback_world(persistent=False, device=dev)
+    clone = engine.clone_state
+    h = state.hosts.num_hosts
+    ctx = engine._window_ctx(state, params)
+    st = engine._exchange(clone(state), params, fused=True)
+    t_h, gmin = engine._scan_all(st, params, app)
+    we = min(max(int(st.now), int(gmin)) + params.min_latency_ns, LOOP_NS)
+    steps = loops = 0
+    rows = torch.arange(h, device=dev)[:, None]
+    while int(gmin) < we:
+        s1, active, tick_t = engine._tick_setup(clone(st), t_h, we)
+        aux0 = engine._aux_times(s1, params, app)
+        em = emit.empty(h, engine._n_lanes(app), s1.pool.blk.shape[1], dev)
+        s2, em, dn, tp = mk.deliver_kernel(s1, params, app, em, tick_t,
+                                           active, we, ctx[1], aux0)
+        s2, em = tcp_mod.run_timers(s2, params, em, tp, active)
+        s2, em = engine._app_tick(s2, params, app, em, tp, active, we)
+        t_app = app.next_time(s2)
+        loops += int((em.valid & (em.dst == rows)).sum())
+
+        def args(s=s2, e=em):
+            return (clone(s), params, app, emit.Emissions(
+                valid=e.valid.clone(), blk=e.blk.clone()), tick_t, tp,
+                active, ctx[0], dn, t_app)
+        out_k = mk.transport_kernel(*args())
+        out_p = mk.transport_plain(*args())
+        require_equal(out_k, out_p,
+                      f"transport (loopback world, step {steps})")
+        st, t_h, gmin = out_k
+        steps += 1
+    if loops <= 0:
+        _fail("loopback world: the compared steps staged no loopback row")
+    return (f"tgen kernels: transport_tcp with the loopback insert equal "
+            f"at all {steps} micro-steps of the loopback world's first "
+            f"window ({loops} loopback rows staged)")
+
+
+def drive_tgen(dev, persistent: bool):
+    """The tgen world (TGEN_HOSTS, sim.build_tgen's defaults) through
+    run_until to TGEN_MID_NS and then to TGEN_NS (only to TGEN_MID_NS on
+    the per-phase path), every launch counter zeroed just before and read
+    just after; the trajectories must equal the JAX package's and the
+    launches one K_WINDOW per window (persistent) or one exchange per
+    window and one K_DELIVER and K_TRANSPORT per micro-step.  Returns
+    (state at TGEN_MID_NS, final state, params, app, launches, wall
+    seconds of the whole run)."""
+    import torch
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    label = "tgen main path (persistent)" if persistent \
+        else "tgen per-phase path"
+    state, params, app = sim.build_tgen(TGEN_HOSTS, persistent=persistent,
+                                        device=dev)
+    if persistent and not (params.megakernel and params.persistent):
+        _fail("sim.build_tgen's defaults are not megakernel + persistent")
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    mid = engine.run_until(state, params, app, TGEN_MID_NS)
+    out = engine.run_until(mid, params, app, TGEN_NS) if persistent \
+        else mid
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(mk.LAUNCHES)
+    m, f = tgen_summary(mid), tgen_summary(out)
+    if m != JAX_TGEN_MID:
+        _fail(f"{label}: trajectory at {TGEN_MID_NS // SEC} s {m} != JAX "
+              f"{JAX_TGEN_MID}")
+    if persistent and f != JAX_TGEN_FINAL:
+        _fail(f"{label}: trajectory {f} != JAX {JAX_TGEN_FINAL}")
+    if persistent:
+        bad = launches["window"] != f["n_windows"] or \
+            any(launches[k] for k in PER_PHASE)
+    else:
+        bad = launches["window"] or \
+            launches["exchange"] != f["n_windows"] or \
+            launches["deliver"] != f["n_steps"] or \
+            launches["transport"] != f["n_steps"]
+    if bad:
+        _fail(f"{label}: launches {launches} do not match its windows / "
+              f"micro-steps")
+    t_end = TGEN_NS if persistent else TGEN_MID_NS
+    print(f"{label}: 0 -> {t_end // SEC} s: n_steps {f['n_steps']} "
+          f"n_windows {f['n_windows']} n_events {f['n_events']} events/s "
+          f"{f['n_events'] / wall:.1f} wall {wall:.4f} s "
+          f"({wall / f['n_windows'] * 1e3:.4f} ms per window, "
+          f"{wall / f['n_steps'] * 1e3:.4f} ms per micro-step); streams "
+          f"done {f['done']}, failed {f['failed']}, hosts finished "
+          f"{f['finished']}, err {f['err']} "
+          f"({int(out.hosts.pkts_dropped_pool.sum())} segments over a full "
+          f"slab); launches {launches}; trajectory equals the JAX "
+          f"package's", flush=True)
+    return mid, out, params, app, launches, wall
+
+
+def run_loopback(dev) -> str:
+    """The loopback world to LOOP_NS on both paths, counters zeroed just
+    before and read just after: each trajectory must equal the JAX
+    package's, and the two final states each other, leaf for leaf."""
+    import torch
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    outs, used = {}, {}
+    for persistent in (True, False):
+        state, params, app = loopback_world(persistent=persistent,
+                                            device=dev)
+        mk.reset_launches()
+        outs[persistent] = engine.run_until(state, params, app, LOOP_NS)
+        torch.cuda.synchronize()
+        used[persistent] = dict(mk.LAUNCHES)
+        got = tgen_summary(outs[persistent])
+        if got != JAX_LOOP_FINAL:
+            _fail(f"loopback world (persistent={persistent}): trajectory "
+                  f"{got} != JAX {JAX_LOOP_FINAL}")
+    if used[True]["window"] != JAX_LOOP_FINAL["n_windows"] or \
+            used[False]["deliver"] != JAX_LOOP_FINAL["n_steps"]:
+        _fail(f"loopback world: launches {used}")
+    require_equal(outs[True], outs[False], "loopback world: persistent vs "
+                  "per-phase path")
+    return (f"tgen loopback world (H={LOOP_HOSTS}, to {LOOP_NS // SEC} s): "
+            f"both paths' trajectories equal the JAX package's "
+            f"{JAX_LOOP_FINAL}, final states equal leaf for leaf; launches "
+            f"persistent {used[True]}, per-phase {used[False]}")
 
 
 def main() -> int:
@@ -2013,7 +2305,58 @@ def main() -> int:
 
     _phase_done("9")
 
-    # ---- 10. kernels line -----------------------------------------------
+    # ---- 10. tgen kernels against their plain versions -------------------
+    state, params, app = sim.build_tgen(TGEN_HOSTS, device=dev)
+    tgen_probe = engine.run_until(state, params, app, PROBE_TGEN_NS)
+    times["window_tgen"], bounds["window_tgen"], errs["window_tgen"] = \
+        check_window(tgen_probe, params, app, advance=0,
+                     label="tgen kernels: window (tgen)",
+                     kernel="k_window_tgen", plain_reps=1)
+    print(check_loopback_transport(dev), flush=True)
+
+    _phase_done("10")
+
+    # ---- 11. tgen per-phase path: the tgen world to TGEN_MID_NS ----------
+    mid_pp, _, params_pp, app_pp, _, _ = drive_tgen(dev, False)
+    for line in profile_window(mid_pp, params_pp, app_pp):
+        print(f"tgen {line}", flush=True)
+
+    _phase_done("11")
+
+    # ---- 12. tgen main path: the defaults, one K_WINDOW launch per window
+    mid_tg, _, params, app, launches_tg, _ = drive_tgen(dev, True)
+    require_equal(mid_tg, mid_pp, f"tgen: persistent vs per-phase path at "
+                  f"{TGEN_MID_NS // SEC} s")
+    print(f"tgen main path (persistent): state at {TGEN_MID_NS // SEC} s "
+          f"equal to the per-phase path's", flush=True)
+    del mid_pp
+    line, window_tgen_ms, _ = busy_windows(
+        mid_tg, params, app, None, label="tgen main path (persistent), "
+        f"{TGEN_MID_NS // SEC} -> {TGEN_NS // SEC} s", until=TGEN_NS)
+    print(line, flush=True)
+    line, _, busy_st = busy_windows(
+        tgen_probe, params, app, BUSY_WINDOWS,
+        label=f"tgen main path (persistent), from {PROBE_TGEN_NS / SEC} s")
+    print(line, flush=True)
+    # The split of a micro-step by phase for the server and for a client.
+    for host in (0, 1):
+        lines, trace_st, _ = phase_trace(
+            tgen_probe, params, app, BUSY_WINDOWS, host=host,
+            label=f"tgen phase trace (host {host})")
+        for line in lines:
+            print(line, flush=True)
+        require_equal(trace_st, busy_st,
+                      "tgen phase trace vs the untraced windows")
+    del trace_st, busy_st, tgen_probe
+
+    _phase_done("12")
+
+    # ---- 13. the loopback world on both paths ----------------------------
+    print(run_loopback(dev), flush=True)
+
+    _phase_done("13")
+
+    # ---- 14. kernels line -----------------------------------------------
     rows = []
     for name in (*PER_PHASE, "window", *TCP_ROWS):
         b, ops = bounds[name]
@@ -2022,6 +2365,7 @@ def main() -> int:
         base = TCP_ROWS.get(name, name)
         n = launches[name] if name == "window" else \
             launches_tp["window"] if name == "window_tcp" else \
+            launches_tg["window"] if name == "window_tgen" else \
             launches_tcp[base] if name in TCP_ROWS else launches_pp[name]
         rows.append({
             "name": name, "route": "cuda",
@@ -2034,7 +2378,9 @@ def main() -> int:
             "library_ms": None})
     print(f"K_WINDOW in the main path's profile: {window_dev_ms:.4f} ms "
           f"device per launch; K_WINDOW (TCP) on the bulk main path: "
-          f"{window_tcp_ms:.4f} ms device per window", flush=True)
+          f"{window_tcp_ms:.4f} ms device per window; K_WINDOW (tgen) on "
+          f"the tgen main path: {window_tgen_ms:.4f} ms device per window",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

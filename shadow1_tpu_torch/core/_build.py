@@ -40,7 +40,7 @@ _ARGTYPES = {
     "deliver": {"deliver_launch": [_P, _P, _P],
                 "deliver_fits_small": [_P]},
     "transport": {"transport_launch": [_P, _P, _P]},
-    "window": {"window_launch": [_P, _P], "window_tcp_launch": [_P, _P],
+    "window": {"window_launch": [_P, _P], "window_tcp_launch": [_P, _I, _P],
                "window_occupancy": [_I, _P, _P],
                "log1p_probe_launch": [_P, _P, _I64, _P]},
 }

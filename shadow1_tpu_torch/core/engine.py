@@ -23,10 +23,10 @@ small vector per window; without it, one scalar per micro-step (the
 `gmin < window_end` predicate JAX evaluates inside its device while
 loop) and a few per window.
 
-Scope: phold (UDP) and bulk (TCP, Reno) worlds.  Other apps, CUBIC,
-loopback apps, jitter, interface buffers and every instrumentation and
-netem block are later slices, refused by `check_supported` with a
-message naming what is missing.
+Scope: phold (UDP), bulk and tgen (TCP, Reno) worlds, loopback
+emissions included.  Other apps, CUBIC, jitter, interface buffers and
+every instrumentation and netem block are later slices, refused by
+`check_supported` with a message naming what is missing.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def _may_loopback(app) -> bool:
     return getattr(app, "may_loopback", True)
 
 
-PORTED_APPS = ("Phold", "Bulk")
+PORTED_APPS = ("Phold", "Bulk", "Tgen")
 
 
 def check_supported(state: SimState, params, app) -> None:
@@ -71,11 +71,7 @@ def check_supported(state: SimState, params, app) -> None:
     if not any(c.__name__ in PORTED_APPS for c in type(app).__mro__):
         raise NotImplementedError(
             f"the app {name} is not ported yet (ported: "
-            f"{', '.join(PORTED_APPS)}; Echo and Tgen are ROADMAP queue 1)")
-    if _may_loopback(app):
-        raise NotImplementedError(
-            "loopback emissions (app.may_loopback) are not ported yet: "
-            "_loopback_insert is a later slice")
+            f"{', '.join(PORTED_APPS)}; Echo is ROADMAP queue 1)")
     wide = state.inbox.blk.shape[1] >= ICOLS
     if _uses_tcp(app):
         cong.validate(params.cong)
@@ -103,7 +99,7 @@ def check_supported(state: SimState, params, app) -> None:
         raise NotImplementedError(
             f"params.persistent runs each window as K_WINDOW, with the app "
             f"tick on the card, and {type(app).__name__} has no device tick "
-            f"(Phold and Bulk have one); build with persistent=False")
+            f"(Phold, Bulk and Tgen have one); build with persistent=False")
 
 
 # ---------------------------------------------------------------------------
@@ -524,11 +520,15 @@ def _patched_rows(em, src2, ctr2, time_v, send_t, lat, stage_v, status_v):
     return torch.cat(pieces, dim=2)
 
 
-def _stage_emissions(state: SimState, params, em, tick_t, active, bw_up):
+def _stage_emissions(state: SimState, params, em, tick_t, active, app,
+                     bw_up):
     """Assign pkt_ids, route, draw reliability drops, and merge staged
     emissions into free slots of the emitting host's own outbox slab --
-    IN_FLIGHT when the tx bucket covers them, else parked TX_QUEUED.
-    Returns (state, placed)."""
+    IN_FLIGHT when the tx bucket covers them, else parked TX_QUEUED.  An
+    app that may loop back (`_may_loopback`) has its same-host emissions
+    go into its own inbox slab instead (_loopback_insert), outside the
+    outbox ranks and the token bucket.  Returns (state, placed), placed
+    counting both."""
     pool, hosts = state.pool, state.hosts
     h, e = em.valid.shape
     p0 = pool.capacity
@@ -558,7 +558,8 @@ def _stage_emissions(state: SimState, params, em, tick_t, active, bw_up):
     else:
         dropped = torch.zeros_like(valid)
     live = valid & ~dropped
-    nl = live
+    lb = live & loop if _may_loopback(app) else torch.zeros_like(live)
+    nl = live & ~lb
 
     free = (pool.stage == STAGE_FREE).reshape(h, ko)
     n_free = free.sum(dim=1)
@@ -611,18 +612,70 @@ def _stage_emissions(state: SimState, params, em, tick_t, active, bw_up):
         status = status.clone()
         status[flat] = rows[:, pc + 1]
     pool = pool.replace(blk=blk, stage=stage, status=status, time=time)
+    state = state.replace(pool=pool)
 
-    overflow = (live & ~placed).any()
-    sent_bytes = torch.where(placed, em.length, 0).sum(dim=1).to(I64)
+    # Loopback: straight into the sender's own inbox slab.
+    lb_placed = torch.zeros_like(lb)
+    if _may_loopback(app):
+        state, lb_placed = _loopback_insert(state, params, em, lb, src2,
+                                            ctr2, send_t)
+
+    all_placed = placed | lb_placed
+    overflow = (live & ~all_placed).any()
+    sent_bytes = torch.where(all_placed, em.length, 0).sum(dim=1).to(I64)
     hosts = hosts.replace(
         send_ctr=ctr + counts,
-        pkts_sent=hosts.pkts_sent + placed.sum(dim=1),
+        pkts_sent=hosts.pkts_sent + all_placed.sum(dim=1),
         bytes_sent=hosts.bytes_sent + sent_bytes,
         pkts_dropped_inet=hosts.pkts_dropped_inet + dropped.sum(dim=1),
         pkts_dropped_pool=hosts.pkts_dropped_pool
-        + (live & ~placed).sum(dim=1))
+        + (live & ~all_placed).sum(dim=1))
     err = state.err | (overflow.to(I32) * ERR_POOL_OVERFLOW)
-    return state.replace(pool=pool, hosts=hosts, err=err), placed
+    return state.replace(hosts=hosts, err=err), all_placed
+
+
+def _loopback_insert(state: SimState, params, em, lb, src2, ctr2, send_t):
+    """Insert loopback emissions `lb` [H, E] into the sender's own inbox
+    slab: the r-th one takes the r-th free slot in ascending order, as an
+    IN_FLIGHT row in inbox layout (the emission's columns with SRC, TIME,
+    CTR and, in full-width rows, the TS send stamp patched) arriving at
+    send + 1 ns (the reference's network_interface.c:548-555).  Returns
+    (state, placed [H, E])."""
+    ib = state.inbox
+    h, e = lb.shape
+    ki = ib.capacity // h
+
+    free2 = (ib.stage == STAGE_FREE).reshape(h, ki)
+    n_free = free2.sum(dim=1)
+    lb_rank = torch.where(lb, torch.cumsum(lb, dim=1) - 1, -1)
+    within = _free_slot_pick(free2, lb_rank)
+    ok = lb & (lb_rank >= 0) & (lb_rank < n_free[:, None])
+    arr = send_t + simtime.SIMTIME_ONE_NANOSECOND
+
+    def c(x):
+        return x[:, :, None].to(I32)
+
+    ic = ib.blk.shape[1]          # ICOLS, or NCOLS_UDP for TCP-free worlds
+    pieces = [c(src2), em.blk[:, :, 1:ICOL_TIME_LO],
+              c(enc_lo(arr)), c(enc_hi(arr)),
+              c(enc_lo(ctr2)), c(enc_hi(ctr2))]
+    if ic >= ICOLS:
+        pieces += [c(enc_lo(send_t)), c(enc_hi(send_t)),
+                   em.blk[:, :, ICOL_TSE_LO:ICOLS]]
+    vals = torch.cat(pieces, dim=2)
+
+    hh, ee = ok.nonzero(as_tuple=True)
+    flat = hh * ki + within[hh, ee].to(I64)
+    blk, stage = ib.blk.clone(), ib.stage.clone()
+    blk[flat] = vals[hh, ee]
+    stage[flat] = STAGE_IN_FLIGHT
+    status = ib.status
+    if params.pds_trail:
+        status = status.clone()
+        status[flat] = PDS_SND_CREATED | PDS_SND_INTERFACE_SENT | \
+            PDS_INET_SENT
+    return state.replace(inbox=ib.replace(blk=blk, stage=stage,
+                                          status=status)), ok
 
 
 def _select_tx_slab(pool, tick_t, active, h):
@@ -756,7 +809,7 @@ def _microstep_core(state: SimState, params, app, t_h, window_end: int,
     if _uses_tcp(app):
         state, em = tcp_mod.transmit(state, params, em, t_post, active)
     state, _placed = _stage_emissions(state, params, em, t_post, active,
-                                      bw_up)
+                                      app, bw_up)
     state = _tx_drain_body(state, params, t_post, active, bw_up)
     state, events = _cpu_account(state, params, tick_t, active, delivered_n,
                                  em.valid)

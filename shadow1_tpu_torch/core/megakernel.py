@@ -19,10 +19,11 @@ sm_90a in `csrc/` and built by core/_build.py:
   scan, the window bounds and the whole micro-step loop with the app's
   tick as device code, as one cooperative launch -- k_window for UDP
   worlds with phold's tick (csrc/phold_tick.cuh), which also loops the
-  windows of a whole run_until call on the card, and k_window_tcp, one
-  window a launch, for TCP worlds with tcp.run_timers (csrc/tcp.cuh) and
-  bulk's tick (csrc/bulk_tick.cuh).  The three phases are one copy of
-  device code (csrc/*.cuh) that the per-phase kernels share.
+  windows of a whole run_until call on the card, and, one window a
+  launch, for TCP worlds with tcp.run_timers (csrc/tcp.cuh) k_window_tcp
+  with bulk's tick (csrc/bulk_tick.cuh) and k_window_tgen with tgen's
+  (csrc/tgen_tick.cuh).  The three phases are one copy of device code
+  (csrc/*.cuh) that the per-phase kernels share.
 
 The TCP kernels of K_DELIVER, K_TRANSPORT and K_WINDOW run one warp per
 host -- K_DELIVER's and K_WINDOW's hosts walked warp-stride over a
@@ -42,12 +43,12 @@ and no fallback.  The kernels update the state's tensors in place
 tensors.  Each wrapper counts its launches in `LAUNCHES`.
 
 With `params.persistent` (the default, as in the JAX package) the
-windows run through K_WINDOW, for every app with a device tick (Phold
-and Bulk: `app.device_tick`): one launch per run_until call for phold,
-one per window for bulk.  Without it, the app tick (and in TCP
-worlds tcp.run_timers before it) runs between K_DELIVER and K_TRANSPORT
-as plain torch on the state's device, as it runs between the Pallas
-kernels in the JAX per-phase graph.
+windows run through K_WINDOW, for every app with a device tick (Phold,
+Bulk and Tgen: `app.device_tick`): one launch per run_until call for
+phold, one per window for bulk and tgen.  Without it, the app tick (and
+in TCP worlds tcp.run_timers before it) runs between K_DELIVER and
+K_TRANSPORT as plain torch on the state's device, as it runs between the
+Pallas kernels in the JAX per-phase graph.
 """
 
 from __future__ import annotations
@@ -532,7 +533,7 @@ def transport_plain(state, params, app, em, tick_t, t_post, active, bw_up,
     if uses_tcp:
         state, em = tcp.transmit(state, params, em, t_post, active)
     state, _placed = engine._stage_emissions(state, params, em, t_post,
-                                             active, bw_up)
+                                             active, app, bw_up)
     state = engine._tx_drain_body(state, params, t_post, active, bw_up,
                                   skip_refill=True)
     state, events = engine._cpu_account(state, params, tick_t, active,
@@ -551,7 +552,8 @@ def transport_plain(state, params, app, em, tick_t, t_post, active, bw_up,
 class _TransportArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "em_valid", "em_blk", "pool_blk", "pool_stage", "pool_time",
-        "pool_status", "ib_blk", "ib_stage", "send_ctr", "tokens_tx",
+        "pool_status", "ib_blk", "ib_stage", "ib_status", "send_ctr",
+        "tokens_tx",
         "last_refill_tx", "t_resume", "tx_queued", "pkts_sent",
         "bytes_sent", "pkts_dropped_inet", "pkts_dropped_pool", "cpu_avail",
         "host_vertex", "route_blk", "bw_up", "cpu_ns_per_event", "tick_t",
@@ -567,17 +569,18 @@ class _TransportArgs(ctypes.Structure):
         ("ki", ctypes.c_int32), ("ic", ctypes.c_int32),
         ("n_vertices", ctypes.c_int32), ("n_hv", ctypes.c_int32),
         ("has_loss", ctypes.c_int32), ("pds_trail", ctypes.c_int32),
-        ("n_blocks", ctypes.c_int32)]
+        ("n_blocks", ctypes.c_int32), ("may_loopback", ctypes.c_int32)]
 
 
-def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
+def _transport_struct(state, params, app, em_valid, em_blk, e, bw_up,
                       tick_t=None, t_post=None, active=None,
                       delivered_n=None, t_app=None, th=None, blk_ev=None,
                       blk_min=None, blk_err=None, gmin=None, ticket=None,
                       n_blocks=0) -> _TransportArgs:
     """K_TRANSPORT's arguments, state tensors checked.  The per-host
     inputs and the partial/scalar outputs from `th` on are the per-phase
-    kernel's; K_WINDOW leaves them None."""
+    kernel's; K_WINDOW leaves them None.  The staging's loopback insert is
+    on when the app may send to its own host (engine._may_loopback)."""
     pool, hosts, ib = state.pool, state.hosts, state.inbox
     h = hosts.num_hosts
     p0, pc = pool.blk.shape
@@ -592,6 +595,7 @@ def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
     _check(pool.status, I32, (p0,), "pool.status")
     _check(ib.blk, I32, (p1, ic), "inbox.blk")
     _check(ib.stage, I32, (p1,), "inbox.stage")
+    _check(ib.status, I32, (p1,), "inbox.status")
     for name in ("send_ctr", "tokens_tx", "last_refill_tx", "t_resume",
                  "pkts_sent", "bytes_sent", "pkts_dropped_inet",
                  "pkts_dropped_pool", "cpu_avail"):
@@ -613,7 +617,8 @@ def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
         pool_blk=_addr(pool.blk), pool_stage=_addr(pool.stage),
         pool_time=_addr(pool.time), pool_status=_addr(pool.status),
         ib_blk=_addr(ib.blk), ib_stage=_addr(ib.stage),
-        send_ctr=_addr(hosts.send_ctr), tokens_tx=_addr(hosts.tokens_tx),
+        ib_status=_addr(ib.status), send_ctr=_addr(hosts.send_ctr),
+        tokens_tx=_addr(hosts.tokens_tx),
         last_refill_tx=_addr(hosts.last_refill_tx),
         t_resume=_addr(hosts.t_resume), tx_queued=_addr(hosts.tx_queued),
         pkts_sent=_addr(hosts.pkts_sent), bytes_sent=_addr(hosts.bytes_sent),
@@ -634,7 +639,8 @@ def _transport_struct(state, params, em_valid, em_blk, e, bw_up,
         h=h, e=e, pc=pc, ko=p0 // h, ki=p1 // h, ic=ic,
         n_vertices=params.n_vertices, n_hv=nhv,
         has_loss=int(bool(params.has_loss)),
-        pds_trail=int(bool(params.pds_trail)), n_blocks=n_blocks)
+        pds_trail=int(bool(params.pds_trail)), n_blocks=n_blocks,
+        may_loopback=int(engine._may_loopback(app)))
 
 
 def transport_kernel(state, params, app, em, tick_t, t_post, active, bw_up,
@@ -665,9 +671,9 @@ def transport_kernel(state, params, app, em, tick_t, t_post, active, bw_up,
     blk_min = torch.empty((nb,), dtype=I64, device=dev)
     blk_err = torch.empty((nb,), dtype=I32, device=dev)
     gmin = torch.empty((), dtype=I64, device=dev)
-    a = _transport_struct(state, params, em.valid, em.blk, e, bw_up, tick_t,
-                          t_post, active, delivered_n, t_app, th, blk_ev,
-                          blk_min, blk_err, gmin, _ticket(dev), nb)
+    a = _transport_struct(state, params, app, em.valid, em.blk, e, bw_up,
+                          tick_t, t_post, active, delivered_n, t_app, th,
+                          blk_ev, blk_min, blk_err, gmin, _ticket(dev), nb)
     tcp = _tcp_struct(state, params, em) if uses_tcp else None
     lib = _build.load("transport")
     _raise_on(lib.transport_launch(
@@ -764,10 +770,29 @@ class _BulkArgs(ctypes.Structure):
         ("server_port", ctypes.c_int32), ("client_slot", ctypes.c_int32)]
 
 
+# apps/tgen.py TgenState's tables and registers in TgenArgs order, with
+# their dtypes (csrc/tgen_tick.cuh).
+_TGEN_FIELDS = (
+    ("ntype", I32), ("nxt", I32), ("sendsize", I64), ("recvsize", I64),
+    ("count", I64), ("pause_t", I64), ("pause_n", I32), ("peer_host", I32),
+    ("peer_port", I32), ("peer_n", I32), ("cur", I32), ("start_t", I64),
+    ("stop_t", I64), ("started", torch.bool), ("finished", torch.bool),
+    ("iters", I64), ("wait_until", I64), ("t_next", I64),
+    ("stream_active", torch.bool), ("conn_ctr", I64), ("cur_send", I64),
+    ("cur_recv", I64), ("streams_done", I64), ("streams_failed", I64))
+
+
+class _TgenArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n, _d in _TGEN_FIELDS] + [
+        ("split", ctypes.c_void_p), ("k0", ctypes.c_uint32),
+        ("k1", ctypes.c_uint32)] + [(n, ctypes.c_int32) for n in (
+            "n_nodes", "pc", "mp", "client_slot", "h")]
+
+
 class _WindowArgs(ctypes.Structure):
     _fields_ = [("x", _ExchangeArgs), ("d", _DeliverArgs),
                 ("t", _TransportArgs), ("p", _PholdArgs),
-                ("tcp", _TcpArgs), ("b", _BulkArgs)] + [
+                ("tcp", _TcpArgs), ("b", _BulkArgs), ("g", _TgenArgs)] + [
         (n, ctypes.c_void_p) for n in (
             "t_h", "part_min", "part_ev", "part_err", "now", "n_windows",
             "win", "em_valid", "em_blk", "acks_thinned", "clk")] + [
@@ -810,18 +835,20 @@ def set_phase_clocks(buf=None, host: int = 0) -> None:
 
 
 
-def _window_grid(lib, h: int, tcp: bool) -> int:
-    """Blocks of K_WINDOW's cooperative grid for h hosts: what the card
-    keeps resident (blocks per SM from the occupancy query, times SMs;
-    cached per device, library and kernel), and no more blocks than the
-    hosts fill -- one thread per host for k_window (_WIN_BLOCK hosts a
-    block), one warp per host for k_window_tcp (_BLOCK // 32).  The
-    kernels walk hosts grid-stride, so any h runs.  Raises if the card
-    cannot launch the kernel cooperatively."""
-    key = (torch.cuda.current_device(), id(lib), tcp)
+def _window_grid(lib, h: int, kernel: int) -> int:
+    """Blocks of K_WINDOW's cooperative grid for h hosts and the kernel
+    of index `kernel` (_DEVICE_TICKS): what the card keeps resident
+    (blocks per SM from the occupancy query, times SMs; cached per
+    device, library and kernel), and no more blocks than the hosts fill
+    -- one thread per host for k_window (_WIN_BLOCK hosts a block), one
+    warp per host for the TCP kernels (_BLOCK // 32).  The kernels walk
+    hosts grid-stride, so any h runs.  Raises if the card cannot launch
+    the kernel cooperatively."""
+    kernel = int(kernel)
+    key = (torch.cuda.current_device(), id(lib), kernel)
     if key not in _OCCUPANCY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-        rc = lib.window_occupancy(int(tcp), ctypes.byref(per_sm),
+        rc = lib.window_occupancy(kernel, ctypes.byref(per_sm),
                                   ctypes.byref(sms))
         if rc == -1:
             raise RuntimeError("K_WINDOW: the device cannot launch "
@@ -829,7 +856,7 @@ def _window_grid(lib, h: int, tcp: bool) -> int:
                                "not fit on one SM)")
         _raise_on(rc, "window (occupancy query)")
         _OCCUPANCY[key] = per_sm.value * sms.value
-    per_block = _BLOCK // 32 if tcp else _WIN_BLOCK
+    per_block = _BLOCK // 32 if kernel else _WIN_BLOCK
     return min(-(-h // per_block), _OCCUPANCY[key])
 
 
@@ -865,9 +892,35 @@ def _bulk_struct(state, app) -> _BulkArgs:
         server_port=app.server_port, client_slot=app.client_slot)
 
 
+def _tgen_struct(state, params, app):
+    """Tgen's tick arguments (csrc/tgen_tick.cuh TgenArgs), app state
+    checked, and the scratch across its client/server barrier: returns
+    (struct, scratch)."""
+    a_st = state.app
+    h = state.hosts.num_hosts
+    n = a_st.ntype.shape[0]
+    pcw = a_st.pause_t.shape[1]
+    mp = a_st.peer_host.shape[1]
+    ptrs = {}
+    for name, dt in _TGEN_FIELDS:
+        t = getattr(a_st, name)
+        shape = (n, pcw) if name == "pause_t" else (n, mp) \
+            if name in ("peer_host", "peer_port") else \
+            (n,) if name in a_st.TABLES else (h,)
+        _check(t, dt, shape, f"app.{name}")
+        ptrs[name] = _addr(t)
+    split = torch.empty((h, 3), dtype=I64, device=a_st.cur.device)
+    k0, k1 = params.purpose_words[rng.PURPOSE_HOST_APP]
+    return _TgenArgs(**ptrs, split=_addr(split), k0=k0, k1=k1, n_nodes=n,
+                     pc=pcw, mp=mp, client_slot=app.client_slot,
+                     h=h), split
+
+
 # The device ticks K_WINDOW carries, by the apps' `device_tick` name:
-# (kernel is TCP, inbox is full width).
-_DEVICE_TICKS = {"phold": False, "bulk": True}
+# the index of its kernel (csrc/window.cu window_kernel_fn: k_window,
+# then the TCP kernels, with a full-width inbox, k_window_tcp and
+# k_window_tgen).
+_DEVICE_TICKS = {"phold": 0, "bulk": 1, "tgen": 2}
 
 
 def window_kernel(state, params, app, t_target, max_windows: int = 1):
@@ -876,8 +929,9 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
     run_timers and the TCP machine too) as one cooperative kernel --
     k_window for phold, which runs windows as window_plain does (the
     first always, then while the window loop's predicate holds, at most
-    `max_windows`), k_window_tcp for bulk, which runs one window whatever
-    `max_windows` is (and so equals window_plain when it is 1).  Updates the state's tensors in place; returns
+    `max_windows`), k_window_tcp for bulk and k_window_tgen for tgen,
+    which run one window whatever `max_windows` is (and so equal
+    window_plain when it is 1).  Updates the state's tensors in place; returns
     (state, t_h, win) with win = i64[5] (the last window's gmin, ws, we,
     outbox pending, and the status) on the card."""
     from . import _build
@@ -887,9 +941,10 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
     if tick not in _DEVICE_TICKS:
         raise NotImplementedError(
             f"K_WINDOW runs the app tick on the card; "
-            f"{type(app).__name__} has no device tick (Phold and Bulk "
-            f"have one)")
-    tcp_on = _DEVICE_TICKS[tick]
+            f"{type(app).__name__} has no device tick (Phold, Bulk and "
+            f"Tgen have one)")
+    kernel = _DEVICE_TICKS[tick]
+    tcp_on = kernel > 0
     pool, ib, hosts = state.pool, state.inbox, state.hosts
     h = hosts.num_hosts
     p0, pc = pool.blk.shape
@@ -908,7 +963,7 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
         _check(getattr(state, name), I64, (), name)
     clk = _PHASE_CLOCKS["buf"]
     lib = _build.load("window" if clk is None else "window_clk")
-    grid = _window_grid(lib, h, tcp_on)
+    grid = _window_grid(lib, h, kernel)
     dev = pool.blk.device
     e = engine._n_lanes(app)
     bw_up, bw_dn = engine._window_ctx(state, params)
@@ -928,13 +983,16 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
         rx_batch = max(1, int(getattr(app, "rx_batch", 1)))
         gates = torch.empty((2 * rx_batch,), dtype=I32, device=dev)
         carry = _carry_scratch(h, dev)
-        app_args = dict(tcp=_tcp_struct(state, params, em, gates, carry),
-                        b=_bulk_struct(state, app))
+        app_args = dict(tcp=_tcp_struct(state, params, em, gates, carry))
+        if tick == "tgen":
+            app_args["g"], split = _tgen_struct(state, params, app)
+        else:
+            app_args["b"] = _bulk_struct(state, app)
     else:
         app_args = dict(p=_phold_struct(state, params, app))
     args = _WindowArgs(
         x=x, d=_deliver_struct(state, params, app, bw_dn),
-        t=_transport_struct(state, params, em.valid, em.blk, e, bw_up),
+        t=_transport_struct(state, params, app, em.valid, em.blk, e, bw_up),
         **app_args, t_h=_addr(t_h), part_min=_addr(part_min),
         part_ev=_addr(part_ev), part_err=_addr(part_err),
         now=_addr(state.now), n_windows=_addr(state.n_windows),
@@ -943,8 +1001,10 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
         t_target=int(t_target), min_latency=params.min_latency_ns,
         max_steps=MAX_STEPS, max_windows=int(max_windows), n_blocks=grid,
         clk_host=_PHASE_CLOCKS["host"])
-    launch = lib.window_tcp_launch if tcp_on else lib.window_launch
-    rc = launch(ctypes.byref(args), _stream())
+    if tcp_on:
+        rc = lib.window_tcp_launch(ctypes.byref(args), kernel, _stream())
+    else:
+        rc = lib.window_launch(ctypes.byref(args), _stream())
     del ex_keep
     _raise_on(rc, "window")
     LAUNCHES["window"] += 1

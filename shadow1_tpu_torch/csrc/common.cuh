@@ -359,4 +359,12 @@ __device__ __forceinline__ uint32_t keyed_bits3(uint32_t k0, uint32_t k1,
   return mix32(h ^ k1);
 }
 
+// rng.keyed_uniform: (bits >> 8) * 2^-24, exact in f32.
+__device__ __forceinline__ float keyed_uniform3(uint32_t k0, uint32_t k1,
+                                                uint32_t a, uint32_t b,
+                                                uint32_t c) {
+  return __fmul_rn((float)(keyed_bits3(k0, k1, a, b, c) >> 8),
+                   5.9604644775390625e-8f);
+}
+
 }  // namespace s1

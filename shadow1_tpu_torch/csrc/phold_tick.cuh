@@ -184,14 +184,6 @@ __device__ __forceinline__ double log1p_xla(double x) {
                    x);
 }
 
-// rng.keyed_uniform: (bits >> 8) * 2^-24, exact in f32.
-__device__ __forceinline__ float keyed_uniform3(uint32_t k0, uint32_t k1,
-                                                uint32_t a, uint32_t b,
-                                                uint32_t c) {
-  return __fmul_rn((float)(keyed_bits3(k0, k1, a, b, c) >> 8),
-                   5.9604644775390625e-8f);
-}
-
 // phold _delay: max(int64(-log1p(-u) * mean), 1), u keyed (host, ctr, 1).
 __device__ __forceinline__ int64_t phold_delay(const PholdArgs& p, int hh,
                                                uint32_t ctr) {

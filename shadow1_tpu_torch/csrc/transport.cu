@@ -7,7 +7,10 @@
 // lanes; tcp.cuh), then shadow1_tpu/core/engine.py
 // _stage_emissions (pkt_id assignment, route_blk lookup, keyed loss draw,
 // merge into free outbox slots either IN_FLIGHT or parked TX_QUEUED under
-// the tx token bucket), _tx_drain_body (one parked departure per host),
+// the tx token bucket; with an app that may send to its own host, tgen's,
+// the _loopback_insert of same-host segments into the sender's own inbox
+// slab, arriving 1 ns later), _tx_drain_body (one parked departure per
+// host),
 // the virtual-CPU accounting, and the post-step scan (_scan_all on the
 // host's slab plus the app wake time carried in and, in TCP worlds, the
 // host's earliest socket timer) giving th[h].

@@ -15,7 +15,10 @@
 // host_vertex are replicated read-only tables.
 // The r-th surviving emission takes the r-th free outbox slot in
 // ascending order: slots are filled in that order, so the next free slot
-// is always the first FREE one after the previous pick (next_free).
+// is always the first FREE one after the previous pick (next_free).  In
+// worlds whose app may send to its own host (`may_loopback`: tgen), a
+// surviving same-host emission takes the next free slot of the host's
+// own inbox slab instead (engine._loopback_insert), by the same rule.
 #pragma once
 #include "common.cuh"
 #include "tcp.cuh"
@@ -35,8 +38,9 @@ struct TransportArgs {
   int32_t* pool_stage;
   int64_t* pool_time;
   int32_t* pool_status;
-  const int32_t* ib_blk;
-  const int32_t* ib_stage;
+  int32_t* ib_blk;      // written by the loopback insert only
+  int32_t* ib_stage;
+  int32_t* ib_status;
   int64_t* send_ctr;
   int64_t* tokens_tx;
   int64_t* last_refill_tx;
@@ -70,7 +74,7 @@ struct TransportArgs {
   int64_t cpu_precision;
   uint32_t drop_k0, drop_k1;
   int32_t h, e, pc, ko, ki, ic, n_vertices, n_hv, has_loss, pds_trail,
-      n_blocks;
+      n_blocks, may_loopback;
 };
 
 struct HostOut {
@@ -204,23 +208,54 @@ __device__ __forceinline__ bool stage_route(const TransportArgs& a, int hh,
   return !stage_lost(a, hh, ctr2, rel);
 }
 
+// The loopback row of emission `er` in inbox slot `slot`, as
+// engine._loopback_insert builds it: the emission's columns in inbox
+// layout with the source, the arrival send + 1 ns, the pkt_id counter
+// and, in full-width rows, the TS send stamp; IN_FLIGHT.
+__device__ __forceinline__ void stage_loopback_row(const TransportArgs& a,
+                                                   int hh,
+                                                   const int32_t* er,
+                                                   int64_t slot, int64_t ctr2,
+                                                   int64_t send_t) {
+  int32_t* ir = a.ib_blk + slot * a.ic;
+  const int64_t arr = send_t + 1;
+  ir[ICOL_SRC] = hh;
+  for (int c = ICOL_SPORT; c < ICOL_TIME_LO; ++c) ir[c] = er[c];
+  ir[ICOL_TIME_LO] = enc_lo(arr);
+  ir[ICOL_TIME_HI] = enc_hi(arr);
+  ir[ICOL_CTR_LO] = enc_lo(ctr2);
+  ir[ICOL_CTR_HI] = enc_hi(ctr2);
+  if (a.ic >= ICOLS) {                    // full-width TCP row
+    ir[ICOL_TS_LO] = enc_lo(send_t);
+    ir[ICOL_TS_HI] = enc_hi(send_t);
+    for (int c = ICOL_TSE_LO; c < ICOLS; ++c) ir[c] = er[c];
+  }
+  a.ib_stage[slot] = STAGE_IN_FLIGHT;
+  if (a.pds_trail)
+    a.ib_status[slot] = PDS_SND_CREATED | PDS_SND_INTERFACE_SENT |
+                        PDS_INET_SENT;
+}
+
 // engine._stage_emissions for host hh, its emission lanes in order on
 // uniform values (Solo and Warp teams): the r-th survivor takes the r-th
 // free outbox slot (next_free from the previous pick), the token bucket
 // admits while the byte prefix of the placed rows fits `budget`, and the
-// leader writes each row.
+// leader writes each row.  With a.may_loopback a survivor addressed to hh
+// takes the next of the host's `ib_free` free inbox slots instead
+// (outside the outbox ranks and the byte prefix), or, with none left, is
+// a counted pool drop.
 template <class Team>
 __device__ __forceinline__ StageOut stage_serial(const TransportArgs& a,
                                                  const Team& tm, int hh,
                                                  int64_t ctr, int64_t budget,
                                                  int32_t txq0, bool boot,
                                                  int64_t tp, int n_free,
-                                                 int32_t vs) {
+                                                 int ib_free, int32_t vs) {
   const int e = a.e, pc = a.pc, ko = a.ko;
-  const int64_t pbase = (int64_t)hh * ko;
+  const int64_t pbase = (int64_t)hh * ko, ibase = (int64_t)hh * a.ki;
   const int32_t* const pstage = a.pool_stage + pbase;
   StageOut o{0, 0, 0, 0, 0, 0, 0, INV, false};
-  int nlive = 0, cursor = 0;
+  int nlive = 0, cursor = 0, nloop = 0, icursor = 0;
   int64_t prefix = 0;
   for (int j = 0; j < e; ++j) {
     if (!a.em_valid[(int64_t)hh * e + j]) continue;
@@ -232,6 +267,22 @@ __device__ __forceinline__ StageOut stage_serial(const TransportArgs& a,
       ++o.dropped_n;
       continue;
     }
+    const int64_t t_send = dec_i64(er[ICOL_TIME_LO], er[ICOL_TIME_HI]);
+    const int64_t send_t = t_send > 0 ? t_send : tp;
+    if (a.may_loopback && dst == hh) {      // into the own inbox slab
+      if (nloop++ >= ib_free) {
+        ++o.pool_drop_n;
+        o.overflow = true;
+        continue;
+      }
+      icursor = next_free(tm, a.ib_stage + ibase, icursor, a.ki);
+      ++o.placed_n;
+      o.sent_bytes += er[ICOL_LEN];
+      if (tm.leader())
+        stage_loopback_row(a, hh, er, ibase + icursor, ctr2, send_t);
+      ++icursor;
+      continue;
+    }
     if (nlive++ >= n_free) {                // slab exhausted: counted drop
       ++o.pool_drop_n;
       o.overflow = true;
@@ -240,8 +291,6 @@ __device__ __forceinline__ StageOut stage_serial(const TransportArgs& a,
     cursor = next_free(tm, pstage, cursor, ko);
     const int64_t slot = pbase + cursor++;
     ++o.placed_n;
-    const int64_t t_send = dec_i64(er[ICOL_TIME_LO], er[ICOL_TIME_HI]);
-    const int64_t send_t = t_send > 0 ? t_send : tp;
     const int32_t len = er[ICOL_LEN];
     const int64_t size = wire_size(er[ICOL_PROTO], len);
     prefix += size;
@@ -290,11 +339,17 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   each_slot(tm, pstage, ko,
             [&](int, int32_t st) { n_free += st == STAGE_FREE; });
   n_free = tm.sum(n_free);
+  int ib_free = 0;
+  if (a.may_loopback) {
+    each_slot(tm, a.ib_stage + (int64_t)hh * a.ki, a.ki,
+              [&](int, int32_t st) { ib_free += st == STAGE_FREE; });
+    ib_free = tm.sum(ib_free);
+  }
   int64_t t_resume = a.t_resume[hh];
   if (tcp != nullptr) tcp_transmit(tm, *tcp, hh, tp, act, n_free, t_resume);
   const int32_t vs = a.host_vertex[hh];
-  const StageOut so =
-      stage_serial(a, tm, hh, ctr, tokens, txq0, boot, tp, n_free, vs);
+  const StageOut so = stage_serial(a, tm, hh, ctr, tokens, txq0, boot, tp,
+                                   n_free, ib_free, vs);
   const int nvalid = so.nvalid;
   const bool overflow = so.overflow;
   tokens -= so.spent;
@@ -390,7 +445,7 @@ constexpr int SMALL = 8;
 
 __device__ __forceinline__ bool transport_small_fits(const TransportArgs& a) {
   return a.ko <= SMALL && a.ki <= SMALL && a.e <= SMALL &&
-         a.pc - OEXT_COLS < ICOLS;
+         a.pc - OEXT_COLS < ICOLS && !a.may_loopback;
 }
 
 __device__ __forceinline__ HostOut transport_small(const TransportArgs& a,

@@ -10,11 +10,13 @@
 // close (now = we, n_windows + 1).  It also emits the earliest outbox
 // arrival still awaiting the next exchange (engine._outbox_pending), so
 // the host's window loop reads one small vector per launch and nothing
-// per micro-step.  Two kernels: k_window for UDP worlds with phold's tick
-// (phold_tick.cuh), k_window_tcp for TCP worlds with bulk's tick
-// (bulk_tick.cuh) and the TCP machine (tcp.cuh).  They share the window's
-// opening (exchange and scan) and closing as device functions, so phold's
-// kernel does not carry the TCP machine's registers.
+// per micro-step.  Three kernels: k_window for UDP worlds with phold's
+// tick (phold_tick.cuh), and for TCP worlds with the TCP machine
+// (tcp.cuh) k_window_tcp with bulk's tick (bulk_tick.cuh) and
+// k_window_tgen with tgen's (tgen_tick.cuh), the same template
+// (window_tcp) on two tick policies.  They share the window's opening
+// (exchange and scan) and closing as device functions, so phold's kernel
+// does not carry the TCP machine's registers.
 //
 // Design.  Within a window every phase is row-local over hosts (the
 // megakernel's blocking contract): the only cross-host values are the
@@ -90,7 +92,13 @@
 // the words of the other parity are zeroed at the start of the next step
 // (after that barrier) and are not written again before the closing
 // barrier that follows.  run_timers and bulk's tick need no barrier
-// (per-host exact; tcp.cuh, bulk_tick.cuh).  The socket-overflow bit of a
+// (per-host exact; tcp.cuh, bulk_tick.cuh).  Tgen's tick has one: its
+// server pass reads the peers' stream registers, which their client pass
+// of the same step writes, so the step runs the client stage in the
+// last round's host loop, parks the host's tick, t_post, active flag and
+// delivery count in a scratch record, and after one grid barrier runs
+// the server stage, the sink and K_TRANSPORT's body in a second host
+// loop (TgenTick::kSplit).  The socket-overflow bit of a
 // passive open and the pool-overflow bits are OR-ed into the step's block
 // partials (only the leader lane counts a host's events).  Nothing a
 // gathered socket holds lives across a barrier, so the kernel takes
@@ -116,6 +124,7 @@
 #include "bulk_tick.cuh"
 #include "exchange.cuh"
 #include "phold_tick.cuh"
+#include "tgen_tick.cuh"
 #include "transport.cuh"
 
 using namespace s1;
@@ -124,7 +133,8 @@ using namespace s1;
 // shadow1_tpu_torch/core/megakernel.py.  In `d` and `t` the per-phase
 // kernels' per-host inputs and outputs are unused (null); `t.em_valid` /
 // `t.em_blk` point at the staging scratch below.  `p` is phold's (UDP),
-// `tcp` and `b` bulk's (TCP); the other kernel leaves them zero.
+// `tcp` the TCP kernels', `b` bulk's and `g` tgen's; the other kernels
+// leave them zero.
 struct WindowArgs {
   ExchangeArgs x;
   DeliverArgs d;
@@ -132,6 +142,7 @@ struct WindowArgs {
   PholdArgs p;
   TcpArgs tcp;
   BulkArgs b;
+  TgenArgs g;
   int64_t* t_h;        // [h] out: per-host next event time
   int64_t* part_min;   // [2 * n_blocks] block partials, by parity
   int64_t* part_ev;    // [2 * n_blocks]
@@ -309,7 +320,13 @@ struct PholdRxIn {
   }
 };
 
+// The TCP ticks.  BulkTick's is per-host exact, in one stage.
+// TgenTick's server pass reads other hosts' registers as their client
+// pass of the same micro-step left them, so it is split (kSplit): the
+// client stage runs in the host's step, a grid barrier follows every
+// host's, then the server stage, the sink and K_TRANSPORT's body run.
 struct BulkTick {
+  static constexpr bool kSplit = false;
   __device__ static int64_t next(const WindowArgs& a, int hh) {
     return bulk_next(a.b, hh);
   }
@@ -323,6 +340,29 @@ struct BulkTick {
   __device__ static void tick(const WindowArgs& a, const Team& tm, int hh,
                               int64_t tp, bool act) {
     bulk_tick(tm, a.b, a.tcp, hh, tp, act);
+  }
+};
+
+struct TgenTick {
+  static constexpr bool kSplit = true;
+  __device__ static int64_t next(const WindowArgs& a, int hh) {
+    return tgen_next(a.g, hh);
+  }
+  template <class Team>
+  __device__ static int64_t aux(const WindowArgs& a, const Team& tm,
+                                int hh) {
+    return imin(imin(a.t.t_resume[hh], timer_min(tm, a.tcp, hh)),
+                next(a, hh));
+  }
+  template <class Team>
+  __device__ static void client(const WindowArgs& a, const Team& tm, int hh,
+                                int64_t tp, bool act) {
+    tgen_client(tm, a.g, a.tcp, hh, tp, act);
+  }
+  template <class Team>
+  __device__ static void server(const WindowArgs& a, const Team& tm,
+                                int hh) {
+    tgen_server(tm, a.g, a.tcp, hh);
   }
 };
 
@@ -586,6 +626,18 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
     if (gtid == 0)
       for (int r = 0; r < rb; ++r) gates[(g ^ 1) * rb + r] = 0;
     HostOut s{INV, 0, 0};
+    // K_TRANSPORT's body after the tick, and the host's partials.
+    const auto step_tail = [&](int hh, int64_t tick, int64_t tp, bool act,
+                               int32_t delivered, Clk& ck) {
+      const HostOut o = transport_host(a.t, tm, &a.tcp, hh, tick, tp, act,
+                                       delivered, Tick::next(a, hh), ck);
+      if (tm.leader()) {
+        a.t_h[hh] = o.th;
+        s.events += o.events;
+      }
+      s.th = imin(s.th, o.th);
+      s.err |= o.err;
+    };
     const int32_t sock_err = deliver_tcp_warps(
         a.d, a.tcp, gates + g * rb, we, clk, a.clk_host,
         [&](int hh, int64_t& tick, bool& act, int64_t& aux0) {
@@ -604,18 +656,34 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
           Clk& ck = traced ? clk : no_clk;
           tcp_run_timers(tm, a.tcp, hh, dl.t_post, c.act);
           ck.mark(CLK_TIMERS);
-          Tick::tick(a, tm, hh, dl.t_post, c.act);
-          ck.mark(CLK_TICK);
-          const HostOut o = transport_host(a.t, tm, &a.tcp, hh, c.tick,
-                                           dl.t_post, c.act, dl.delivered,
-                                           Tick::next(a, hh), ck);
-          if (tm.leader()) {
-            a.t_h[hh] = o.th;
-            s.events += o.events;
+          if constexpr (Tick::kSplit) {
+            // The client stage; the host's step goes on after the barrier.
+            Tick::client(a, tm, hh, dl.t_post, c.act);
+            if (tm.leader()) {
+              int64_t* sp = a.g.split + (int64_t)hh * 3;
+              sp[0] = c.tick;
+              sp[1] = dl.t_post;
+              sp[2] = (int64_t)c.act | ((int64_t)dl.delivered << 1);
+            }
+          } else {
+            Tick::tick(a, tm, hh, dl.t_post, c.act);
+            ck.mark(CLK_TICK);
+            step_tail(hh, c.tick, dl.t_post, c.act, dl.delivered, ck);
           }
-          s.th = imin(s.th, o.th);
-          s.err |= o.err;
         });
+    if constexpr (Tick::kSplit) {
+      // Every host's client stage before any server stage reads it.
+      grid.sync();
+      for (int64_t i = gtid / Warp::W; i < h; i += nw) {
+        const int hh = (int)i;
+        Clk& ck = hh == a.clk_host ? clk : no_clk;
+        const int64_t* sp = a.g.split + (int64_t)hh * 3;
+        const int64_t tick = sp[0], tp = sp[1], w = sp[2];
+        Tick::server(a, tm, hh);
+        ck.mark(CLK_TICK);
+        step_tail(hh, tick, tp, (w & 1) != 0, (int32_t)(w >> 1), ck);
+      }
+    }
     s.err |= sock_err;
     clk.start();
     gmin = step_close<kBlock>(a, grid, buf, s);
@@ -639,13 +707,25 @@ __global__ void __launch_bounds__(kBlock, 2) k_window_tcp(WindowArgs a) {
   window_tcp<BulkTick>(a);
 }
 
+__global__ void __launch_bounds__(kBlock, 2) k_window_tgen(WindowArgs a) {
+  window_tcp<TgenTick>(a);
+}
+
 }  // namespace
 
-// Blocks per SM of K_WINDOW's kernel (k_window_tcp when `tcp`, else
-// k_window) and the card's SM count: the wrapper sizes the cooperative
-// grid from them.  Returns a CUDA error code, or -1 when the device cannot
-// launch cooperative kernels or the kernel does not fit on an SM.
-extern "C" int window_occupancy(int tcp, int* per_sm, int* sms) {
+// K_WINDOW's kernels by the wrapper's index: k_window (phold), then the
+// TCP kernels k_window_tcp (bulk) and k_window_tgen (tgen).
+static const void* window_kernel_fn(int kernel) {
+  return kernel == 2   ? (const void*)k_window_tgen
+         : kernel == 1 ? (const void*)k_window_tcp
+                       : (const void*)k_window;
+}
+
+// Blocks per SM of K_WINDOW's kernel `kernel` (window_kernel_fn) and the
+// card's SM count: the wrapper sizes the cooperative grid from them.
+// Returns a CUDA error code, or -1 when the device cannot launch
+// cooperative kernels or the kernel does not fit on an SM.
+extern "C" int window_occupancy(int kernel, int* per_sm, int* sms) {
   int dev = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -653,10 +733,8 @@ extern "C" int window_occupancy(int tcp, int* per_sm, int* sms) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = tcp ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                  per_sm, k_window_tcp, kBlock, 0)
-            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                  per_sm, k_window, kWinBlock, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, window_kernel_fn(kernel), kernel ? kBlock : kWinBlock, 0);
   if (e != cudaSuccess) return (int)e;
   return (!coop || *per_sm < 1) ? -1 : 0;
 }
@@ -669,9 +747,11 @@ extern "C" int window_launch(const WindowArgs* args, void* stream) {
                                           (cudaStream_t)stream);
 }
 
-extern "C" int window_tcp_launch(const WindowArgs* args, void* stream) {
+// The TCP kernels: `kernel` 1 (k_window_tcp) or 2 (k_window_tgen).
+extern "C" int window_tcp_launch(const WindowArgs* args, int kernel,
+                                 void* stream) {
   void* params[] = {(void*)args};
-  return (int)cudaLaunchCooperativeKernel((const void*)k_window_tcp,
+  return (int)cudaLaunchCooperativeKernel(window_kernel_fn(kernel),
                                           dim3(args->n_blocks), dim3(kBlock),
                                           params, 0, (cudaStream_t)stream);
 }

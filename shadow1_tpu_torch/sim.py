@@ -8,11 +8,12 @@ import torch
 from . import resolve_device
 from .apps import bulk as bulk_app
 from .apps import phold as phold_app
+from .apps import tgen as tgen_app
 from .core import engine, simtime
 from .core.params import make_net_params
 from .core.state import make_sim_state
 from .routing.synthetic import uniform_full_mesh
-from .transport import udp
+from .transport import tcp, udp
 
 
 def build_phold(num_hosts: int,
@@ -104,6 +105,95 @@ def build_bulk(num_hosts: int,
             total_bytes=torch.where(is_server, 0, bytes_per_client),
             start_t=start_time, device=dev))
     return state, params, bulk_app.Bulk()
+
+
+_TGEN_SERVER_XML = """
+<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="serverport" attr.type="string" for="node" id="k0"/>
+  <graph edgedefault="directed">
+    <node id="start"><data key="k0">{port}</data></node>
+  </graph>
+</graphml>"""
+
+_TGEN_CLIENT_XML = """
+<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="peers" attr.type="string" for="node" id="k0"/>
+  <key attr.name="sendsize" attr.type="string" for="node" id="k1"/>
+  <key attr.name="recvsize" attr.type="string" for="node" id="k2"/>
+  <key attr.name="count" attr.type="string" for="node" id="k3"/>
+  <key attr.name="time" attr.type="string" for="node" id="k4"/>
+  <graph edgedefault="directed">
+    <node id="start"><data key="k0">server:{port}</data></node>
+    <node id="stream"><data key="k1">{sendsize}</data>
+      <data key="k2">{recvsize}</data></node>
+    <node id="end"><data key="k3">{streams}</data></node>
+    <node id="pause"><data key="k4">1,2</data></node>
+    <edge source="start" target="stream"/>
+    <edge source="stream" target="end"/>
+    <edge source="end" target="pause"/>
+    <edge source="pause" target="start"/>
+  </graph>
+</graphml>"""
+
+TGEN_PORT = 8888
+
+
+def build_tgen(num_hosts: int,
+               server: int = 0,
+               sendsize: int = 50 * 1024,
+               recvsize: int = 200 * 1024,
+               streams: int = 3,
+               latency_ns: int = 20 * simtime.SIMTIME_ONE_MILLISECOND,
+               reliability: float = 1.0,
+               stop_time: int = 120 * simtime.SIMTIME_ONE_SECOND,
+               seed: int = 1,
+               sock_slots: int = 16,
+               pool_slab: int = 32,
+               bw_Bps: int = 1 << 27,
+               megakernel: bool = True,
+               persistent: bool = True,
+               device=None):
+    """A tgen world: one file server plus (num_hosts - 1) clients running
+    the modeled action-graph interpreter (apps/tgen.py) with the graph
+    shape of Shadow's examples/tgen-100host -- each client streams
+    `sendsize` up and `recvsize` down `streams` times with 1-2 s pauses.
+    Same arguments and result as the JAX build_tgen, on `device` (None =
+    the CUDA card).  With the defaults each window is one K_WINDOW launch
+    (the TCP kernel, with tgen's tick on the card); persistent=False runs
+    the per-phase kernels."""
+    if num_hosts < 2:
+        raise ValueError("tgen needs at least 2 hosts (one server plus "
+                         "clients)")
+    dev = resolve_device(device)
+    v = min(num_hosts, 256)
+    srv = tgen_app.parse_tgen(_TGEN_SERVER_XML.format(port=TGEN_PORT))
+    cli = tgen_app.parse_tgen(_TGEN_CLIENT_XML.format(
+        port=TGEN_PORT, sendsize=int(sendsize), recvsize=int(recvsize),
+        streams=int(streams)))
+    host_graph = [1] * num_hosts
+    host_graph[server] = 0
+    start_t = [5 * simtime.SIMTIME_ONE_SECOND] * num_hosts
+    start_t[server] = simtime.SIMTIME_ONE_SECOND
+    lat, rel = uniform_full_mesh(v, latency_ns, reliability)
+    params = make_net_params(
+        latency_ns=lat, reliability=rel,
+        host_vertex=torch.arange(num_hosts) % v,
+        bw_up_Bps=torch.full((num_hosts,), bw_Bps),
+        bw_down_Bps=torch.full((num_hosts,), bw_Bps),
+        seed=seed, stop_time=stop_time, megakernel=megakernel,
+        persistent=persistent, device=dev)
+    state = make_sim_state(num_hosts, sock_slots=sock_slots,
+                           pool_capacity=num_hosts * pool_slab,
+                           uses_tcp=True, device=dev)
+    mask = torch.arange(num_hosts, device=dev) == server
+    state = state.replace(
+        socks=tcp.listen_v(state.socks, mask, 0, TGEN_PORT,
+                           backlog=num_hosts),
+        app=tgen_app.build_state(
+            num_hosts, [srv, cli], host_graph, start_t,
+            resolve_peer=lambda s: (server, int(s.rsplit(":", 1)[1])),
+            device=dev))
+    return state, params, tgen_app.Tgen()
 
 
 def run(state, params, app, until: int | None = None):

@@ -14,7 +14,8 @@ def test_sources_follow_includes():
     assert names["window"][0] == "window.cu"
     assert set(names["window"]) == {
         "window.cu", "exchange.cuh", "deliver.cuh", "transport.cuh",
-        "phold_tick.cuh", "bulk_tick.cuh", "tcp.cuh", "common.cuh"}
+        "phold_tick.cuh", "bulk_tick.cuh", "tgen_tick.cuh", "tcp.cuh",
+        "common.cuh"}
     for n in ("exchange", "deliver", "transport"):
         assert set(names[n]) == {f"{n}.cu", f"{n}.cuh", "tcp.cuh",
                                  "common.cuh"}

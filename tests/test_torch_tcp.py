@@ -23,8 +23,8 @@ the port's plain torch counterpart, and every output leaf must be equal:
 * (slow) a micro-step of that world through the JAX microstep_fused
   kernels and the port's microstep_fused (K_DELIVER, run_timers, the
   tick, K_TRANSPORT; their plain versions on the CPU);
-* `check_supported` refusing CUBIC, Echo and Tgen, and admitting Bulk on
-  the persistent path (K_WINDOW's TCP kernel).
+* `check_supported` refusing CUBIC, Echo and Gossip, and admitting Bulk
+  and Tgen on the persistent path (K_WINDOW's TCP kernels).
 
 (slow) The bulk bench world of chip_smoke.py: the JAX package's
 trajectory equals the constants chip_smoke.py holds the card to, and the
@@ -548,19 +548,19 @@ def test_tcp_microstep_equals_jax_kernels():
 
 def _refusal_cases():
     from shadow1_tpu.apps.echo import EchoServer
-    from shadow1_tpu.apps.tgen import Tgen
+    from shadow1_tpu.apps.gossip import Gossip
     ts, tp, ta = tsim.build_bulk(**WORLD, reliability=0.97, device="cpu")
     return {
         "cubic": (ts, tp.replace(cong="cubic", persistent=False), ta,
                   NotImplementedError, "cubic"),
         "echo": (ts, tp.replace(persistent=False), EchoServer(),
                  NotImplementedError, "EchoServer is not ported"),
-        "tgen": (ts, tp.replace(persistent=False), Tgen(),
-                 NotImplementedError, "Tgen is not ported"),
+        "gossip": (ts, tp.replace(persistent=False), Gossip(),
+                   NotImplementedError, "Gossip is not ported"),
     }
 
 
-@pytest.mark.parametrize("case", ["cubic", "echo", "tgen"])
+@pytest.mark.parametrize("case", ["cubic", "echo", "gossip"])
 def test_check_supported_refuses_by_name(case):
     ts, tp, app, exc, msg = _refusal_cases()[case]
     with pytest.raises(exc, match=msg):
@@ -578,6 +578,21 @@ def test_persistent_bulk_is_admitted():
     teng.check_supported(ts, tp, ta)
     assert tmk.persistent_enabled(ts, tp, ta)
     out = teng.run_until(ts, tp, ta, 10 * MS)
+    assert int(out.n_windows) == 1 and int(out.n_steps) > 0
+
+
+def test_persistent_tgen_is_admitted():
+    """Tgen has a device tick (csrc/tgen_tick.cuh) and may loop back, so
+    the default persistent path takes it: check_supported admits it, and
+    its first window runs through window_call (window_plain on the
+    CPU)."""
+    ts, tp, ta = tsim.build_tgen(4, device="cpu")
+    assert tp.persistent and ta.device_tick == "tgen"
+    assert teng._may_loopback(ta)
+    teng.check_supported(ts, tp, ta)
+    assert tmk.persistent_enabled(ts, tp, ta)
+    # Clients start at 5 s: the first window opens there.
+    out = teng.run_until(ts, tp, ta, 5 * SEC + 10 * MS)
     assert int(out.n_windows) == 1 and int(out.n_steps) > 0
 
 
