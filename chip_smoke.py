@@ -56,7 +56,7 @@ Phases, each reported on its own line:
    versions, torch.equal on every output leaf, timed and bounded as in
    phase 3; the exchange also on crafted fan-ins (FAN_IN movers to one
    host, pure ACKs shed first), where its time at 20,000 movers must stay
-   under 20x its time at 2,000.  Then a lossy 16-host bulk world to 1.5 s through K_WINDOW,
+   under 20x its time at 2,000.  Then a lossy 16-host bulk world to 0.8 s through K_WINDOW,
    through the per-phase kernels and through the plain versions, leaf for
    leaf, with retransmissions reached.
 7. TCP per-phase path -- BULK with persistent=False through run_until /
@@ -107,10 +107,34 @@ Phases, each reported on its own line:
    own listener, to LOOP_NS on both paths, counters zeroed just before
    and read just after: both trajectories equal the JAX package's and the
    final states each other, leaf for leaf.
-14. kernels line -- one JSON object with each kernel's numbers (ms is
+14. jitter kernels -- the per-packet jitter draw of K_TRANSPORT's
+   staging on jittered worlds (jittered_world: sim.build_phold /
+   build_bulk with make_net_params given a jitter table), torch.equal
+   against the plain staging: k_transport at every micro-step of a window
+   of the STRESS world (transport_small) and of the KO world (the general
+   path), k_window over one STRESS window, k_transport_tcp at every
+   micro-step of four windows of JITTER_CONFIG at 2.2 s and k_window_tgen
+   over one of its windows, k_window_tcp over a window of the LOSSY bulk
+   world; each must stage rows that a nonzero draw moved, and each is
+   timed with jitter and on the same inputs without.
+15. cli: tgen-2host -- `python -m shadow1_tpu_torch run`'s run_config on
+   examples/tgen-2host to its 60 s on the card, counters zeroed just
+   before and read just after (one K_WINDOW launch a window and nothing
+   else): heartbeat.csv's sha256 and summary.json equal the JAX CLI's
+   (JAX_CLI), and the printed summary line summary.json's.
+16. cli: tgen-100host, the main path -- examples/tgen-100host through
+   the CLI to its 120 s on the persistent path, counters zeroed just
+   before and read just after: heartbeat.csv and summary.json equal the
+   JAX CLI's; wall, events/s, windows, launches.  The same schedule on
+   the per-phase path ends in an equal state with the same heartbeat
+   file; the main path again with CUDA events around each K_WINDOW call
+   gives the device time per window and the device's busy share.
+17. cli: jittered config -- JITTER_CONFIG through the CLI to its 5 s:
+   heartbeat.csv and summary.json equal the JAX CLI's.
+18. kernels line -- one JSON object with each kernel's numbers (ms is
    the device time, call_ms the call time); each kernel's launches come
-   from the run of its own path; the TCP branches and the tgen kernel are
-   rows of their own.
+   from the run of its own path (the tgen kernel's from phase 16's main
+   path); the TCP branches and the tgen kernel are rows of their own.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -141,9 +165,10 @@ STRESS = dict(num_hosts=2048, msgs_per_host=8, mean_delay_ns=10 * MS,
               stop_time=3 * SEC, pool_capacity=2048 * 8, rx_batch=2, seed=5,
               bw_up_Bps=50_000, bw_down_Bps=6_000, reliability=0.95,
               bootstrap_end=20 * MS)
-# Its depth: by 200 ms it has taken every drop path (loss, router, a full
-# slab; 149 micro-steps), so the three paths' run stops there.
-STRESS_NS = 200 * MS
+# Its depth: by 175 ms it has taken every drop path (loss, router, a full
+# slab), so the three paths' run stops there (200 ms until the CLI phases
+# came: 149 micro-steps).
+STRESS_NS = 175 * MS
 # A world like it with 12-slot slabs, 12 messages a host and a 3 kB/s
 # uplink: K_TRANSPORT's general path (slabs above transport_small's
 # eight), checked against its plain version at every micro-step of one
@@ -185,9 +210,10 @@ TCP_PROBE_NS = 60 * MS
 # A lossy bulk world for the kernels-vs-plain whole-run check.
 LOSSY = dict(num_hosts=16, bytes_per_client=200_000, reliability=0.97,
              seed=11, stop_time=4 * SEC)
-# Its depth: 709 of the 785 micro-steps to its end (2 s), 60 segments
-# retransmitted by then.
-LOSSY_NS = 1500 * MS
+# Its depth: 592 of the 785 micro-steps to its end (2 s), 54 segments
+# retransmitted by then (1.5 s, 709 micro-steps, until the CLI phases
+# came).
+LOSSY_NS = 800 * MS
 
 # The JAX package's trajectory of BULK and its schedule (warm-up to 10 ms
 # with run_until, then run_chunked to BULK_RUN_NS; reference graph),
@@ -230,6 +256,111 @@ JAX_TGEN_FINAL = dict(n_steps=11775, n_windows=1823, n_events=128982,
                       done=237, failed=0, finished=79, err=3)
 JAX_LOOP_FINAL = dict(n_steps=443, n_windows=39, n_events=3440, done=6,
                       failed=0, finished=1, err=1)
+
+# The config worlds of the port's CLI (shadow1_tpu_torch/cli.py run), each
+# to its config's own stoptime: Shadow's examples/tgen-2host (60 s) and
+# examples/tgen-100host (120 s, the main path; the JAX CLI reaches it on a
+# CPU in about 7 minutes, so it is held to the JAX CLI at full depth), and
+# JITTER_CONFIG (write_jitter_config, 5 s).
+CLI_2HOST = "examples/tgen-2host/shadow.config.xml"
+CLI_100HOST = "examples/tgen-100host/shadow.config.xml"
+# A config with per-edge jitter and loss on 3 vertices (one explicit
+# self-loop), 6 hosts (the server pays 2 us of virtual CPU per event), the
+# tgen-100host graphs: 5 clients fetch 64 KiB for 2 KiB sent, from 2 s.
+JITTER_CONFIG = """<shadow stoptime="5">
+  <topology><![CDATA[<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="d1"/>
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="d2"/>
+  <key attr.name="type" attr.type="string" for="node" id="d3"/>
+  <key attr.name="latency" attr.type="double" for="edge" id="d4"/>
+  <key attr.name="jitter" attr.type="double" for="edge" id="d5"/>
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d6"/>
+  <graph edgedefault="undirected">
+    <node id="core"><data key="d1">102400</data><data key="d2">102400</data>
+      <data key="d3">server</data></node>
+    <node id="east"><data key="d1">2048</data><data key="d2">10240</data>
+      <data key="d3">client</data></node>
+    <node id="west"><data key="d1">4096</data><data key="d2">8192</data>
+      <data key="d3">client</data></node>
+    <edge source="core" target="east"><data key="d4">20.5</data>
+      <data key="d5">4.0</data><data key="d6">0.01</data></edge>
+    <edge source="core" target="west"><data key="d4">35.0</data>
+      <data key="d5">9.5</data><data key="d6">0.02</data></edge>
+    <edge source="east" target="west"><data key="d4">28.0</data>
+      <data key="d5">0.0</data><data key="d6">0.005</data></edge>
+    <edge source="west" target="west"><data key="d4">24.0</data>
+      <data key="d5">2.0</data><data key="d6">0.0</data></edge>
+  </graph></graphml>]]></topology>
+  <plugin id="tgen" path="tgen"/>
+  <host id="fileserver" typehint="server" cpufrequency="1500000">
+    <process plugin="tgen" starttime="1" arguments="tgen.server.graphml.xml"/>
+  </host>
+  <host id="web" quantity="5" typehint="client">
+    <process plugin="tgen" starttime="2" arguments="tgen.client.graphml.xml"/>
+  </host>
+</shadow>
+"""
+
+# The jitter kernels' probes (phase 14): worlds of sim.build_phold /
+# build_bulk with a jitter amplitude of up to JITTER_MAX_NS on 3 of 4
+# vertex pairs (jittered_world), checked at these times; JITTER_CONFIG
+# at JITTER_TCP_PROBE_NS.
+JITTER_MAX_NS = 4 * MS
+JITTER_PROBE_NS = 60 * MS
+JITTER_BULK_PROBE_NS = 300 * MS
+JITTER_TCP_PROBE_NS = 2200 * MS
+
+# The JAX CLI's artifacts of those runs on the CPU: heartbeat.csv's
+# sha256 and summary.json without wall_seconds (the printed summary line
+# is the same without object_census).  Made with
+#   python3 -c 'import chip_smoke; chip_smoke.write_jitter_config("J")'
+#   env JAX_PLATFORMS=cpu python -m shadow1_tpu run CONFIG \
+#       --data-directory OUT
+#   sha256sum OUT/heartbeat.csv; cat OUT/summary.json
+# for CONFIG = CLI_2HOST, CLI_100HOST and J/shadow.config.xml;
+# tests/test_torch_cli.py -m slow asserts them.
+JAX_CLI = {
+    "tgen-2host": dict(
+        rc=0, heartbeat_sha256="4c203ad2906807f7df14d55ed46cd995"
+        "d89fc48d30cb8c6458722a8aaf77ac3a",
+        summary={"simulated_seconds": 60.0, "hosts": 2,
+                 "streams_completed": 3, "streams_failed": 0,
+                 "packets_sent": 850, "packets_received": 850,
+                 "bytes_sent": 768000, "drops_inet": 5, "drops_router": 0,
+                 "drops_pool": 0, "acks_thinned": 0, "err_flags": 0,
+                 "object_census": {
+                     "packets_free": 512, "packets_tx_queued": 0,
+                     "packets_in_flight": 0, "packets_rx_queued": 0,
+                     "sockets_free": 11, "sockets_udp": 0,
+                     "sockets_tcp": 1}}),
+    "tgen-100host": dict(
+        rc=0, heartbeat_sha256="d70840453c51582886b99ffd9306703a"
+        "92f9a2689f85ee7fe430a22767cf81f7",
+        summary={"simulated_seconds": 120.0, "hosts": 100,
+                 "streams_completed": 198, "streams_failed": 0,
+                 "packets_sent": 14711, "packets_received": 14711,
+                 "bytes_sent": 13381632, "drops_inet": 20,
+                 "drops_router": 0, "drops_pool": 0, "acks_thinned": 0,
+                 "err_flags": 0,
+                 "object_census": {
+                     "packets_free": 640000, "packets_tx_queued": 0,
+                     "packets_in_flight": 0, "packets_rx_queued": 0,
+                     "sockets_free": 20199, "sockets_udp": 0,
+                     "sockets_tcp": 1}}),
+    "jitter": dict(
+        rc=0, heartbeat_sha256="f0ee85122f8622576d0804bc92c62b08"
+        "a2498a639ada94513dc39c4caa250484",
+        summary={"simulated_seconds": 5.0, "hosts": 6,
+                 "streams_completed": 5, "streams_failed": 0,
+                 "packets_sent": 505, "packets_received": 505,
+                 "bytes_sent": 390480, "drops_inet": 17, "drops_router": 0,
+                 "drops_pool": 0, "acks_thinned": 0, "err_flags": 0,
+                 "object_census": {
+                     "packets_free": 2304, "packets_tx_queued": 0,
+                     "packets_in_flight": 0, "packets_rx_queued": 0,
+                     "sockets_free": 78, "sockets_udp": 0,
+                     "sockets_tcp": 6}}),
+}
 
 REPLACES = {
     "exchange": "shadow1_tpu/core/megakernel.py:231",
@@ -337,6 +468,18 @@ def loopback_world(persistent: bool = True, device=None, **kw):
         loopback_start_times(LOOP_HOSTS),
         resolve_peer=lambda s: (0, sim.TGEN_PORT), device=state.device)
     return state.replace(app=app_state), params, app
+
+
+def write_jitter_config(directory) -> str:
+    """Write JITTER_CONFIG and the tgen-100host graphs it names into
+    `directory`; returns the config's path."""
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    src = Path(__file__).resolve().parent / "examples" / "tgen-100host"
+    for name in ("tgen.server.graphml.xml", "tgen.client.graphml.xml"):
+        (d / name).write_text((src / name).read_text())
+    (d / "shadow.config.xml").write_text(JITTER_CONFIG)
+    return str(d / "shadow.config.xml")
 
 
 def kernel_name(mangled: str) -> str:
@@ -2042,6 +2185,376 @@ def run_loopback(dev) -> str:
             f"persistent {used[True]}, per-phase {used[False]}")
 
 
+# ---------------------------------------------------------------------------
+# Per-packet jitter in K_TRANSPORT's staging (phase 14)
+# ---------------------------------------------------------------------------
+
+
+def strip_jitter(params):
+    """`params` with every route's jitter amplitude 0 and has_jitter off,
+    latencies, loss and window length kept: the same world without
+    jitter, which a jittered kernel's time is put beside."""
+    from shadow1_tpu_torch.core.params import RCOL_JIT_HI, RCOL_JIT_LO
+    blk = params.route_blk.clone()
+    blk[:, RCOL_JIT_LO:RCOL_JIT_HI + 1] = 0
+    return params.replace(route_blk=blk, has_jitter=False)
+
+
+def jittered_world(kind: str, spec: dict, dev, persistent: bool = False):
+    """sim.build_phold ("phold") or sim.build_bulk ("bulk") with `spec`,
+    its params made again by make_net_params from the same uniform mesh
+    plus a jitter amplitude of up to JITTER_MAX_NS on about 3 of every 4
+    vertex pairs (numpy seed 3)."""
+    import numpy as np
+    import torch
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core.params import make_net_params
+    from shadow1_tpu_torch.routing.synthetic import uniform_full_mesh
+    build = sim.build_phold if kind == "phold" else sim.build_bulk
+    state, params, app = build(**spec, persistent=persistent, device=dev)
+    h = spec["num_hosts"]
+    v = min(h, 256) if kind == "phold" else h
+    lat, rel = uniform_full_mesh(v, spec.get("latency_ns", 10 * MS),
+                                 spec.get("reliability", 1.0))
+    rng = np.random.default_rng(3)
+    jit = rng.integers(0, JITTER_MAX_NS, (v, v))
+    jit[rng.random((v, v)) < 0.25] = 0
+    params = make_net_params(
+        latency_ns=lat, reliability=rel, host_vertex=torch.arange(h) % v,
+        bw_up_Bps=params.bw_up_Bps.cpu(),
+        bw_down_Bps=params.bw_down_Bps.cpu(), seed=spec.get("seed", 1),
+        stop_time=params.stop_time, bootstrap_end=params.bootstrap_end,
+        jitter_ns=jit, persistent=persistent, device=dev)
+    return state, params, app
+
+
+def jitter_moved(after, params, before=None) -> tuple[int, int]:
+    """(outbox rows in use in `after` -- only those staged since `before`
+    when given --, how many of them carry a latency off their route's
+    base latency): the rows a nonzero jitter draw moved."""
+    from shadow1_tpu_torch.core.state import (ICOL_SRC, OEXT_LAT_HI,
+                                              OEXT_LAT_LO, STAGE_FREE,
+                                              dec_i64, ext_base)
+    blk = after.blk
+    xb = ext_base(blk.shape[1])
+    used = after.stage != STAGE_FREE
+    if before is not None:
+        used &= before.stage == STAGE_FREE
+    hv = params.host_vertex.long()
+    src = blk[:, ICOL_SRC].long().clamp(0, hv.shape[0] - 1)
+    dst = after.dst.long().clamp(0, hv.shape[0] - 1)
+    base, _ = params.route_narrow(hv[src], hv[dst])
+    staged = dec_i64(blk[:, xb + OEXT_LAT_LO], blk[:, xb + OEXT_LAT_HI])
+    moved = used & (staged != base.clamp(min=1)) & (src != dst)
+    return int(used.sum()), int(moved.sum())
+
+
+def transport_each_step(state, params, app, dev, label: str):
+    """K_TRANSPORT against its plain version, torch.equal on every output,
+    at every micro-step of the window that opens at `state` (a window
+    boundary); the micro-steps themselves run through the per-phase
+    kernels.  Returns (micro-steps, rows staged, rows moved by jitter,
+    args(p): the inputs of the step with the most emissions, under params
+    `p`)."""
+    from shadow1_tpu_torch.core import emit, engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    from shadow1_tpu_torch.transport import tcp
+    clone = engine.clone_state
+    h = state.hosts.num_hosts
+    lanes = engine._n_lanes(app)
+    ctx = engine._window_ctx(state, params)
+    st = engine._exchange(clone(state), params, fused=True)
+    t_h, gmin = engine._scan_all(st, params, app)
+    we = min(max(int(st.now), int(gmin)) + params.min_latency_ns,
+             params.stop_time)
+    steps = staged = moved = 0
+    best, n_best = None, -1
+    while int(gmin) < we:
+        s1, active, tick_t = engine._tick_setup(clone(st), t_h, we)
+        aux0 = engine._aux_times(s1, params, app)
+        s2, em, dn, tp = mk.deliver_plain(
+            s1, params, app, emit.empty(h, lanes, s1.pool.blk.shape[1], dev),
+            tick_t, active, we, ctx[1], aux0)
+        if engine._uses_tcp(app):
+            s2, em = tcp.run_timers(s2, params, em, tp, active)
+        s2, em = engine._app_tick(s2, params, app, em, tp, active, we)
+        rest = (tick_t, tp, active, ctx[0], dn, app.next_time(s2))
+
+        def args(p, s=s2, e=em, r=rest):
+            return (clone(s), p, app, clone(e), *r)
+        out_k = mk.transport_kernel(*args(params))
+        out_p = mk.transport_plain(*args(params))
+        require_equal(out_k, out_p, f"{label}, micro-step {steps}")
+        n, m = jitter_moved(out_p[0].pool, params, before=s2.pool)
+        staged += n
+        moved += m
+        if int(em.valid.sum()) > n_best:
+            best, n_best = args, int(em.valid.sum())
+        st, t_h, gmin = mk.microstep_fused(st, params, app, t_h, we, ctx)
+        steps += 1
+    return steps, staged, moved, best
+
+
+def jitter_transport(state, params, app, dev, label: str, kernel: str,
+                     windows: int = 1) -> tuple[str, float, float]:
+    """transport_each_step over `windows` windows from `state`; fails
+    unless some staged row was moved by a jitter draw.  Then the kernel's
+    device time at the step with the most emissions, with jitter and on
+    the same inputs without (strip_jitter).  Returns (printable line,
+    device ms with jitter, without)."""
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    steps = staged = moved = 0
+    best = None
+    for w in range(windows):
+        n, st_, mv, args = transport_each_step(state, params, app, dev,
+                                               f"{label}, window {w}")
+        steps, staged, moved = steps + n, staged + st_, moved + mv
+        best = args or best
+        state = engine.run_until(state, params, app,
+                                 int(state.now) + params.min_latency_ns)
+    if moved <= 0 or best is None:
+        _fail(f"{label}: no staged row was moved by a jitter draw "
+              f"({staged} staged over {steps} micro-steps)")
+    plain = strip_jitter(params)
+    ms_j = time_call(mk.transport_kernel, lambda: best(params),
+                     kernel=kernel)[0]
+    ms_n = time_call(mk.transport_kernel, lambda: best(plain),
+                     kernel=kernel)[0]
+    return (f"jitter kernels: {label}: {kernel} equal to its plain version "
+            f"at all {steps} micro-steps of {windows} window(s), {staged} "
+            f"rows staged, {moved} of them moved by a nonzero jitter draw; "
+            f"device {ms_j:.4f} ms with jitter, {ms_n:.4f} ms on the same "
+            f"inputs without"), ms_j, ms_n
+
+
+def jitter_window(state, params, app, label: str,
+                  kernel: str) -> tuple[str, float, float]:
+    """K_WINDOW (`kernel`) against window_plain over the window that opens
+    at `state`, torch.equal on every leaf, where some row staged in it was
+    moved by jitter; then its device time with jitter and on the same
+    state without (strip_jitter).  Returns (printable line, ms with
+    jitter, without)."""
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    params = params.replace(persistent=True)
+    times, _bound, _err = check_window(state, params, app, advance=0,
+                                       label=f"jitter kernels: {label}",
+                                       kernel=kernel, plain_reps=0)
+    kd = times[0][0]
+    out = mk.window_plain(engine.clone_state(state), params, app,
+                          params.stop_time)[0]
+    n, moved = jitter_moved(out.pool, params)
+    if moved <= 0:
+        _fail(f"{label}: no outbox row at the window's end was moved by a "
+              f"jitter draw ({n} in use)")
+    plain = strip_jitter(params)
+    kn = time_call(mk.window_kernel,
+                   lambda: (engine.clone_state(state), plain, app,
+                            params.stop_time, 1), kernel=kernel)[0]
+    return (f"jitter kernels: {label}: {n} outbox rows in use at the "
+            f"window's end, {moved} moved by a nonzero jitter draw; {kernel} "
+            f"device "
+            f"{kd:.4f} ms with jitter, {kn:.4f} ms on the same state "
+            f"without"), kd, kn
+
+
+def check_jitter_kernels(dev) -> tuple[list, dict]:
+    """Phase 14: K_TRANSPORT's jitter draw (csrc/transport.cuh `jittered`)
+    against the plain staging on jittered worlds, torch.equal: k_transport
+    at every micro-step of a window of the jittered STRESS world
+    (transport_small) and of the jittered KO world (the general path);
+    k_window over one window of the STRESS world; k_transport_tcp at
+    every micro-step of windows of JITTER_CONFIG (assembled by the port's
+    config front end) at JITTER_TCP_PROBE_NS, and k_window_tgen over one
+    of its windows; k_window_tcp over a window of the jittered LOSSY bulk
+    world.  Returns (printable lines, {kernel: (ms with jitter, ms
+    without)})."""
+    import tempfile
+    from shadow1_tpu_torch.config import assemble
+    from shadow1_tpu_torch.core import engine
+    lines, ms = [], {}
+
+    def note(name, res):
+        lines.append(res[0])
+        ms[name] = res[1:]
+
+    state, params, app = jittered_world("phold", STRESS, dev)
+    state = engine.run_until(state, params, app, JITTER_PROBE_NS)
+    note("k_transport", jitter_transport(
+        state, params, app, dev, f"STRESS world with jitter at "
+        f"{JITTER_PROBE_NS // MS} ms (transport_small)", "k_transport"))
+    note("k_window", jitter_window(state, params, app,
+                                   "STRESS world with jitter", "k_window"))
+    state, params, app = jittered_world("phold", KO, dev)
+    state = engine.run_until(state, params, app, JITTER_PROBE_NS)
+    note("k_transport general", jitter_transport(
+        state, params, app, dev, f"KO world with jitter at "
+        f"{JITTER_PROBE_NS // MS} ms (the general path)", "k_transport"))
+    with tempfile.TemporaryDirectory() as d:
+        asm = assemble.load(write_jitter_config(d), persistent=False,
+                            device=dev)
+    state = engine.run_until(asm.state, asm.params, asm.app,
+                             JITTER_TCP_PROBE_NS)
+    note("k_transport_tcp", jitter_transport(
+        state, asm.params, asm.app, dev, f"JITTER_CONFIG at "
+        f"{JITTER_TCP_PROBE_NS / SEC:g} s", "k_transport_tcp", windows=4))
+    note("k_window_tgen", jitter_window(state, asm.params, asm.app,
+                                        "JITTER_CONFIG", "k_window_tgen"))
+    state, params, app = jittered_world("bulk", LOSSY, dev)
+    state = engine.run_until(state, params, app, JITTER_BULK_PROBE_NS)
+    note("k_window_tcp", jitter_window(state, params, app,
+                                       "LOSSY bulk world with jitter",
+                                       "k_window_tcp"))
+    return lines, ms
+
+
+# ---------------------------------------------------------------------------
+# The CLI on config worlds (phases 15-17)
+# ---------------------------------------------------------------------------
+
+
+def run_cli(argv: list, label: str) -> dict:
+    """shadow1_tpu_torch.cli's `run` with `argv` (its flags and the
+    config) on the card, every launch counter zeroed just before and read
+    just after; the run must exit 0, launch only K_WINDOW (one launch a
+    window) and print the summary it writes.  Returns the CLI's result
+    (state, summary, loop seconds), plus the printed summary line, the
+    heartbeat.csv bytes, the wall seconds and the launches."""
+    import contextlib
+    import io
+    import torch
+    from shadow1_tpu_torch import cli
+    from shadow1_tpu_torch.core import megakernel as mk
+    args = cli._parser().parse_args(["run", *argv])
+    res, out = {}, io.StringIO()
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.run_config(args, result=res)
+    res["wall"] = time.perf_counter() - t0
+    res["launches"] = dict(mk.LAUNCHES)
+    res["rc"] = rc
+    res["line"] = json.loads(out.getvalue().strip().splitlines()[-1])
+    with open(Path(args.data_directory) / "heartbeat.csv", "rb") as f:
+        res["heartbeat"] = f.read()
+    with open(Path(args.data_directory) / "summary.json") as f:
+        res["summary_json"] = json.load(f)
+    st = res["state"]
+    if res["launches"]["window"] != int(st.n_windows) or \
+            any(res["launches"][k] for k in PER_PHASE):
+        _fail(f"{label}: launches {res['launches']} for "
+              f"{int(st.n_windows)} windows: want one K_WINDOW launch a "
+              f"window and nothing else")
+    line = dict(res["summary_json"])
+    line.pop("object_census")
+    if line != res["line"]:
+        _fail(f"{label}: the printed summary {res['line']} is not "
+              f"summary.json's {res['summary_json']}")
+    return res
+
+
+def check_cli_constants(res: dict, name: str, label: str) -> str:
+    """The CLI run `res` against JAX_CLI[name]: exit code, heartbeat.csv's
+    sha256 and summary.json without wall_seconds."""
+    import hashlib
+    want = JAX_CLI[name]
+    got_sum = dict(res["summary_json"])
+    got_sum.pop("wall_seconds")
+    sha = hashlib.sha256(res["heartbeat"]).hexdigest()
+    if res["rc"] != want["rc"] or sha != want["heartbeat_sha256"] or \
+            got_sum != want["summary"]:
+        _fail(f"{label}: rc {res['rc']}, heartbeat.csv sha256 {sha}, "
+              f"summary {got_sum} != the JAX CLI's {want}")
+    st = res["state"]
+    return (f"{label}: heartbeat.csv ({res['heartbeat'].count(10) - 1} "
+            f"rows, sha256 {sha[:16]}...) and summary.json equal to the JAX "
+            f"CLI's; {int(st.n_windows)} windows, {int(st.n_steps)} "
+            f"micro-steps, {int(st.n_events)} events, launches "
+            f"{res['launches']}, wall {res['wall']:.4f} s (run loop "
+            f"{res['loop_seconds']:.4f} s); summary {got_sum}")
+
+
+def cli_100host(dev, smi: str) -> tuple[list, float, int]:
+    """Phase 16, the main path: examples/tgen-100host through the CLI to
+    its 120 s on the persistent path, counters zeroed just before and read
+    just after: heartbeat.csv and summary.json equal the JAX CLI's; wall,
+    events/s, windows and launches.  The same schedule (cli.simulate with
+    a heartbeat tracker) on the per-phase path ends in the same state,
+    leaf for leaf, with the same heartbeat file.  Then the run again with
+    CUDA events around each K_WINDOW call: device ms per window and the
+    device's busy share.  Returns (printable lines, k_window_tgen device
+    ms per window, its launches on the main path)."""
+    import tempfile
+    import torch
+    from shadow1_tpu_torch import cli
+    from shadow1_tpu_torch.config import assemble
+    from shadow1_tpu_torch.core import megakernel as mk
+    from shadow1_tpu_torch.observe import Tracker
+    config = str(Path(__file__).resolve().parent / CLI_100HOST)
+    label = "cli: tgen-100host main path (persistent)"
+    with tempfile.TemporaryDirectory() as tmp:
+        main = run_cli([config, "--data-directory", f"{tmp}/m", "--quiet"],
+                       label)
+        lines = [check_cli_constants(main, "tgen-100host", label)]
+        st, stop = main["state"], int(main["summary"]["simulated_seconds"])
+        lines.append(
+            f"{label} 0 -> {stop} s on {smi}: wall {main['wall']:.4f} s (run "
+            f"loop {main['loop_seconds']:.4f} s), {int(st.n_events)} "
+            f"events, {int(st.n_events) / main['loop_seconds']:.1f} events/s "
+            f"of the run loop, {int(st.n_windows)} windows, "
+            f"{int(st.n_steps)} micro-steps, launches {main['launches']}")
+        asm = assemble.load(config, persistent=False, device=dev)
+        tr = Tracker(f"{tmp}/pp", asm.hostnames)
+        t0 = time.perf_counter()
+        pp, _t = cli.simulate(asm.state, asm.params, asm.app, stop * SEC, tr)
+        wall_pp = time.perf_counter() - t0
+        require_equal(pp, st, "tgen-100host: per-phase vs persistent path")
+        if Path(tr.path).read_bytes() != main["heartbeat"]:
+            _fail("tgen-100host: the per-phase path's heartbeat.csv differs")
+        lines.append(
+            f"cli: tgen-100host per-phase path 0 -> {stop} s "
+            f"({wall_pp:.4f} s): final state equal to the persistent path's, "
+            f"leaf for leaf, and the same heartbeat.csv")
+        del pp, asm
+        # The main path's schedule again, CUDA events around each K_WINDOW
+        # call (megakernel.window_call wrapped).
+        call, marks = mk.window_call, []
+
+        def timed(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = call(*a)
+            e1.record()
+            marks.append((e0, e1))
+            return out
+        asm = assemble.load(config, device=dev)
+        tr = Tracker(f"{tmp}/busy", asm.hostnames)
+        torch.cuda.synchronize()
+        mk.window_call = timed
+        try:
+            t0 = time.perf_counter()
+            again, _t = cli.simulate(asm.state, asm.params, asm.app,
+                                     stop * SEC, tr)
+            wall = time.perf_counter() - t0
+        finally:
+            mk.window_call = call
+        if Path(tr.path).read_bytes() != main["heartbeat"]:
+            _fail("tgen-100host: the timed run's heartbeat.csv differs")
+        ms = [e0.elapsed_time(e1) for e0, e1 in marks]
+        steps = int(again.n_steps)
+        lines.append(
+            f"{label} again with CUDA events: {len(ms)} windows, wall "
+            f"{wall:.4f} s, k_window_tgen device {statistics.mean(ms):.4f} "
+            f"ms per window (min {min(ms):.4f}, median "
+            f"{statistics.median(ms):.4f}, max {max(ms):.4f}), "
+            f"{sum(ms) / steps:.4f} ms per micro-step; device busy "
+            f"{100 * sum(ms) / 1e3 / wall:.1f} %")
+    return lines, statistics.mean(ms), main["launches"]["window"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2324,7 +2837,7 @@ def main() -> int:
     _phase_done("11")
 
     # ---- 12. tgen main path: the defaults, one K_WINDOW launch per window
-    mid_tg, _, params, app, launches_tg, _ = drive_tgen(dev, True)
+    mid_tg, _, params, app, _, _ = drive_tgen(dev, True)
     require_equal(mid_tg, mid_pp, f"tgen: persistent vs per-phase path at "
                   f"{TGEN_MID_NS // SEC} s")
     print(f"tgen main path (persistent): state at {TGEN_MID_NS // SEC} s "
@@ -2356,7 +2869,46 @@ def main() -> int:
 
     _phase_done("13")
 
-    # ---- 14. kernels line -----------------------------------------------
+    # ---- 14. the jitter draw in K_TRANSPORT's staging --------------------
+    jit_lines, jit_ms = check_jitter_kernels(dev)
+    for line in jit_lines:
+        print(line, flush=True)
+
+    _phase_done("14")
+
+    # ---- 15. cli: examples/tgen-2host to its 60 s -------------------------
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_cli([str(root / CLI_2HOST), "--data-directory", tmp,
+                       "--quiet"], "cli: tgen-2host")
+        print(check_cli_constants(res, "tgen-2host", "cli: tgen-2host"),
+              flush=True)
+    del res
+
+    _phase_done("15")
+
+    # ---- 16. cli: examples/tgen-100host, the main path ----------------------
+    cli_lines, window_cli_ms, launches_cli = cli_100host(dev, smi)
+    for line in cli_lines:
+        print(line, flush=True)
+
+    _phase_done("16")
+
+    # ---- 17. cli: the jittered config ---------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_cli([write_jitter_config(f"{tmp}/config"),
+                       "--data-directory", f"{tmp}/out", "--quiet"],
+                      "cli: jittered config")
+        print(check_cli_constants(res, "jitter", "cli: jittered config"),
+              flush=True)
+    del res
+    print("jitter kernels: device ms with jitter / without, same inputs: "
+          + "; ".join(f"{k} {a:.4f} / {b:.4f}"
+                      for k, (a, b) in jit_ms.items()), flush=True)
+
+    _phase_done("17")
+
+    # ---- 18. kernels line -----------------------------------------------
     rows = []
     for name in (*PER_PHASE, "window", *TCP_ROWS):
         b, ops = bounds[name]
@@ -2365,7 +2917,7 @@ def main() -> int:
         base = TCP_ROWS.get(name, name)
         n = launches[name] if name == "window" else \
             launches_tp["window"] if name == "window_tcp" else \
-            launches_tg["window"] if name == "window_tgen" else \
+            launches_cli if name == "window_tgen" else \
             launches_tcp[base] if name in TCP_ROWS else launches_pp[name]
         rows.append({
             "name": name, "route": "cuda",
@@ -2379,8 +2931,9 @@ def main() -> int:
     print(f"K_WINDOW in the main path's profile: {window_dev_ms:.4f} ms "
           f"device per launch; K_WINDOW (TCP) on the bulk main path: "
           f"{window_tcp_ms:.4f} ms device per window; K_WINDOW (tgen) on "
-          f"the tgen main path: {window_tgen_ms:.4f} ms device per window",
-          flush=True)
+          f"the tgen main path: {window_tgen_ms:.4f} ms device per window, "
+          f"on the CLI's tgen-100host main path: {window_cli_ms:.4f} ms "
+          f"device per window", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,14 @@ its layout module for module (`core/state.py`, `core/engine.py`, ...) and
 holds every leaf bitwise against it.  It imports torch and numpy only --
 never jax, flax or anything of `shadow1_tpu`.
 
-Scope so far: the UDP phold world and the TCP (Reno) bulk world on a
-uniform full mesh, driven through `sim.build_phold` / `sim.build_bulk`
-and `core.engine.run_until` / `run_chunked`, with every Pallas kernel of
-the JAX package as a hand-written CUDA kernel for sm_90a (`csrc/`):
+Scope so far: Shadow's shadow.config.xml worlds whose processes are the
+modeled tgen, through `python -m shadow1_tpu_torch run CONFIG` (`cli.py`:
+`config/` parses and assembles them, `routing/` holds DNS, GraphML and
+the APSP routing with per-edge jitter, `observe.py` writes heartbeat.csv
+and summary.json); and the phold (UDP), bulk and tgen (TCP, Reno) worlds
+of `sim.build_phold` / `build_bulk` / `build_tgen`, driven through
+`core.engine.run_until` / `run_chunked`; with every Pallas kernel of the
+JAX package as a hand-written CUDA kernel for sm_90a (`csrc/`):
 K_WINDOW, one cooperative launch per window with the app's tick as device
 code (the default, `persistent`; phold's tick, or bulk's with the TCP
 timers), and the per-phase window-boundary exchange, K_DELIVER and

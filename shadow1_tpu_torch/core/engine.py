@@ -24,9 +24,10 @@ small vector per window; without it, one scalar per micro-step (the
 loop) and a few per window.
 
 Scope: phold (UDP), bulk and tgen (TCP, Reno) worlds, loopback
-emissions included.  Other apps, CUBIC, jitter, interface buffers and
-every instrumentation and netem block are later slices, refused by
-`check_supported` with a message naming what is missing.
+emissions and per-packet jitter included.  Other apps, CUBIC,
+interface buffers and every instrumentation and netem block are later
+slices, refused by `check_supported` with a message naming what is
+missing.
 """
 
 from __future__ import annotations
@@ -83,10 +84,6 @@ def check_supported(state: SimState, params, app) -> None:
         raise NotImplementedError(
             "a full-width inbox for a UDP app is not ported; build the "
             "world with uses_tcp=False")
-    if params.has_jitter:
-        raise NotImplementedError(
-            "per-packet jitter draws are not ported yet (route with "
-            "jitter_ns > 0)")
     if params.has_iface_buf:
         raise NotImplementedError(
             "interface receive buffers (iface_buf_pkts > 0) are not "
@@ -479,10 +476,23 @@ def _rx_phase(state: SimState, params, em, tick_t, active, app, window_end,
 # ---------------------------------------------------------------------------
 
 
-def _route(params, vs, vd):
-    """Jitter-free routing lookup: (latency >= 1 ns, reliability)."""
-    lat, rel = params.route_narrow(vs, vd)
-    return torch.clamp(lat, min=simtime.SIMTIME_ONE_NANOSECOND), rel
+def _route(params, vs, vd, src, ctr):
+    """Routing lookup + per-packet jitter draw: (latency >= 1 ns,
+    reliability).  Jitter perturbs the latency uniformly within +/- the
+    pair's amplitude, keyed by (src, per-src counter), as the JAX _route
+    draws it: u in [0,1) from PURPOSE_JITTER, delta = trunc((2u - 1) *
+    f32(jit)).  A world without jitter skips the draw; draws are keyed,
+    so skipping one consumes nothing."""
+    if not params.has_jitter:
+        lat, rel = params.route_narrow(vs, vd)
+        return torch.clamp(lat, min=simtime.SIMTIME_ONE_NANOSECOND), rel
+    lat, jit, rel = params.route(vs, vd)
+    u = rng.keyed_uniform(params.purpose_words[rng.PURPOSE_JITTER], src,
+                          ctr, ctr >> 32)
+    delta = ((2.0 * u - 1.0) * jit.to(torch.float32)).to(I64)
+    lat = torch.clamp(lat + torch.where(jit > 0, delta, 0),
+                      min=simtime.SIMTIME_ONE_NANOSECOND)
+    return lat, rel
 
 
 def _free_slot_pick(free2, rank2):
@@ -546,7 +556,7 @@ def _stage_emissions(state: SimState, params, em, tick_t, active, app,
     vd = params.host_vertex[torch.clamp(em.dst, 0,
                                         params.host_vertex.shape[0] - 1)
                             .to(I64)]
-    lat, rel = _route(params, vs.to(I64), vd.to(I64))
+    lat, rel = _route(params, vs.to(I64), vd.to(I64), src2.to(I64), ctr2)
     loop = em.dst == src2
     lat = torch.where(loop, simtime.SIMTIME_ONE_NANOSECOND, lat)
     rel = torch.where(loop, torch.ones_like(rel), rel)

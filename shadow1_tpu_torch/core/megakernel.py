@@ -564,12 +564,14 @@ class _TransportArgs(ctypes.Structure):
         ("cpu_threshold", ctypes.c_int64),
         ("cpu_precision", ctypes.c_int64),
         ("drop_k0", ctypes.c_uint32), ("drop_k1", ctypes.c_uint32),
+        ("jit_k0", ctypes.c_uint32), ("jit_k1", ctypes.c_uint32),
         ("h", ctypes.c_int32), ("e", ctypes.c_int32),
         ("pc", ctypes.c_int32), ("ko", ctypes.c_int32),
         ("ki", ctypes.c_int32), ("ic", ctypes.c_int32),
         ("n_vertices", ctypes.c_int32), ("n_hv", ctypes.c_int32),
         ("has_loss", ctypes.c_int32), ("pds_trail", ctypes.c_int32),
-        ("n_blocks", ctypes.c_int32), ("may_loopback", ctypes.c_int32)]
+        ("n_blocks", ctypes.c_int32), ("may_loopback", ctypes.c_int32),
+        ("has_jitter", ctypes.c_int32)]
 
 
 def _transport_struct(state, params, app, em_valid, em_blk, e, bw_up,
@@ -612,6 +614,7 @@ def _transport_struct(state, params, app, em_valid, em_blk, e, bw_up,
                         ("err", state.err, I32)):
         _check(t, dt, (), name)
     k0, k1 = params.purpose_words[rng.PURPOSE_PACKET_DROP]
+    j0, j1 = params.purpose_words[rng.PURPOSE_JITTER]
     return _TransportArgs(
         em_valid=_addr(em_valid), em_blk=_addr(em_blk),
         pool_blk=_addr(pool.blk), pool_stage=_addr(pool.stage),
@@ -636,11 +639,13 @@ def _transport_struct(state, params, app, em_valid, em_blk, e, bw_up,
         bootstrap_end=params.bootstrap_end,
         cpu_threshold=params.cpu_threshold_ns,
         cpu_precision=params.cpu_precision_ns, drop_k0=k0, drop_k1=k1,
+        jit_k0=j0, jit_k1=j1,
         h=h, e=e, pc=pc, ko=p0 // h, ki=p1 // h, ic=ic,
         n_vertices=params.n_vertices, n_hv=nhv,
         has_loss=int(bool(params.has_loss)),
         pds_trail=int(bool(params.pds_trail)), n_blocks=n_blocks,
-        may_loopback=int(engine._may_loopback(app)))
+        may_loopback=int(engine._may_loopback(app)),
+        has_jitter=int(bool(params.has_jitter)))
 
 
 def transport_kernel(state, params, app, em, tick_t, t_post, active, bw_up,

@@ -92,6 +92,15 @@ class NetParams(Tree):
         assert v * v == self.route_blk.shape[0]
         return v
 
+    def route(self, vs, vd):
+        """Routing lookup: (latency_ns i64, jitter_ns i64, reliability
+        f32), one row gather."""
+        rows = self.route_blk[vs * self.n_vertices + vd]
+        lat = dec_i64(rows[..., RCOL_LAT_LO], rows[..., RCOL_LAT_HI])
+        jit = dec_i64(rows[..., RCOL_JIT_LO], rows[..., RCOL_JIT_HI])
+        rel = rows[..., RCOL_REL].contiguous().view(F32)
+        return lat, jit, rel
+
     def route_narrow(self, vs, vd):
         """Jitter-free routing lookup: (latency_ns i64, reliability f32)."""
         rows = self.route_blk[vs * self.n_vertices + vd]

@@ -73,8 +73,9 @@ struct TransportArgs {
   int64_t cpu_threshold;
   int64_t cpu_precision;
   uint32_t drop_k0, drop_k1;
+  uint32_t jit_k0, jit_k1;   // PURPOSE_JITTER's key words
   int32_t h, e, pc, ko, ki, ic, n_vertices, n_hv, has_loss, pds_trail,
-      n_blocks, may_loopback;
+      n_blocks, may_loopback, has_jitter;
 };
 
 struct HostOut {
@@ -188,6 +189,31 @@ __device__ __forceinline__ bool stage_lost(const TransportArgs& a, int hh,
   return __fmul_rn((float)(bits >> 8), 5.9604644775390625e-8f) >= rel;
 }
 
+// engine._route's jitter draw for host hh's emission with pkt_id counter
+// ctr2 on a route of latency `lat` and jitter amplitude `jit`: u from
+// PURPOSE_JITTER keyed by (hh, ctr2), delta = trunc((2u - 1) * f32(jit)),
+// each f32 operation rounded once as XLA CPU rounds it (2u is exact, so
+// a contraction of 2u - 1 cannot change it).  Callers clamp to 1 ns.
+__device__ __forceinline__ int64_t jittered(const TransportArgs& a, int hh,
+                                            int64_t ctr2, int64_t lat,
+                                            int64_t jit) {
+  if (jit <= 0) return lat;
+  const float u = keyed_uniform3(a.jit_k0, a.jit_k1, (uint32_t)hh,
+                                 (uint32_t)ctr2, (uint32_t)(ctr2 >> 32));
+  const float x = __fsub_rn(__fmul_rn(2.0f, u), 1.0f);
+  return lat + __float2ll_rz(__fmul_rn(x, __ll2float_rn(jit)));
+}
+
+// The latency of route row `rr` for host hh's emission ctr2: jittered
+// in worlds with jitter, at least 1 ns.
+__device__ __forceinline__ int64_t route_latency(const TransportArgs& a,
+                                                 const int32_t* rr, int hh,
+                                                 int64_t ctr2) {
+  int64_t lat = dec_i64(rr[0], rr[1]);
+  if (a.has_jitter) lat = jittered(a, hh, ctr2, lat, dec_i64(rr[3], rr[4]));
+  return imax(lat, 1);
+}
+
 // Emission j of host hh: its destination, route latency and whether it
 // survives the keyed loss draw (counter ctr2).
 __device__ __forceinline__ bool stage_route(const TransportArgs& a, int hh,
@@ -199,7 +225,7 @@ __device__ __forceinline__ bool stage_route(const TransportArgs& a, int hh,
   const int32_t vd = a.host_vertex[dcl];
   const int32_t* rr = a.route_blk +
                       ((int64_t)vs * a.n_vertices + vd) * RCOLS;
-  lat = imax(dec_i64(rr[0], rr[1]), 1);
+  lat = route_latency(a, rr, hh, ctr2);
   float rel = __int_as_float(rr[2]);
   if (dst == hh) {                        // same-host path (never taken
     lat = 1;                              // by phold; kept for parity)
@@ -546,6 +572,7 @@ __device__ __forceinline__ HostOut transport_small(const TransportArgs& a,
   for (int u = 0; u < SMALL; ++u) keep(vd[u]);
   int64_t lat[SMALL];
   float rel[SMALL];
+  int nv = 0;                              // valid lanes before lane u
 #pragma unroll
   for (int u = 0; u < SMALL; ++u) {
     lat[u] = 1;
@@ -553,9 +580,10 @@ __device__ __forceinline__ HostOut transport_small(const TransportArgs& a,
     if (v[u] && dst[u] != hh) {            // the same-host path keeps 1, 1
       const int32_t* rr = a.route_blk +
                           ((int64_t)vs * a.n_vertices + vd[u]) * RCOLS;
-      lat[u] = imax(dec_i64(rr[0], rr[1]), 1);
+      lat[u] = route_latency(a, rr, hh, ctr + nv);
       rel[u] = __int_as_float(rr[2]);
     }
+    nv += v[u];
   }
 
   // ---- _stage_emissions, on registers -------------------------------------

@@ -30,7 +30,8 @@ def _modules():
                 names.append(mod[:-len(".__init__")]
                              if mod.endswith(".__init__") else mod)
     for m in ("core.engine", "core.megakernel", "transport.tcp",
-              "transport.cong", "apps.bulk"):
+              "transport.cong", "apps.bulk", "cli", "config.assemble",
+              "routing.apsp", "observe"):
         assert f"shadow1_tpu_torch.{m}" in names
     return sorted(names)
 
@@ -77,8 +78,12 @@ def test_sources_name_no_jax():
 
 def _entry_points():
     from shadow1_tpu_torch import convert, sim
+    from shadow1_tpu_torch.config import assemble
     from shadow1_tpu_torch.core import params, state
+    config = os.path.join(REPO, "examples", "tgen-2host",
+                          "shadow.config.xml")
     return {
+        "config.assemble.load": lambda: assemble.load(config),
         "sim.build_phold": lambda: sim.build_phold(num_hosts=4),
         "sim.build_bulk": lambda: sim.build_bulk(num_hosts=4),
         "convert.state_from_jax": lambda: convert.state_from_jax({}),
@@ -89,7 +94,8 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["sim.build_phold", "sim.build_bulk",
+@pytest.mark.parametrize("name", ["config.assemble.load",
+                                  "sim.build_phold", "sim.build_bulk",
                                   "convert.state_from_jax",
                                   "convert.params_from_jax",
                                   "params.make_net_params",
@@ -103,3 +109,21 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()
+
+
+def test_cli_without_a_card_fails(tmp_path):
+    """`python -m shadow1_tpu_torch run CONFIG` with no card and no
+    `--device cpu` exits non-zero, names the missing device and writes no
+    artifact: it does not carry on on the CPU."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = tmp_path / "out"
+    config = os.path.join(REPO, "examples", "tgen-2host",
+                          "shadow.config.xml")
+    r = subprocess.run([sys.executable, "-m", "shadow1_tpu_torch", "run",
+                        config, "--data-directory", str(out)],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert not out.exists() and r.stdout == ""
