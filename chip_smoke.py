@@ -128,13 +128,18 @@ Phases, each reported on its own line:
    JAX CLI's; wall, events/s, windows, launches.  The same schedule on
    the per-phase path ends in an equal state with the same heartbeat
    file; the main path again with CUDA events around each K_WINDOW call
-   gives the device time per window and the device's busy share.
+   gives the device time per window and the device's busy share.  Then
+   the main path's launch (heartbeat second) from CLI_PROBE_S: the bound
+   of its windows (window_bound over each) beside their device time, and
+   its busiest window, reached again on the CLI's schedule, k_window_tgen
+   against window_plain over it, timed and bounded as in phase 3.
 17. cli: jittered config -- JITTER_CONFIG through the CLI to its 5 s:
    heartbeat.csv and summary.json equal the JAX CLI's.
 18. kernels line -- one JSON object with each kernel's numbers (ms is
    the device time, call_ms the call time); each kernel's launches come
-   from the run of its own path (the tgen kernel's from phase 16's main
-   path); the TCP branches and the tgen kernel are rows of their own.
+   from the run of its own path; the TCP branches and the tgen kernel
+   are rows of their own, and the tgen kernel has a second row
+   (window_tgen_cli) for phase 16's main path and its window there.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -264,6 +269,13 @@ JAX_LOOP_FINAL = dict(n_steps=443, n_windows=39, n_events=3440, done=6,
 # JITTER_CONFIG (write_jitter_config, 5 s).
 CLI_2HOST = "examples/tgen-2host/shadow.config.xml"
 CLI_100HOST = "examples/tgen-100host/shadow.config.xml"
+# The heartbeat second (one CLI launch) of examples/tgen-100host whose
+# windows phase 16 bounds, and whose busiest window it holds against
+# window_plain: the tail of the clients' first streams, windows of a few
+# micro-steps.  The launches that hold the streams' opening bursts (from
+# 5, 10, 15 and 20 s; phase 16 prints them) run windows of hundreds of
+# micro-steps, which window_plain takes minutes to replay.
+CLI_PROBE_S = 6
 # A config with per-edge jitter and loss on 3 vertices (one explicit
 # self-loop), 6 hosts (the server pays 2 us of virtual CPU per event), the
 # tgen-100host graphs: 5 clients fetch 64 KiB for 2 KiB sent, from 2 s.
@@ -374,7 +386,7 @@ DELIVER_KERNELS = {"small": "k_deliver_small", "general": "k_deliver",
                    "tcp": "k_deliver_tcp"}
 TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
             "transport_tcp": "transport", "window_tcp": "window",
-            "window_tgen": "window"}
+            "window_tgen": "window", "window_tgen_cli": "window"}
 # Windows of the persistent TCP main path timed again with CUDA events,
 # traced by phase and bounded.
 BUSY_WINDOWS = 8
@@ -882,16 +894,16 @@ def window_bound(state, params, app, t_target, keep=False, kt=None,
 
 
 def windows_bound(warm, params, app, n: int, kt=None,
-                  shares=None) -> tuple:
+                  shares=None, until=None) -> tuple:
     """(bytes, operations, micro-steps) of the windows of one run from
-    `warm` to t_end = now + n x min latency on the persistent path (the
-    schedule of busy_windows and of check_window's span; at most n
-    windows): the sum of window_bound over them, while the window loop's
-    predicate holds.  `kt` collects K_TRANSPORT's share, `shares` the
-    exchange's and K_DELIVER's (window_bound)."""
+    `warm` to t_end = now + n x min latency (or `until`) on the
+    persistent path (the schedule of busy_windows and of check_window's
+    span; at most n windows): the sum of window_bound over them, while the
+    window loop's predicate holds.  `kt` collects K_TRANSPORT's share,
+    `shares` the exchange's and K_DELIVER's (window_bound)."""
     from shadow1_tpu_torch.core import engine
     st = engine.clone_state(warm)
-    t_end = int(st.now) + n * params.min_latency_ns
+    t_end = until or int(st.now) + n * params.min_latency_ns
     b = ops = steps = 0
     while int(st.now) < t_end and min(
             int(engine._scan_all(st, params, app)[1]),
@@ -987,19 +999,21 @@ def device_ms_events(run, make_args, reps: int, host_ms: float,
     return statistics.median(out)
 
 
-def time_call(run, make_args, reps: int = 7,
-              kernel: str | None = None) -> tuple[float, float]:
+def time_call(run, make_args, reps: int = 7, kernel: str | None = None,
+              warm: bool = True) -> tuple[float, float]:
     """(device ms, call ms) of `run(*make_args())`, inputs made fresh
     (cloned) before each call and not timed.  Device ms: the durations
     of every kernel, copy and memset the call puts on the card, from
     torch.profiler, mean over `reps` calls.  Call ms: CUDA events around
     one call on an idle card, so the host's enqueue time counts (median
-    of `reps`).  A warm-up call comes first.  `kernel` names the CUDA
+    of `reps`).  A warm-up call comes first (unless `warm` is false: the
+    caller has just made one).  `kernel` names the CUDA
     kernel each call launches: when the profile holds fewer than `reps`
     of its launches (the tracer drops records of some long kernels),
     the device ms comes from CUDA events instead (device_ms_events)."""
     import torch
-    run(*make_args())
+    if warm:
+        run(*make_args())
     calls, hosts = [], []
     for _ in range(reps):
         args = make_args()
@@ -1273,10 +1287,11 @@ def check_ko(dev) -> list:
 
 
 def check_window(state, params, app, advance=3, label="kernels: window",
-                 kernel="k_window", plain_reps=7, span=None):
+                 kernel="k_window", plain_reps=7, span=None, until=None):
     """K_WINDOW (`kernel`) against window_plain on clones of `state`
     advanced by `advance` windows, at a window boundary: one window
-    (`span` None: max_windows 1, t_target the world's stop time), or the
+    (`span` None: max_windows 1, t_target `until`, else the world's stop
+    time), or the
     windows of one call to t_target = now + span x min latency (the cap
     engine._run_windows hands down, which a right predicate never
     reaches).  Every leaf of the state and t_h / gmin / ws / we / outbox
@@ -1291,7 +1306,7 @@ def check_window(state, params, app, advance=3, label="kernels: window",
         state = engine.run_until(state, params, app,
                                  int(state.now) + params.min_latency_ns)
     if span is None:
-        t_target, cap = params.stop_time, 1
+        t_target, cap = until or params.stop_time, 1
     else:
         t_target, cap = int(state.now) + span * params.min_latency_ns, span
 
@@ -1311,7 +1326,7 @@ def check_window(state, params, app, advance=3, label="kernels: window",
             _fail(f"{label}: {windows} windows to {int(out_k[0].now)} ns "
                   f"(status {int(out_k[2][4])}) for t_target {t_target}")
     times = (time_call(mk.window_kernel, args, kernel=kernel),
-             time_call(mk.window_plain, args, reps=plain_reps)
+             time_call(mk.window_plain, args, reps=plain_reps, warm=False)
              if plain_reps else (float("nan"), float("nan")))
     (kd, kc), (pd, pc) = times
     print(f"{label} equal ({windows} window{'s' * (windows > 1)} in one "
@@ -2427,12 +2442,14 @@ def run_cli(argv: list, label: str) -> dict:
     from shadow1_tpu_torch import cli
     from shadow1_tpu_torch.core import megakernel as mk
     args = cli._parser().parse_args(["run", *argv])
-    res, out = {}, io.StringIO()
+    out = io.StringIO()
     torch.cuda.synchronize()
     mk.reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli.run_config(args, result=res)
+        rc, res = cli.run_config(args)
+    if res is None:
+        _fail(f"{label}: exit code {rc} and no run")
     res["wall"] = time.perf_counter() - t0
     res["launches"] = dict(mk.LAUNCHES)
     res["rc"] = rc
@@ -2476,7 +2493,18 @@ def check_cli_constants(res: dict, name: str, label: str) -> str:
             f"{res['loop_seconds']:.4f} s); summary {got_sum}")
 
 
-def cli_100host(dev, smi: str) -> tuple[list, float, int]:
+def cli_schedule(state, params, app, t_end: int):
+    """The CLI's launches (run_chunked to each heartbeat second, as
+    cli.simulate with the default heartbeat) from `state` to t_end."""
+    from shadow1_tpu_torch import cli
+    from shadow1_tpu_torch.core import engine
+    while int(state.now) < t_end:
+        state = engine.run_chunked(state, params, app,
+                                   cli.next_sync(state.now, t_end, SEC))
+    return state
+
+
+def cli_100host(dev, smi: str) -> tuple:
     """Phase 16, the main path: examples/tgen-100host through the CLI to
     its 120 s on the persistent path, counters zeroed just before and read
     just after: heartbeat.csv and summary.json equal the JAX CLI's; wall,
@@ -2484,8 +2512,12 @@ def cli_100host(dev, smi: str) -> tuple[list, float, int]:
     a heartbeat tracker) on the per-phase path ends in the same state,
     leaf for leaf, with the same heartbeat file.  Then the run again with
     CUDA events around each K_WINDOW call: device ms per window and the
-    device's busy share.  Returns (printable lines, k_window_tgen device
-    ms per window, its launches on the main path)."""
+    device's busy share.  Then the launch (heartbeat second) from
+    CLI_PROBE_S: its windows' bound beside their device time, and its
+    busiest window, reached again on the CLI's schedule, k_window_tgen
+    against window_plain over it (check_window).  Returns (k_window_tgen
+    device ms per window, check_window's (times, bound, max error) at that
+    window, its launches on the main path)."""
     import tempfile
     import torch
     from shadow1_tpu_torch import cli
@@ -2497,14 +2529,14 @@ def cli_100host(dev, smi: str) -> tuple[list, float, int]:
     with tempfile.TemporaryDirectory() as tmp:
         main = run_cli([config, "--data-directory", f"{tmp}/m", "--quiet"],
                        label)
-        lines = [check_cli_constants(main, "tgen-100host", label)]
+        print(check_cli_constants(main, "tgen-100host", label), flush=True)
         st, stop = main["state"], int(main["summary"]["simulated_seconds"])
-        lines.append(
+        print(
             f"{label} 0 -> {stop} s on {smi}: wall {main['wall']:.4f} s (run "
             f"loop {main['loop_seconds']:.4f} s), {int(st.n_events)} "
             f"events, {int(st.n_events) / main['loop_seconds']:.1f} events/s "
             f"of the run loop, {int(st.n_windows)} windows, "
-            f"{int(st.n_steps)} micro-steps, launches {main['launches']}")
+            f"{int(st.n_steps)} micro-steps, launches {main['launches']}", flush=True)
         asm = assemble.load(config, persistent=False, device=dev)
         tr = Tracker(f"{tmp}/pp", asm.hostnames)
         t0 = time.perf_counter()
@@ -2513,22 +2545,26 @@ def cli_100host(dev, smi: str) -> tuple[list, float, int]:
         require_equal(pp, st, "tgen-100host: per-phase vs persistent path")
         if Path(tr.path).read_bytes() != main["heartbeat"]:
             _fail("tgen-100host: the per-phase path's heartbeat.csv differs")
-        lines.append(
+        print(
             f"cli: tgen-100host per-phase path 0 -> {stop} s "
             f"({wall_pp:.4f} s): final state equal to the persistent path's, "
-            f"leaf for leaf, and the same heartbeat.csv")
+            f"leaf for leaf, and the same heartbeat.csv", flush=True)
         del pp, asm
         # The main path's schedule again, CUDA events around each K_WINDOW
-        # call (megakernel.window_call wrapped).
-        call, marks = mk.window_call, []
+        # call (megakernel.window_call wrapped); each call's now before it,
+        # micro-step count after it and window start are kept on the card.
+        call, marks, rows = mk.window_call, [], []
 
         def timed(*a):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
+            now = a[0].now.clone()
             e0.record()
             out = call(*a)
             e1.record()
             marks.append((e0, e1))
+            rows.append(torch.stack([now, out[0].n_steps.to(now.dtype),
+                                     out[2][1].to(now.dtype)]))
             return out
         asm = assemble.load(config, device=dev)
         tr = Tracker(f"{tmp}/busy", asm.hostnames)
@@ -2545,14 +2581,61 @@ def cli_100host(dev, smi: str) -> tuple[list, float, int]:
             _fail("tgen-100host: the timed run's heartbeat.csv differs")
         ms = [e0.elapsed_time(e1) for e0, e1 in marks]
         steps = int(again.n_steps)
-        lines.append(
+        print(
             f"{label} again with CUDA events: {len(ms)} windows, wall "
             f"{wall:.4f} s, k_window_tgen device {statistics.mean(ms):.4f} "
             f"ms per window (min {min(ms):.4f}, median "
             f"{statistics.median(ms):.4f}, max {max(ms):.4f}), "
             f"{sum(ms) / steps:.4f} ms per micro-step; device busy "
-            f"{100 * sum(ms) / 1e3 / wall:.1f} %")
-    return lines, statistics.mean(ms), main["launches"]["window"]
+            f"{100 * sum(ms) / 1e3 / wall:.1f} %", flush=True)
+    # The launch (heartbeat second) CLI_PROBE_S -> +1 s: its windows'
+    # bound beside their device time, and its busiest window -- the state
+    # its K_WINDOW call was given, reached again on the CLI's schedule --
+    # k_window_tgen against window_plain.
+    rows = torch.stack(rows).tolist()
+    n_win = [r[1] - (rows[k - 1][1] if k else 0) for k, r in enumerate(rows)]
+    by_sec = {}
+    for k, r in enumerate(rows):
+        by_sec.setdefault(r[2] // SEC, []).append(k)
+    busiest = sorted(by_sec.items(), key=lambda kv: -sum(
+        n_win[k] for k in kv[1]))[:4]
+    print("cli: tgen-100host main path, its busiest launches: " + "; ".join(
+        f"{t} -> {t + 1} s: {len(ks)} windows, "
+        f"{sum(n_win[k] for k in ks)} micro-steps, "
+        f"{sum(ms[k] for k in ks):.4f} ms device, the longest window "
+        f"{max(n_win[k] for k in ks)} micro-steps, "
+        f"{max(ms[k] for k in ks):.4f} ms" for t, ks in busiest), flush=True)
+    sec0 = CLI_PROBE_S * SEC
+    hb = cli.next_sync(sec0, stop * SEC, SEC)
+    in_sec = [k for k, r in enumerate(rows) if sec0 <= r[2] < hb]
+    if not in_sec:
+        _fail(f"tgen-100host: no window in {sec0} -> {hb} ns")
+    top = max(in_sec, key=ms.__getitem__)
+    t_launch, ws = rows[top][0], rows[top][2]
+    params, app = asm.params, asm.app
+    at_sec = cli_schedule(asm.state, params, app, sec0)
+    b, ops, s_b = windows_bound(at_sec, params, app, 0, until=hb)
+    if sum(n_win[k] for k in in_sec) != s_b:
+        _fail(f"tgen-100host: the bound's replay of {sec0} -> {hb} ns ran "
+              f"{s_b} micro-steps, the main path's windows there "
+              f"{sum(n_win[k] for k in in_sec)}")
+    sec_ms = [ms[k] for k in in_sec]
+    print(
+        f"cli: tgen-100host main path, the launch {sec0 // SEC} -> "
+        f"{hb // SEC} s: {len(in_sec)} windows ({s_b} micro-steps), device "
+        f"{statistics.mean(sec_ms):.4f} ms a window (CUDA events); they "
+        f"must move {b} bytes and do {ops} operations: bound "
+        f"{bound_ms(b, ops) / len(in_sec):.6f} ms a window", flush=True)
+    print(
+        f"cli: tgen-100host main path, its busiest window there: K_WINDOW "
+        f"call {top} of {len(ms)}, from {ws} ns, {n_win[top]} micro-steps, "
+        f"device {ms[top]:.4f} ms (CUDA events)", flush=True)
+    probe = cli_schedule(at_sec, params, app, t_launch)
+    check = check_window(probe, params, app, advance=0,
+                         label=f"cli: tgen-100host kernels: window at "
+                               f"{ws / SEC:.4f} s", kernel="k_window_tgen",
+                         plain_reps=1, until=hb)
+    return statistics.mean(ms), check, main["launches"]["window"]
 
 
 def main() -> int:
@@ -2837,7 +2920,7 @@ def main() -> int:
     _phase_done("11")
 
     # ---- 12. tgen main path: the defaults, one K_WINDOW launch per window
-    mid_tg, _, params, app, _, _ = drive_tgen(dev, True)
+    mid_tg, _, params, app, launches_tg, _ = drive_tgen(dev, True)
     require_equal(mid_tg, mid_pp, f"tgen: persistent vs per-phase path at "
                   f"{TGEN_MID_NS // SEC} s")
     print(f"tgen main path (persistent): state at {TGEN_MID_NS // SEC} s "
@@ -2888,9 +2971,9 @@ def main() -> int:
     _phase_done("15")
 
     # ---- 16. cli: examples/tgen-100host, the main path ----------------------
-    cli_lines, window_cli_ms, launches_cli = cli_100host(dev, smi)
-    for line in cli_lines:
-        print(line, flush=True)
+    window_cli_ms, cli_check, launches_cli = cli_100host(dev, smi)
+    (times["window_tgen_cli"], bounds["window_tgen_cli"],
+     errs["window_tgen_cli"]) = cli_check
 
     _phase_done("16")
 
@@ -2917,7 +3000,8 @@ def main() -> int:
         base = TCP_ROWS.get(name, name)
         n = launches[name] if name == "window" else \
             launches_tp["window"] if name == "window_tcp" else \
-            launches_cli if name == "window_tgen" else \
+            launches_tg["window"] if name == "window_tgen" else \
+            launches_cli if name == "window_tgen_cli" else \
             launches_tcp[base] if name in TCP_ROWS else launches_pp[name]
         rows.append({
             "name": name, "route": "cuda",

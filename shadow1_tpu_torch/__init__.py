@@ -45,12 +45,16 @@ F64 = torch.float64
 TIME_DTYPE = I64
 
 
+class NoDeviceError(RuntimeError):
+    """CUDA was asked for and no card is present."""
+
+
 def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA card.  Raises when CUDA is asked for and no
-    card is present; never falls back to the CPU."""
+    """`None` means the CUDA card.  Raises NoDeviceError when CUDA is
+    asked for and no card is present; never falls back to the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise NoDeviceError(
             "shadow1_tpu_torch: no CUDA device is available; pass "
             "device='cpu' explicitly to run the plain torch path")
     return dev

@@ -29,6 +29,7 @@ SEC = simtime.SIMTIME_ONE_SECOND
 RC_OK = 0          # completed, invariants intact
 RC_INVARIANT = 1   # the simulation set an err bit
 RC_USAGE = 2       # usage error or refusal
+RC_FAILED = 3      # infrastructure failure (here: no CUDA card)
 
 # JAX run flags the port does not carry yet: (flag, its value when not
 # given, ROADMAP queue 1 item).  A flag whose value differs is refused.
@@ -173,20 +174,24 @@ def build_world(args):
     return asm, int(stop)
 
 
-def run_config(args, result: dict | None = None) -> int:
-    """Execute a `run` invocation; returns the JAX CLI's exit code.  A
-    `result` dict, if given, receives the final state, params, app, the
-    summary and the run loop's wall seconds."""
+def run_config(args) -> tuple[int, dict | None]:
+    """Execute a `run` invocation: (the JAX CLI's exit code, the run's
+    final state, params, app, summary and run-loop wall seconds; None
+    when the run was refused)."""
+    from . import NoDeviceError
     msg = refusal(args)
     if msg is not None:
         print(f"error: {msg}", file=sys.stderr)
-        return RC_USAGE
+        return RC_USAGE, None
     t_wall = time.perf_counter()
     try:
         asm, stop = build_world(args)
-    except (NotImplementedError, RuntimeError) as e:
+    except (NotImplementedError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
-        return RC_USAGE
+        return RC_USAGE, None
+    except NoDeviceError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return RC_FAILED, None
     state, params, app = asm.state, asm.params, asm.app
 
     tracker = None
@@ -218,18 +223,14 @@ def run_config(args, result: dict | None = None) -> int:
     }
     if tracker is not None:
         tracker.summary(summary, state)
-    if result is not None:
-        result.update(state=state, params=params, app=app, summary=summary,
-                      loop_seconds=loop_s)
     print(json.dumps(summary))
-    return RC_OK if int(state.err) == 0 else RC_INVARIANT
+    rc = RC_OK if int(state.err) == 0 else RC_INVARIANT
+    return rc, dict(state=state, params=params, app=app, summary=summary,
+                    loop_seconds=loop_s)
 
 
 def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
-    if args.cmd == "run":
-        return run_config(args)
-    return RC_USAGE
+    return run_config(_parser().parse_args(argv))[0]
 
 
 if __name__ == "__main__":

@@ -146,11 +146,10 @@ def build(cfg, seed: int = 1, sock_slots: int | None = None,
           pool_slab: int = 128, qdisc: str = "fifo",
           cpu_threshold_us: int = -1, cpu_precision_us: int = 200,
           cong: str = "reno", bucket: bool = False,
-          megakernel: bool = True, persistent: bool = True,
-          device=None) -> Assembled:
+          persistent: bool = True, device=None) -> Assembled:
     """Assemble a parsed ShadowConfig into (state, params, app) on
     `device` (None = the CUDA card); the same arguments as the JAX
-    `build`, plus the port's `megakernel` / `persistent` / `device`."""
+    `build`, plus the port's `persistent` / `device`."""
     dev = resolve_device(device)
     names, specs = _expand_hosts(cfg)
     h = len(names)
@@ -206,8 +205,7 @@ def build(cfg, seed: int = 1, sock_slots: int | None = None,
         cpu_precision_ns=max(1, cpu_precision_us) * 1000,
         qdisc={"fifo": QDISC_FIFO, "rr": QDISC_RR}[qdisc],
         autotune_snd=snd_buf == 0, autotune_rcv=rcv_buf == 0,
-        cong=cong, megakernel=megakernel, persistent=persistent,
-        device=dev)
+        cong=cong, persistent=persistent, device=dev)
 
     # --- connectivity: every pair of vertices hosts attach to must be
     # routable (the diagonal is exempt: loopback never reads the matrix).

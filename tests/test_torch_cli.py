@@ -9,7 +9,8 @@
   sha256 and summary.json equal the JAX CLI's constants that chip_smoke.py
   holds the card to (the JAX CLI's own run is the slow test below);
 * every JAX flag the port does not carry exits with RC_USAGE and names
-  the flag and its ROADMAP item;
+  the flag and its ROADMAP item; no card exits with RC_FAILED, and any
+  other RuntimeError of the assembly propagates;
 * (slow) the JAX CLI reproduces chip_smoke.py's constants (tgen-2host to
   60 s, tgen-100host to 120 s, the jittered config), and the two CLIs
   agree on tgen-100host to 6 s (the clients' first streams start at 5 s;
@@ -126,6 +127,32 @@ def test_refused_flags(argv, flag, item, tmp_path, capsys):
     assert rc == tcli.RC_USAGE == 2
     assert flag in err and f"ROADMAP queue 1 item {item}" in err
     assert not out.exists(), "a refused run wrote its data directory"
+
+
+def test_no_card_fails_without_running(tmp_path, capsys, monkeypatch):
+    """With no card and the default --device, the run exits RC_FAILED,
+    names the missing device and writes nothing."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(REPO, "examples", "tgen-2host",
+                          "shadow.config.xml")
+    out = tmp_path / "out"
+    rc = tcli.main(["run", config, "--data-directory", str(out)])
+    assert rc == tcli.RC_FAILED == 3
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_other_runtime_errors_propagate(tmp_path, monkeypatch):
+    """A RuntimeError from assembly other than the missing card (a CUDA
+    fault, say) is not reported as a usage error: it propagates."""
+    def fail(args):
+        raise RuntimeError("CUDA error: out of memory")
+    monkeypatch.setattr(tcli, "build_world", fail)
+    config = os.path.join(REPO, "examples", "tgen-2host",
+                          "shadow.config.xml")
+    with pytest.raises(RuntimeError, match="out of memory"):
+        tcli.main(["run", config, "--device", "cpu"])
 
 
 @pytest.mark.slow
