@@ -7,10 +7,11 @@ Phases, each reported on its own line:
 
 1. device  -- a CUDA card must be present; prints nvidia-smi's name and
    power limit.
-2. build   -- builds the four kernels from shadow1_tpu_torch/csrc, and
-   K_WINDOW's phase-clock variant (-DS1_PHASE_CLOCKS), with nvcc (one
-   process per library, in parallel); prints every kernel's registers,
-   stack and spills from ptxas.
+2. build   -- builds the four kernels from shadow1_tpu_torch/csrc and
+   K_WINDOW's phase-clock variant (-DS1_PHASE_CLOCKS) with nvcc (one
+   process per library, in parallel, each with --split-compile); prints
+   each library's build time and every kernel's registers, stack and
+   spills from ptxas.
 3. kernels -- builds the bench phold world on the card and runs it
    through the 10 ms warm-up plus a few windows.  On cloned inputs taken
    at a window boundary (exchange, K_WINDOW) and at a mid-window
@@ -56,9 +57,9 @@ Phases, each reported on its own line:
    versions, torch.equal on every output leaf, timed and bounded as in
    phase 3; the exchange also on crafted fan-ins (FAN_IN movers to one
    host, pure ACKs shed first), where its time at 20,000 movers must stay
-   under 20x its time at 2,000.  Then a lossy 16-host bulk world to 0.8 s through K_WINDOW,
-   through the per-phase kernels and through the plain versions, leaf for
-   leaf, with retransmissions reached.
+   under 20x its time at 2,000.  Then a lossy 16-host bulk world to
+   LOSSY_NS through K_WINDOW, through the per-phase kernels and through
+   the plain versions, leaf for leaf, with retransmissions reached.
 7. TCP per-phase path -- BULK with persistent=False through run_until /
    run_chunked from 0 to BULK_RUN_NS, counters zeroed just before and
    read just after; the trajectory must equal the JAX package's and the
@@ -101,8 +102,9 @@ Phases, each reported on its own line:
    per-phase path's, leaf for leaf.  Then the part after TGEN_MID_NS
    again with CUDA events around each K_WINDOW call (device time per
    window, the device's busy share), and BUSY_WINDOWS windows from
-   PROBE_TGEN_NS traced by phase for the server (host 0) and a client
-   (final states equal to the untraced run's).
+   PROBE_TGEN_NS timed, bounded (windows_bound) and traced by phase for
+   the server (host 0) and a client (final states equal to the untraced
+   run's).
 13. loopback world -- LOOP_HOSTS = 4 hosts where host 0 streams to its
    own listener, to LOOP_NS on both paths, counters zeroed just before
    and read just after: both trajectories equal the JAX package's and the
@@ -135,11 +137,50 @@ Phases, each reported on its own line:
    against window_plain over it, timed and bounded as in phase 3.
 17. cli: jittered config -- JITTER_CONFIG through the CLI to its 5 s:
    heartbeat.csv and summary.json equal the JAX CLI's.
-18. kernels line -- one JSON object with each kernel's numbers (ms is
+18. cubic -- the device f32 cbrt (cbrt_xla) against xlamath.cbrt run on
+   the card on all 2^31 non-negative f32 values; CUBIC's device target
+   and hooks (tcp.cuh, through a probe kernel) against cong.py on the
+   card, bitwise, on 2^20 seeded socket registers each and the edges;
+   LOSSY with CUBIC to LOSSY_CUBIC_NS on both paths, each held to the JAX
+   package's trajectory (JAX_LOSSY_CUBIC) and the two to each other leaf
+   for leaf; the CUBIC instantiations of k_deliver_tcp (every micro-step
+   of a window) and k_window_tcp against their plain versions over a
+   window that moves CUBIC's state (cubic_moves), timed beside the Reno
+   instantiation on the same inputs and bounded.
+19. cli: tgen-100host with CUBIC, the slice's main path -- the CLI with
+   --tcp-congestion-control cubic to 120 s, counters zeroed just before
+   and read just after: heartbeat.csv and summary.json equal the JAX
+   CLI's; the config on both paths, launch by launch, equal leaf for
+   leaf at every heartbeat second from BURST_FROM_S to BURST_TO_S (the
+   opening bursts); k_window_tgen (CUBIC) against window_plain on a
+   window that moves CUBIC's state, timed beside Reno.
+20. buffers -- STRESS with interface buffers (buffered) on both paths,
+   held to JAX_STRESS_BUF and to each other; the buffered k_deliver_small
+   and k_window (STRESS) and k_deliver (deliver_host, KO) against their
+   plain versions over a window with tail drops, timed beside the
+   unbuffered instantiation.  LOSSY with interface buffers
+   (lossy_buffered) under Reno and under CUBIC on both paths, held to
+   JAX_LOSSY_BUF and JAX_LOSSY_CUBIC_BUF; k_window_tcp<1,0>,
+   k_deliver_tcp<1,1> and k_window_tcp<1,1> against their plain versions
+   over windows with tail drops (and CUBIC moves), timed the same way.
+21. cli: the interface-buffer config (write_iface_config) -- through the
+   CLI to 120 s on the persistent path, counters zeroed just before and
+   read just after: heartbeat.csv and summary.json equal the JAX CLI's;
+   the per-phase path ends in an equal state with the same heartbeat
+   file; the buffered k_deliver_tcp and k_window_tgen against their plain
+   versions over the window with the most tail drops from IFACE_PROBE_S.
+   The config again with --tcp-congestion-control cubic, held to the JAX
+   CLI's; k_window_tgen<1,1> against window_plain over a window that
+   moves CUBIC's state.
+22. apsp -- routing/apsp.py build_matrices on the card against the CPU,
+   bitwise, on a random GraphML of APSP_V vertices.
+23. kernels line -- one JSON object with each kernel's numbers (ms is
    the device time, call_ms the call time); each kernel's launches come
    from the run of its own path; the TCP branches and the tgen kernel
    are rows of their own, and the tgen kernel has a second row
-   (window_tgen_cli) for phase 16's main path and its window there.
+   (window_tgen_cli) for phase 16's main path and its window there; the
+   CUBIC and buffered instantiations (NEW_ROWS) are rows of their own,
+   with `other_ms`, the other instantiation on the same inputs.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}.  Any failed phase raises (non-zero exit).
@@ -215,10 +256,10 @@ TCP_PROBE_NS = 60 * MS
 # A lossy bulk world for the kernels-vs-plain whole-run check.
 LOSSY = dict(num_hosts=16, bytes_per_client=200_000, reliability=0.97,
              seed=11, stop_time=4 * SEC)
-# Its depth: 592 of the 785 micro-steps to its end (2 s), 54 segments
-# retransmitted by then (1.5 s, 709 micro-steps, until the CLI phases
-# came).
-LOSSY_NS = 800 * MS
+# Its depth: 340 of the 785 micro-steps to its end (2 s), 31 segments
+# retransmitted by then (0.8 s and 592 micro-steps until the CUBIC and
+# interface-buffer phases came; 1.5 s and 709 before the CLI phases).
+LOSSY_NS = 150 * MS
 
 # The JAX package's trajectory of BULK and its schedule (warm-up to 10 ms
 # with run_until, then run_chunked to BULK_RUN_NS; reference graph),
@@ -261,6 +302,26 @@ JAX_TGEN_FINAL = dict(n_steps=11775, n_windows=1823, n_events=128982,
                       done=237, failed=0, finished=79, err=3)
 JAX_LOOP_FINAL = dict(n_steps=443, n_windows=39, n_events=3440, done=6,
                       failed=0, finished=1, err=1)
+# The JAX package's trajectories of LOSSY with CUBIC to LOSSY_CUBIC_NS
+# (tcp_summary) and of STRESS with phase 3's parameters and buffered()'s
+# interface buffers to STRESS_NS (summary plus the router drops), both
+# with run_until from the start on the reference graph, measured on the
+# CPU; tests/test_torch_ifacebuf.py and tests/test_torch_cubic.py
+# -m slow assert them.
+JAX_LOSSY_CUBIC = dict(n_steps=622, n_windows=52, n_events=6688,
+                       bytes_recv=2800000, done=14, finish_sum=3534000000,
+                       err=0)
+JAX_STRESS_BUF = dict(n_steps=141, n_windows=18, n_events=61194, sent=37858,
+                      recv=23336, err=1, drops_router=6272)
+# LOSSY with lossy_buffered()'s interface buffers to LOSSY_BUF_NS, under
+# Reno and under CUBIC (tcp_summary plus the router drops), the same way;
+# tests/test_torch_ifacebuf.py -m slow asserts them.
+JAX_LOSSY_BUF = dict(n_steps=119, n_windows=27, n_events=839,
+                     bytes_recv=274480, done=0, finish_sum=0, err=0,
+                     drops_router=251)
+JAX_LOSSY_CUBIC_BUF = dict(n_steps=119, n_windows=27, n_events=840,
+                           bytes_recv=274480, done=0, finish_sum=0, err=0,
+                           drops_router=252)
 
 # The config worlds of the port's CLI (shadow1_tpu_torch/cli.py run), each
 # to its config's own stoptime: Shadow's examples/tgen-2host (60 s) and
@@ -313,6 +374,54 @@ JITTER_CONFIG = """<shadow stoptime="5">
 </shadow>
 """
 
+# The interface-buffer config (write_iface_config): examples/tgen-100host
+# with IFACE_WEB client hosts, each with an interfacebuffer of
+# IFACE_BYTES (2 packets).  Its width is cut: the JAX package refuses
+# buffered worlds with H * k^2 > 2^28 (its [H, k, k] ranking cube), and
+# its reference builds that cube at every micro-step on the CPU: with 63
+# web hosts (64 * 2048^2 = 2^28 elements, the largest the JAX package
+# takes) the JAX CLI did not reach 120 s in 16 minutes on a CPU, with 31
+# it took 6.
+IFACE_WEB = 31
+IFACE_BYTES = 3000
+# Where the interface-buffer config's kernels are checked: the windows of
+# the launch from IFACE_PROBE_S (the clients' first downloads), the one
+# with the most tail drops among those of at most PROBE_MAX_STEPS
+# micro-steps (window_plain, timed under the profiler, takes ~1 s a
+# micro-step there).
+IFACE_PROBE_S = 5
+PROBE_MAX_STEPS = 16
+
+# CUBIC's probes and paths: LOSSY with --tcp-congestion-control cubic to
+# LOSSY_CUBIC_NS on both paths (held to JAX_LOSSY_CUBIC), its kernels
+# checked at the window boundary LOSSY_CUBIC_PROBE_NS; the CUBIC
+# tgen-100host config through the CLI (JAX_CLI["tgen-100host-cubic"]),
+# its two paths compared at every heartbeat second from BURST_FROM_S to
+# BURST_TO_S (the clients' opening bursts).
+LOSSY_CUBIC_NS = 800 * MS
+LOSSY_CUBIC_PROBE_NS = 300 * MS
+BURST_FROM_S = 5
+BURST_TO_S = 20
+# Interface buffers on the STRESS and KO worlds (buffered): hosts i with
+# i % 3 == 0 unbounded, the others bounded at 1 + i % 4 packets; STRESS
+# to STRESS_NS on both paths (held to JAX_STRESS_BUF), its kernels and
+# KO's K_DELIVER checked over the window with the most tail drops among
+# the BUF_WINDOWS windows from BUF_PROBE_NS.
+BUF_PROBE_NS = 60 * MS
+BUF_WINDOWS = 10
+# LOSSY with interface buffers (lossy_buffered), under Reno and under
+# CUBIC, on both paths to LOSSY_BUF_NS (held to JAX_LOSSY_BUF and
+# JAX_LOSSY_CUBIC_BUF); their TCP kernels checked over a window among the
+# BUF_WINDOWS from there.
+LOSSY_BUF_NS = 300 * MS
+# The seeded socket registers CUBIC's device target and hooks are held to
+# cong.py on (cubic_registers; tests/test_torch_cubic.py holds cong.py to
+# the JAX package on the same ones).
+CUBIC_REGS = 1 << 20
+# A random GraphML of APSP_V vertices (random_graphml): above the
+# assembler's 1,024-vertex limit for APSP on the CPU, so on the card.
+APSP_V = 1100
+
 # The jitter kernels' probes (phase 14): worlds of sim.build_phold /
 # build_bulk with a jitter amplitude of up to JITTER_MAX_NS on 3 of 4
 # vertex pairs (jittered_world), checked at these times; JITTER_CONFIG
@@ -326,11 +435,16 @@ JITTER_TCP_PROBE_NS = 2200 * MS
 # sha256 and summary.json without wall_seconds (the printed summary line
 # is the same without object_census).  Made with
 #   python3 -c 'import chip_smoke; chip_smoke.write_jitter_config("J")'
+#   python3 -c 'import chip_smoke; chip_smoke.write_iface_config("I")'
 #   env JAX_PLATFORMS=cpu python -m shadow1_tpu run CONFIG \
-#       --data-directory OUT
+#       --data-directory OUT [--tcp-congestion-control cubic]
 #   sha256sum OUT/heartbeat.csv; cat OUT/summary.json
-# for CONFIG = CLI_2HOST, CLI_100HOST and J/shadow.config.xml;
-# tests/test_torch_cli.py -m slow asserts them.
+# for CONFIG = CLI_2HOST, CLI_100HOST (also with CUBIC:
+# "tgen-100host-cubic"), J/shadow.config.xml and I/shadow.config.xml
+# ("iface"; with CUBIC "iface-cubic"); tests/test_torch_cli.py -m slow
+# asserts the first three,
+# tests/test_torch_cubic.py and tests/test_torch_ifacebuf.py -m slow the
+# last two.
 JAX_CLI = {
     "tgen-2host": dict(
         rc=0, heartbeat_sha256="4c203ad2906807f7df14d55ed46cd995"
@@ -372,6 +486,48 @@ JAX_CLI = {
                      "packets_in_flight": 0, "packets_rx_queued": 0,
                      "sockets_free": 78, "sockets_udp": 0,
                      "sockets_tcp": 6}}),
+    "tgen-100host-cubic": dict(
+        rc=0, heartbeat_sha256="068e1efb31577e57dd941161a079b4fa"
+        "4cf989f5cfb2714e85ed6f4621bdeee3",
+        summary={"simulated_seconds": 120.0, "hosts": 100,
+                 "streams_completed": 198, "streams_failed": 0,
+                 "packets_sent": 14710, "packets_received": 14710,
+                 "bytes_sent": 13381632, "drops_inet": 20,
+                 "drops_router": 0, "drops_pool": 0, "acks_thinned": 0,
+                 "err_flags": 0,
+                 "object_census": {
+                     "packets_free": 640000, "packets_tx_queued": 0,
+                     "packets_in_flight": 0, "packets_rx_queued": 0,
+                     "sockets_free": 20199, "sockets_udp": 0,
+                     "sockets_tcp": 1}}),
+    "iface": dict(
+        rc=0, heartbeat_sha256="d0f83ec3b4e4fadbcf40e65e8df87371"
+        "4e8a779814a065e9c0bf6c992c4c4ee0",
+        summary={"simulated_seconds": 120.0, "hosts": 32,
+                 "streams_completed": 62, "streams_failed": 0,
+                 "packets_sent": 6225, "packets_received": 5131,
+                 "bytes_sent": 5772176, "drops_inet": 12,
+                 "drops_router": 1094, "drops_pool": 0, "acks_thinned": 0,
+                 "err_flags": 0,
+                 "object_census": {
+                     "packets_free": 65536, "packets_tx_queued": 0,
+                     "packets_in_flight": 0, "packets_rx_queued": 0,
+                     "sockets_free": 2111, "sockets_udp": 0,
+                     "sockets_tcp": 1}}),
+    "iface-cubic": dict(
+        rc=0, heartbeat_sha256="7709226c208bcdb7622331674d301e6f"
+        "6d2a227f8afa2731e2f9d54d2d3e0877",
+        summary={"simulated_seconds": 120.0, "hosts": 32,
+                 "streams_completed": 62, "streams_failed": 0,
+                 "packets_sent": 6783, "packets_received": 5404,
+                 "bytes_sent": 6210028, "drops_inet": 15,
+                 "drops_router": 1379, "drops_pool": 0, "acks_thinned": 0,
+                 "err_flags": 0,
+                 "object_census": {
+                     "packets_free": 65536, "packets_tx_queued": 0,
+                     "packets_in_flight": 0, "packets_rx_queued": 0,
+                     "sockets_free": 2111, "sockets_udp": 0,
+                     "sockets_tcp": 1}}),
 }
 
 REPLACES = {
@@ -387,6 +543,22 @@ DELIVER_KERNELS = {"small": "k_deliver_small", "general": "k_deliver",
 TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
             "transport_tcp": "transport", "window_tcp": "window",
             "window_tgen": "window", "window_tgen_cli": "window"}
+# The CUBIC and interface-buffer instantiations (phases 18-21), one row
+# each, by the template arguments <Buf, Cong>: each row also carries
+# `other_ms`, the device time on the same inputs of the Reno instantiation
+# (CUBIC without buffers) or of the unbuffered one (buffered rows).
+NEW_ROWS = {"deliver_tcp_cubic": "deliver",         # k_deliver_tcp<0,1>
+            "window_tcp_cubic": "window",           # k_window_tcp<0,1>
+            "window_tgen_cubic": "window",          # k_window_tgen<0,1>
+            "deliver_small_buf": "deliver",         # k_deliver_small<1>
+            "window_buf": "window",                 # k_window<1>
+            "deliver_buf": "deliver",               # k_deliver<1>
+            "window_tcp_buf": "window",             # k_window_tcp<1,0>
+            "deliver_tcp_cubic_buf": "deliver",     # k_deliver_tcp<1,1>
+            "window_tcp_cubic_buf": "window",       # k_window_tcp<1,1>
+            "deliver_tcp_buf": "deliver",           # k_deliver_tcp<1,0>
+            "window_tgen_buf": "window",            # k_window_tgen<1,0>
+            "window_tgen_cubic_buf": "window"}      # k_window_tgen<1,1>
 # Windows of the persistent TCP main path timed again with CUDA events,
 # traced by phase and bounded.
 BUSY_WINDOWS = 8
@@ -396,6 +568,10 @@ TR_WINDOWS = 4
 # The GPU spin (ms) before each K_TRANSPORT launch timed in
 # transport_main_path: longer than the wrapper's host time (~0.3 ms).
 SPIN_MS = 2
+# Calls a plain version is timed over (time_call): profiling one call of
+# a plain TCP window's tens of thousands of small torch ops takes
+# seconds.
+PLAIN_REPS = 2
 
 # The "pairs" TCP world (pairs_world): 20,000 client -> server pairs, more
 # hosts than one resident thread each would fit on the card, to 100 ms.
@@ -494,10 +670,43 @@ def write_jitter_config(directory) -> str:
     return str(d / "shadow.config.xml")
 
 
-def kernel_name(mangled: str) -> str:
-    """The k_* kernel name inside a mangled symbol (else the symbol)."""
-    m = re.search(r"k_\w*?(?=E|$)", mangled)
-    return m.group(0) if m else mangled
+def write_iface_config(directory, web: int = IFACE_WEB,
+                       iface_bytes: int | None = IFACE_BYTES) -> str:
+    """Write examples/tgen-100host with `web` client hosts, each with an
+    `<host interfacebuffer>` of `iface_bytes` (None: no attribute), and
+    the graphs it names into `directory`; returns the config's path."""
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    src = Path(__file__).resolve().parent / "examples" / "tgen-100host"
+    for name in ("tgen.server.graphml.xml", "tgen.client.graphml.xml"):
+        (d / name).write_text((src / name).read_text())
+    old = '<host id="web" quantity="99" typehint="client">'
+    xml = (src / "shadow.config.xml").read_text()
+    if old not in xml:
+        _fail("examples/tgen-100host no longer has its 99 web hosts")
+    attr = "" if iface_bytes is None else f' interfacebuffer="{iface_bytes}"'
+    xml = xml.replace(old, f'<host id="web" quantity="{web}" '
+                           f'typehint="client"{attr}>')
+    (d / "shadow.config.xml").write_text(xml)
+    return str(d / "shadow.config.xml")
+
+
+def kernel_name(symbol: str) -> str:
+    """The k_* kernel name inside a mangled or demangled symbol, with a
+    template instantiation's arguments as integers (k_window_tcp<1,0>);
+    else the symbol."""
+    m = re.search(r"k_[a-z0-9_]+", symbol)
+    if not m:
+        return symbol
+    rest = symbol[m.end():]
+    targs = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)      # mangled
+    if targs:
+        vals = re.findall(r"L[a-z]+(\d+)E", targs.group(1))
+    else:
+        targs = re.match(r"<([^>]*)>", rest)             # demangled
+        vals = [{"false": "0", "true": "1"}.get(v.strip(), v.strip())
+                for v in targs.group(1).split(",")] if targs else []
+    return m.group(0) + (f"<{','.join(vals)}>" if vals else "")
 
 
 def leaves(obj, prefix=""):
@@ -1009,9 +1218,14 @@ def time_call(run, make_args, reps: int = 7, kernel: str | None = None,
     of `reps`).  A warm-up call comes first (unless `warm` is false: the
     caller has just made one).  `kernel` names the CUDA
     kernel each call launches: when the profile holds fewer than `reps`
-    of its launches (the tracer drops records of some long kernels),
-    the device ms comes from CUDA events instead (device_ms_events)."""
+    of its launches (the tracer drops records of some long kernels, and
+    on some machines every launch from the port's libraries), the device
+    ms comes from CUDA events instead (device_ms_events).
+    Without `kernel` (a plain version) at most PLAIN_REPS calls are
+    timed."""
     import torch
+    if kernel is None:
+        reps = min(reps, PLAIN_REPS)
     if warm:
         run(*make_args())
     calls, hosts = [], []
@@ -1029,22 +1243,25 @@ def time_call(run, make_args, reps: int = 7, kernel: str | None = None,
         calls.append(t0.elapsed_time(t1))
     inputs = [make_args() for _ in range(reps)]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    # Device activity only: the CPU ops' records cost seconds a plain
+    # call and change no device duration.
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for args in inputs:
             run(*args)
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if _on_device(e)]
-    seen = sum(f"::{kernel}(" in e.name or kernel_name(e.name) == kernel
+    seen = sum(kernel_name(e.name) == kernel or
+               kernel_name(e.name).split("<")[0] == kernel
                for e in dev) if kernel else reps
     if seen >= reps:
         dev_ms = sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
     else:
         dev_ms = device_ms_events(run, make_args, reps, max(hosts))
+        names = sorted({kernel_name(e.name) for e in dev})[:4]
         print(f"time_call: the profile held {seen} of {reps} {kernel} "
-              f"launches; device time {dev_ms:.4f} ms from CUDA events",
-              flush=True)
+              f"launches ({len(dev)} device events: {names}); device time "
+              f"{dev_ms:.4f} ms from CUDA events", flush=True)
     return dev_ms, statistics.median(calls)
 
 
@@ -1200,6 +1417,15 @@ def check_kernels(state, params, app, dev):
     return times, bounds, errs
 
 
+def stressed(params):
+    """Phase 3's parameters of the STRESS and KO worlds: the PDS trail and
+    the virtual CPU on (50 us an event, a threshold of 0)."""
+    import torch
+    return params.replace(pds_trail=True, cpu_threshold_ns=0,
+                          cpu_ns_per_event=torch.full_like(
+                              params.cpu_ns_per_event, 50_000))
+
+
 def check_ko(dev) -> list:
     """The general paths on the KO world (12-slot slabs, congested, lossy,
     PDS trail and CPU model on), torch.equal on every output: K_DELIVER
@@ -1209,15 +1435,12 @@ def check_ko(dev) -> list:
     overflow packets; then K_WINDOW, whose micro-step takes deliver_host
     too, against window_plain over that window.  Returns printable
     lines."""
-    import torch
     from shadow1_tpu_torch import sim
     from shadow1_tpu_torch.core import emit, engine
     from shadow1_tpu_torch.core import megakernel as mk
     state, params, app = sim.build_phold(**KO, megakernel=True,
                                          persistent=False, device=dev)
-    params = params.replace(pds_trail=True, cpu_threshold_ns=0,
-                            cpu_ns_per_event=torch.full_like(
-                                params.cpu_ns_per_event, 50_000))
+    params = stressed(params)
     state = engine.run_until(state, params, app, KO_NS)
     path = mk.deliver_path(state, params, app)
     if path != "general":
@@ -2638,6 +2861,786 @@ def cli_100host(dev, smi: str) -> tuple:
     return statistics.mean(ms), check, main["launches"]["window"]
 
 
+# ---------------------------------------------------------------------------
+# CUBIC and interface buffers (phases 18-21), APSP on the card (phase 22)
+# ---------------------------------------------------------------------------
+
+
+def buffered(params):
+    """stressed(params) with interface buffers: host i unbounded where
+    i % 3 == 0, else bounded at 1 + i % 4 packets."""
+    import torch
+    h = params.iface_buf_pkts.shape[0]
+    cap = torch.tensor([0 if i % 3 == 0 else 1 + i % 4 for i in range(h)],
+                       dtype=torch.int32)
+    return stressed(params).replace(
+        iface_buf_pkts=cap.to(params.iface_buf_pkts.device),
+        has_iface_buf=True)
+
+
+def cubic(params):
+    return params.replace(cong="cubic")
+
+
+def lossy_buffered(params):
+    """LOSSY's interface buffers: the server (host 0) bounded at 24
+    packets, every fourth client unbounded, the others at 2 + i % 3; the
+    PDS trail on."""
+    import torch
+    h = params.iface_buf_pkts.shape[0]
+    cap = torch.tensor([24 if i == 0 else 0 if i % 4 == 3 else 2 + i % 3
+                        for i in range(h)], dtype=torch.int32)
+    return params.replace(iface_buf_pkts=cap.to(params.iface_buf_pkts.device),
+                          has_iface_buf=True, pds_trail=True)
+
+
+def unbuffered(params):
+    return params.replace(iface_buf_pkts=params.iface_buf_pkts * 0,
+                          has_iface_buf=False)
+
+
+def router_drops(before, after) -> int:
+    return int((after.hosts.pkts_dropped_router
+                - before.hosts.pkts_dropped_router).sum())
+
+
+def cubic_moves(before, after) -> int:
+    """Sockets whose CUBIC state moved from `before` to `after`: an epoch
+    or Wmax set or reset (a fresh epoch, a fast recovery, an RTO), or a
+    window that grew in congestion avoidance within a running epoch."""
+    b, a = before.socks, after.socks
+    reset = (b.cub_epoch != a.cub_epoch) | (b.cub_wmax != a.cub_wmax)
+    grew = (b.cub_epoch != 0) & (a.cub_epoch == b.cub_epoch) & \
+        (b.cwnd >= b.ssthresh) & (a.cwnd != b.cwnd)
+    return int((reset | grew).sum())
+
+
+def cubic_registers(seed: int, n: int = CUBIC_REGS) -> dict:
+    """n sockets' registers for CUBIC's target and hooks (numpy, seeded):
+    cwnd from one segment to the SND_BUF_MAX cap, below and above
+    ssthresh and cub_wmax; fresh (0) and running epochs, some long enough
+    to hit the target's clamp; srtt 0 or up to 2 s; per-ACK byte counts
+    whose step quotient passes 2^31; a mask on 80 % of them."""
+    import numpy as np
+    mss = 1460
+    rng = np.random.default_rng(seed)
+    tick = rng.integers(0, 600 * SEC, n, dtype=np.int64)
+    span = np.exp(rng.uniform(np.log(1.0), np.log(3600.0 * SEC), n))
+    epoch = np.where(rng.random(n) < 0.2, 0, tick - span.astype(np.int64))
+    cwnd = np.exp(rng.uniform(np.log(mss), np.log(4 << 20), n))
+    cwnd = cwnd.astype(np.int32)
+    wmax = (cwnd * rng.uniform(0.3, 3.0, n)).astype(np.int32)
+    wmax = np.where(rng.random(n) < 0.2, 0, wmax).astype(np.int32)
+    ssth = (cwnd * rng.uniform(0.5, 2.0, n)).astype(np.int32)
+    ssth = np.where(rng.random(n) < 0.1, 1 << 30, ssth).astype(np.int32)
+    srtt = np.exp(rng.uniform(0, np.log(2.0 * SEC), n)).astype(np.int64)
+    srtt = np.where(rng.random(n) < 0.1, 0, srtt)
+    acked = np.exp(rng.uniform(0, np.log(4 << 20), n)).astype(np.int32)
+    return dict(cwnd=cwnd, ssthresh=ssth, cub_epoch=epoch, cub_wmax=wmax,
+                srtt=srtt, tick=tick, acked=acked,
+                flight=(cwnd * rng.uniform(0, 1.5, n)).astype(np.int32),
+                mask=rng.random(n) < 0.8)
+
+
+def cubic_edges() -> dict:
+    """Registers at the edges: cub_epoch = 0, cub_wmax = 0, srtt = 0,
+    epochs long enough to hit the clamp, cwnd below and above cub_wmax,
+    the largest per-ACK byte counts."""
+    import numpy as np
+    mss = 1460
+    cwnd = np.array([mss, 2 * mss, 10 * mss, 4 << 20, 44970, 44970, 3000,
+                     3000, 1 << 20, 1 << 20], np.int32)
+    n = cwnd.size
+    return dict(
+        cwnd=cwnd, ssthresh=np.full(n, 2 * mss, np.int32),
+        cub_epoch=np.array([0, 0, 5 * SEC, 0, 1, 10**15, 0, 7, 0, 0],
+                           np.int64),
+        cub_wmax=np.array([0, 100_000, 0, 1 << 30, 44970, 60_000, 0, 1, 0,
+                           2_000_000], np.int32),
+        srtt=np.array([0, 0, 1, 2 * SEC, 0, 10**9, 40 * MS, 0, 0, 1],
+                      np.int64),
+        tick=np.array([0, SEC, 5 * SEC, 3600 * SEC, 2, 10**15 + 10**14,
+                       SEC, 7, 10**18, 3 * SEC], np.int64),
+        acked=np.array([mss, 1, 1 << 20, 4 << 20, mss, 2 * mss, 1,
+                        2**31 - 1, 1, 4 << 20], np.int32),
+        flight=cwnd.copy(), mask=np.ones(n, bool))
+
+
+CUBIC_FIELDS = ("cwnd", "ssthresh", "cub_epoch", "cub_wmax", "srtt")
+
+
+def cubic_plain(kind: str, regs: dict):
+    """transport/cong.py's CUBIC target or hook `kind` (megakernel
+    CONG_PROBE_KINDS) on torch registers, as megakernel.cong_probe
+    returns them."""
+    import torch
+    from shadow1_tpu_torch.transport import cong, tcp
+
+    class View:
+        setwhere = tcp._Sock.setwhere
+    v = View()
+    for f in CUBIC_FIELDS:
+        setattr(v, f, regs[f].clone())
+    mask, tick = regs["mask"], regs["tick"]
+    if kind == "target":
+        return cong._cubic_target(v, tick)
+    if kind == "new_ack":
+        cong._cubic_new_ack(v, mask, torch.where(mask, regs["acked"], 0),
+                            tick)
+    elif kind == "enter_recovery":
+        cong._cubic_enter_recovery(v, mask, regs["flight"], tick)
+    else:
+        cong._cubic_timeout(v, mask, regs["flight"], tick)
+    return {f: getattr(v, f) for f in CUBIC_FIELDS}
+
+
+def check_cong_hooks(dev) -> str:
+    """CUBIC's device window target and hooks (csrc/tcp.cuh, through the
+    probe kernel) against cong.py's plain versions run on the card, on
+    CUBIC_REGS seeded socket registers each plus cubic_edges(), bitwise;
+    every regime of the target must occur."""
+    import numpy as np
+    import torch
+    from shadow1_tpu_torch.core import megakernel as mk
+    out = []
+    for seed, kind in enumerate(mk.CONG_PROBE_KINDS):
+        regs = {k: torch.from_numpy(np.concatenate([a, cubic_edges()[k]]))
+                .to(dev) for k, a in cubic_registers(seed).items()}
+        got, want = mk.cong_probe(kind, regs), cubic_plain(kind, regs)
+        if kind == "target":
+            bad = int((got != want).sum())
+            lo, hi = int((want == 2 * 1460).sum()), \
+                int((want == 4194304).sum())
+            if bad or not lo or not hi:
+                _fail(f"CUBIC's device target differs from cong.py on "
+                      f"{bad} registers (clamped low {lo}, high {hi})")
+            out.append(f"target ({lo} clamped low, {hi} high)")
+            continue
+        bad = {f: int((got[f] != want[f]).sum()) for f in CUBIC_FIELDS}
+        if any(bad.values()):
+            _fail(f"CUBIC's device {kind} hook differs from cong.py: "
+                  f"{bad}")
+        moved = int((want["cwnd"] != regs["cwnd"]).sum())
+        out.append(f"{kind} ({moved} windows moved)")
+    n = CUBIC_REGS + len(cubic_edges()["cwnd"])
+    return (f"cubic: the device CUBIC target and hooks (tcp.cuh) equal "
+            f"cong.py's on the card, bitwise, on {n} registers each: "
+            + ", ".join(out))
+
+
+def check_cbrt(dev) -> str:
+    """csrc/xla_cbrt.cuh cbrt_xla (the probe kernel) against xlamath.cbrt
+    run on the card, on every non-negative f32 bit pattern (2^31, in
+    chunks of 2^27)."""
+    import torch
+    from shadow1_tpu_torch.core import xlamath
+    from shadow1_tpu_torch.core import megakernel as mk
+    bad, t0 = 0, time.perf_counter()
+    for lo in range(0, 1 << 31, 1 << 27):
+        x = torch.arange(lo, lo + (1 << 27), dtype=torch.int64,
+                         device=dev).to(torch.int32).view(torch.float32)
+        bad += int((mk.cbrt_probe(x).view(torch.int32)
+                    != xlamath.cbrt(x).view(torch.int32)).sum())
+    if bad:
+        _fail(f"f32 cbrt: the device cbrt_xla and xlamath.cbrt differ on "
+              f"{bad} of the 2^31 non-negative f32 values")
+    return (f"cubic: the device f32 cbrt (cbrt_xla) equals xlamath.cbrt on "
+            f"the card on all 2^31 non-negative f32 values "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def run_both_paths(dev, build, kw, tweak, t_end, want, summarize,
+                   label: str):
+    """`build(**kw)` with `tweak` on its params to t_end on the persistent
+    path (K_WINDOW) and on the per-phase path, every launch counter zeroed
+    just before each and read just after: each path launches only its
+    kernels, its trajectory (summarize) equals the JAX package's `want`,
+    and the two final states are equal leaf for leaf.  Returns (the
+    per-phase final state, {path: launches}, printable line)."""
+    import torch
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    finals, launches, walls = {}, {}, {}
+    for path, persist, kinds in (("persistent", True, {"window"}),
+                                 ("per-phase", False, set(PER_PHASE))):
+        s0, p0, a0 = build(**kw, persistent=persist, device=dev)
+        p0 = tweak(p0)
+        torch.cuda.synchronize()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        finals[path] = engine.run_until(s0, p0, a0, t_end)
+        torch.cuda.synchronize()
+        walls[path] = time.perf_counter() - t0
+        launches[path] = dict(mk.LAUNCHES)
+        if {k for k, v in launches[path].items() if v} != kinds:
+            _fail(f"{label}, {path} path: launches {launches[path]}")
+        got = summarize(finals[path])
+        if got != want:
+            _fail(f"{label}, {path} path: trajectory {got} != the JAX "
+                  f"package's {want}")
+    require_equal(finals["persistent"], finals["per-phase"],
+                  f"{label}: persistent vs per-phase path")
+    return finals["per-phase"], launches, (
+        f"{label}: both paths equal to the JAX package's trajectory {want} "
+        f"and to each other, leaf for leaf; persistent "
+        f"{walls['persistent']:.4f} s, launches {launches['persistent']}; "
+        f"per-phase {walls['per-phase']:.4f} s, launches "
+        f"{launches['per-phase']}")
+
+
+def deliver_probe(state, params, app, dev, alt, label: str):
+    """K_DELIVER against deliver_plain at every micro-step of the window
+    that `state` (a window boundary) opens, torch.equal on every output;
+    the micro-step with the most tail drops (then deliveries) is timed --
+    the kernel, its plain version, and the kernel on the same inputs
+    under `alt` (the other instantiation: Reno, or no buffer) -- and
+    bounded.  In a buffered world the window must tail-drop.  Returns
+    ((times, bound, max error), alt device ms, line)."""
+    from shadow1_tpu_torch.core import emit, engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    clone = engine.clone_state
+    h = state.hosts.num_hosts
+    tcp = engine._uses_tcp(app)
+    path = mk.deliver_path(state, params, app)
+    kernel = DELIVER_KERNELS[path]
+    ctx = engine._window_ctx(state, params)
+    lanes = engine._n_lanes(app)
+    st = engine._exchange(clone(state), params, fused=True)
+    t_h, gmin = engine._scan_all(st, params, app)
+    we = min(max(int(st.now), int(gmin)) + params.min_latency_ns,
+             params.stop_time)
+    steps, best, err, drops, dels = 0, None, 0.0, 0, 0
+    while int(gmin) < we:
+        s1, active, tick_t = engine._tick_setup(clone(st), t_h, we)
+        aux0 = engine._aux_times(s1, params, app) if app.rx_batch > 1 \
+            else None
+
+        def args(s=s1, act=active, tk=tick_t, a0=aux0, p=params):
+            return (clone(s), p, app,
+                    emit.empty(h, lanes, s.pool.blk.shape[1], dev), tk, act,
+                    we, ctx[1], a0)
+        out_k = mk.deliver_kernel(*args())
+        out_p = mk.deliver_plain(*args())
+        err = max(err, require_equal(out_k, out_p,
+                                     f"{label}: micro-step {steps}"))
+        d = int((out_p[0].hosts.pkts_dropped_router
+                 - s1.hosts.pkts_dropped_router).sum())
+        n = int(out_p[2].sum())
+        drops, dels = drops + d, dels + n
+        if best is None or (d, n) > best[0]:
+            best = ((d, n), args, s1, out_p, active)
+        st, t_h, gmin = mk.microstep_fused(st, params, app, t_h, we, ctx)
+        steps += 1
+    if best is None:
+        _fail(f"{label}: the window has no micro-step")
+    if params.has_iface_buf and drops == 0:
+        _fail(f"{label}: no tail drop in the window from {int(state.now)} ns")
+    (d, n), args, s1, (s2, em, dn, _tp), active = best
+    bound = (deliver_bytes(s1, s2, dn, active, app, em if tcp else None),
+             deliver_ops(s1, dn, active, app, tcp))
+    times = (time_call(mk.deliver_kernel, args, kernel=kernel),
+             time_call(mk.deliver_plain, args))
+    alt_ms = time_call(mk.deliver_kernel, lambda: args(p=alt),
+                       kernel=kernel)[0]
+    (kd, kc), (pd, pc) = times
+    return (times, bound, err), alt_ms, (
+        f"{label} ({path} path, {kernel}): equal at all {steps} micro-steps "
+        f"of the window from {int(state.now)} ns ({dels} deliveries, "
+        f"{drops} router drops); at its busiest ({n} deliveries, {d} "
+        f"drops) kernel device {kd:.4f} ms (call {kc:.4f} ms), the other "
+        f"instantiation on the same inputs {alt_ms:.4f} ms, plain device "
+        f"{pd:.4f} ms (call {pc:.4f} ms), bound {bound[0]} bytes, "
+        f"{bound[1]} operations ({bound_ms(*bound):.6f} ms)")
+
+
+def window_probe(state, params, app, alt, label: str, kernel: str,
+                 until: int):
+    """check_window over the window `state` opens (to `until`), and the
+    kernel on the same inputs under `alt`.  Returns ((times, bound, max
+    error), alt device ms, line)."""
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    check = check_window(state, params, app, advance=0, label=label,
+                         kernel=kernel, plain_reps=1, until=until)
+    alt = alt.replace(persistent=True)
+
+    def args():
+        return engine.clone_state(state), alt, app, until, 1
+    alt_ms = time_call(mk.window_kernel, args, kernel=kernel)[0]
+    return check, alt_ms, (f"{label}: the other instantiation on the same "
+                           f"inputs {alt_ms:.4f} ms device")
+
+
+def pick_window(state, params, app, t_end: int, score, max_steps: int):
+    """The windows from `state` (a window boundary) to t_end, one
+    window_call each on clones: (the state at the start of the window with
+    the highest score(before, after) among those of at most `max_steps`
+    micro-steps and at least one, its score); (None, None) if there is
+    none."""
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+    params = params.replace(persistent=True)
+    best, best_score = None, None
+    st = state
+    while int(st.now) < t_end:
+        before = engine.clone_state(st)
+        st, _t_h, win = mk.window_call(engine.clone_state(st), params, app,
+                                       t_end, 1)
+        n = int(st.n_steps) - int(before.n_steps)
+        sc = score(before, st)
+        if 0 < n <= max_steps and (best_score is None or sc > best_score):
+            best, best_score = before, sc
+        if min(int(win[0]), int(win[3])) >= t_end:
+            break
+    return best, best_score
+
+
+def random_graphml(v: int, seed: int = 7, island: int = 8) -> str:
+    """A GraphML text of v vertices: 0..v-island-1 connected (a random
+    spanning tree, chords and multi-edges), the last `island` a component
+    of their own, six self-loops; random latencies (ms, three decimals),
+    jitter, edge and vertex loss (tests/test_torch_config.py's
+    _random_graphml, with IPs for any v)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    keys = [("ip", "node"), ("packetloss", "node"), ("latency", "edge"),
+            ("jitter", "edge"), ("packetloss", "edge")]
+    out = ['<graphml xmlns="http://graphml.graphdrawing.org/xmlns">']
+    for n, (name, dom) in enumerate(keys):
+        out.append(f'<key id="k{n}" for="{dom}" attr.name="{name}"/>')
+    out.append('<graph edgedefault="undirected">')
+    for i in range(v):
+        loss = rng.choice([0.0, 0.0, 0.001, 0.02])
+        out.append(f'<node id="n{i}"><data key="k0">11.{i // 256}.{i % 256}'
+                   f'.1</data><data key="k1">{loss}</data></node>')
+
+    def edge(a, b):
+        lat = round(float(rng.uniform(0.5, 120.0)), 3)
+        jit = round(float(rng.choice([0.0, rng.uniform(0.0, 30.0)])), 3)
+        loss = float(rng.choice([0.0, 0.0, 0.005, 0.05]))
+        out.append(f'<edge source="n{a}" target="n{b}">'
+                   f'<data key="k2">{lat}</data><data key="k3">{jit}</data>'
+                   f'<data key="k4">{loss}</data></edge>')
+
+    core = v - island
+    for i in range(1, core):
+        edge(int(rng.integers(0, i)), i)
+    for _ in range(2 * core):
+        edge(*rng.integers(0, core, 2).tolist())
+    for i in range(core + 1, v):
+        edge(int(rng.integers(core, i)), i)
+    for i in rng.choice(v, 6, replace=False).tolist():
+        edge(i, i)
+    out.append("</graph></graphml>")
+    return "\n".join(out)
+
+
+def check_apsp(dev) -> str:
+    """routing/apsp.py build_matrices on the card against its CPU result
+    on random_graphml(APSP_V): the path config/assemble.py sends to the
+    device above 1,024 vertices.  Bitwise, every matrix."""
+    import torch
+    from shadow1_tpu_torch.routing import apsp, graphml
+    topo = graphml.load(random_graphml(APSP_V))
+    args = (topo.lat_ms, topo.edge_rel)
+    kw = dict(self_lat_ms=topo.self_lat_ms, self_rel=topo.self_rel,
+              edge_jitter_ms=topo.jitter_ms,
+              self_jitter_ms=topo.self_jitter_ms)
+    t0 = time.perf_counter()
+    cpu = apsp.build_matrices(*args, **kw)
+    t1 = time.perf_counter()
+    gpu = apsp.build_matrices(*args, **kw, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for c, g, name in zip(cpu, gpu, ("latency", "reliability", "jitter")):
+        g = g.cpu()
+        if c.dtype != g.dtype or c.shape != g.shape or \
+                not torch.equal(c.view(torch.int64 if c.element_size() == 8
+                                       else torch.int32),
+                                g.view(torch.int64 if g.element_size() == 8
+                                       else torch.int32)):
+            _fail(f"APSP on the card: the {name} matrix differs from the "
+                  f"CPU's ({APSP_V} vertices)")
+    routable = apsp.is_routable(cpu[0])
+    core = APSP_V - 8
+    if bool(routable.all()) or not bool(routable[:core, :core].all()):
+        _fail("APSP: the random graph's components are not as built")
+    return (f"apsp: build_matrices on the card equals the CPU's, bitwise, "
+            f"on a random GraphML of {APSP_V} vertices (latency, "
+            f"reliability, jitter); CPU {t1 - t0:.2f} s, card "
+            f"{t2 - t1:.2f} s")
+
+
+def pick_cli_window(state, params, app, seconds, score, good):
+    """The CLI's schedule (cli_schedule) from `state` (the config's start)
+    to each heartbeat second s of `seconds` in turn, and the best window
+    (pick_window, at most PROBE_MAX_STEPS micro-steps) of the launch
+    s -> s + 1: the first whose score passes `good`.  Returns (the
+    window's start state, its score, s), or Nones."""
+    at = state
+    for sec in seconds:
+        if int(at.now) > sec * SEC:
+            at = state
+        at = cli_schedule(at, params, app, sec * SEC)
+        win, sc = pick_window(at, params, app, (sec + 1) * SEC, score,
+                              PROBE_MAX_STEPS)
+        if win is not None and good(sc):
+            return win, sc, sec
+    return None, None, None
+
+
+def moves_and_drops(before, after) -> tuple:
+    """A buffered CUBIC probe window's score: windows that both move
+    CUBIC's state and tail-drop first, then by CUBIC moves and drops."""
+    m, d = cubic_moves(before, after), router_drops(before, after)
+    return (min(m, 1) + min(d, 1), m, d)
+
+
+def cubic_kernels(dev) -> tuple:
+    """Phase 18: the device cbrt, CUBIC's device target and hooks, LOSSY
+    with CUBIC on both paths against JAX_LOSSY_CUBIC, and its CUBIC
+    instantiations of k_deliver_tcp and k_window_tcp against their plain
+    versions over the window that moves CUBIC's state on the most sockets
+    (cubic_moves) among the BUF_WINDOWS from LOSSY_CUBIC_PROBE_NS, each
+    timed beside the Reno instantiation on the same inputs.  Returns
+    (printable lines, {row: (times, bound, err)}, {row: launches},
+    {row: other ms})."""
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core import engine
+    lines = [check_cbrt(dev), check_cong_hooks(dev)]
+    _pp, launches, line = run_both_paths(
+        dev, sim.build_bulk, LOSSY, cubic, LOSSY_CUBIC_NS, JAX_LOSSY_CUBIC,
+        tcp_summary, f"cubic: LOSSY (H={LOSSY['num_hosts']}) to "
+                     f"{LOSSY_CUBIC_NS // MS} ms with CUBIC")
+    lines.append(line)
+    state, params, app = sim.build_bulk(**LOSSY, persistent=False,
+                                        device=dev)
+    params = cubic(params)
+    state = engine.run_until(state, params, app, LOSSY_CUBIC_PROBE_NS)
+    state, moves = pick_window(
+        state, params, app,
+        LOSSY_CUBIC_PROBE_NS + BUF_WINDOWS * params.min_latency_ns,
+        cubic_moves, PROBE_MAX_STEPS)
+    if not moves:
+        _fail("cubic kernels: no window from LOSSY_CUBIC_PROBE_NS moves "
+              "CUBIC's state")
+    lines.append(f"cubic kernels: the LOSSY probe window from "
+                 f"{int(state.now)} ns moves CUBIC's state on {moves} "
+                 f"sockets")
+    reno = params.replace(cong="reno")
+    rows, alt = {}, {}
+    rows["deliver_tcp_cubic"], alt["deliver_tcp_cubic"], line = \
+        deliver_probe(state, params, app, dev, reno,
+                      "cubic kernels: deliver (LOSSY, CUBIC)")
+    lines.append(line)
+    rows["window_tcp_cubic"], alt["window_tcp_cubic"], line = window_probe(
+        state, params, app, reno, "cubic kernels: window (LOSSY, CUBIC)",
+        "k_window_tcp", params.stop_time)
+    lines.append(line)
+    return lines, rows, {
+        "deliver_tcp_cubic": launches["per-phase"]["deliver"],
+        "window_tcp_cubic": launches["persistent"]["window"]}, alt
+
+
+def cli_cubic(dev, root) -> tuple:
+    """Phase 19, the main path of the slice: examples/tgen-100host with
+    --tcp-congestion-control cubic through the CLI to its 120 s,
+    counters zeroed just before and read just after: heartbeat.csv and
+    summary.json equal the JAX CLI's.  Then the config on the persistent
+    and the per-phase path, launch by launch as the CLI runs it, equal
+    leaf for leaf at every heartbeat second from BURST_FROM_S to
+    BURST_TO_S (the opening bursts), CUBIC's moves counted each second;
+    and k_window_tgen (CUBIC) against window_plain over a window of at
+    most PROBE_MAX_STEPS micro-steps that moves CUBIC's state, in the
+    first launch from CLI_PROBE_S (else from 1 s) that has one, timed
+    beside the Reno instantiation.  Returns (lines, row, launches, other
+    ms)."""
+    import tempfile
+    from shadow1_tpu_torch.config import assemble
+    from shadow1_tpu_torch.core import engine
+    config = str(root / CLI_100HOST)
+    label = "cli: tgen-100host with CUBIC, the main path"
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_cli([config, "--data-directory", tmp, "--quiet",
+                       "--tcp-congestion-control", "cubic"], label)
+    lines.append(check_cli_constants(res, "tgen-100host-cubic", label))
+    st = res["state"]
+    lines.append(
+        f"{label}: {int(st.n_events) / res['loop_seconds']:.1f} events/s "
+        f"of the run loop ({res['loop_seconds']:.4f} s), "
+        f"{int(st.n_windows)} windows, {int(st.n_steps)} micro-steps")
+    launches = res["launches"]["window"]
+    del res, st
+    runs = {p: assemble.load(config, cong="cubic", persistent=p, device=dev)
+            for p in (True, False)}
+    states = {p: a.state for p, a in runs.items()}
+    moves = {}
+    t0 = time.perf_counter()
+    for sec in range(1, BURST_TO_S + 1):
+        before = states[True]
+        for p, a in runs.items():
+            states[p] = engine.run_chunked(states[p], a.params, a.app,
+                                           sec * SEC)
+        moves[sec] = cubic_moves(before, states[True])
+        if sec >= BURST_FROM_S:
+            try:
+                require_equal(states[True], states[False],
+                              f"at {sec} s")
+            except SystemExit as e:
+                _fail(f"tgen-100host with CUBIC: the persistent and the "
+                      f"per-phase path differ at the heartbeat second "
+                      f"{sec} s: {e}")
+    lines.append(
+        f"cli: tgen-100host with CUBIC: the persistent and the per-phase "
+        f"path equal leaf for leaf at every heartbeat second from "
+        f"{BURST_FROM_S} to {BURST_TO_S} s ({int(states[True].n_steps)} "
+        f"micro-steps by then; {time.perf_counter() - t0:.1f} s); "
+        f"sockets whose CUBIC state moved, by second: {moves}")
+    del states
+    a = runs[True]
+    active = [s for s in range(1, BURST_TO_S) if moves[s + 1]]
+    seconds = [s for s in active if s >= CLI_PROBE_S] + \
+        [s for s in active if s < CLI_PROBE_S]
+    win, sc, sec = pick_cli_window(
+        a.state, a.params, a.app, seconds[:6],
+        lambda b, e: (cubic_moves(b, e), int(e.n_steps) - int(b.n_steps)),
+        lambda sc: sc[0] > 0)
+    if win is None:
+        _fail(f"tgen-100host with CUBIC: no window of at most "
+              f"{PROBE_MAX_STEPS} micro-steps moves CUBIC's state in the "
+              f"launches from {seconds[:6]} s")
+    row, alt, line = window_probe(
+        win, a.params, a.app, a.params.replace(cong="reno"),
+        f"cli: tgen-100host (CUBIC) kernels: window at "
+        f"{int(win.now) / SEC:.4f} s ({sc[0]} sockets' CUBIC state moves)",
+        "k_window_tgen", (sec + 1) * SEC)
+    lines.append(line)
+    return lines, row, launches, alt
+
+
+def lossy_buf_kernels(dev) -> tuple:
+    """Phase 20, TCP: LOSSY with interface buffers (lossy_buffered), under
+    Reno and under CUBIC, on both paths to LOSSY_BUF_NS against
+    JAX_LOSSY_BUF / JAX_LOSSY_CUBIC_BUF; then, among the BUF_WINDOWS
+    windows from there, k_window_tcp<1,0> over the one with the most tail
+    drops, and k_deliver_tcp<1,1> (every micro-step) and
+    k_window_tcp<1,1> over one that tail-drops and moves CUBIC's state,
+    against their plain versions, timed beside the unbuffered
+    instantiation on the same inputs.  Returns as buf_kernels."""
+    from shadow1_tpu_torch import sim
+
+    def summarize(st):
+        return dict(tcp_summary(st),
+                    drops_router=int(st.hosts.pkts_dropped_router.sum()))
+    lines, rows, alt, launches = [], {}, {}, {}
+    for name, want in (("reno", JAX_LOSSY_BUF),
+                       ("cubic", JAX_LOSSY_CUBIC_BUF)):
+        def tweak(params, name=name):
+            return lossy_buffered(params.replace(cong=name))
+        label = (f"buffers: LOSSY (H={LOSSY['num_hosts']}) to "
+                 f"{LOSSY_BUF_NS // MS} ms with interface buffers, {name}")
+        pp, runs, line = run_both_paths(
+            dev, sim.build_bulk, LOSSY, tweak, LOSSY_BUF_NS, want,
+            summarize, label)
+        lines.append(line)
+        _s, params, app = sim.build_bulk(**LOSSY, persistent=False,
+                                         device=dev)
+        params = tweak(params)
+        t_end = LOSSY_BUF_NS + BUF_WINDOWS * params.min_latency_ns
+        if name == "cubic":
+            state, sc = pick_window(pp, params, app, t_end,
+                                    moves_and_drops, PROBE_MAX_STEPS)
+            ok = sc is not None and sc[0] == 2
+        else:
+            state, sc = pick_window(
+                pp, params, app, t_end,
+                lambda b, e: (router_drops(b, e),
+                              int(e.n_steps) - int(b.n_steps)),
+                PROBE_MAX_STEPS)
+            ok = sc is not None and sc[0] > 0
+        if not ok:
+            _fail(f"{label}: no probe window with tail drops"
+                  f"{' that moves CUBIC' if name == 'cubic' else ''} ({sc})")
+        lines.append(f"{label}: probe window from {int(state.now)} ns "
+                     f"(score {sc})")
+        unbuf = unbuffered(params)
+        kind = "window_tcp_cubic_buf" if name == "cubic" else \
+            "window_tcp_buf"
+        if name == "cubic":
+            rows["deliver_tcp_cubic_buf"], alt["deliver_tcp_cubic_buf"], \
+                line = deliver_probe(
+                    state, params, app, dev, unbuf,
+                    "buffers kernels: deliver (LOSSY, buffered, CUBIC)")
+            lines.append(line)
+            launches["deliver_tcp_cubic_buf"] = runs["per-phase"]["deliver"]
+        rows[kind], alt[kind], line = window_probe(
+            state, params, app, unbuf,
+            f"buffers kernels: window (LOSSY, buffered, {name})",
+            "k_window_tcp", params.stop_time)
+        lines.append(line)
+        launches[kind] = runs["persistent"]["window"]
+    return lines, rows, launches, alt
+
+
+def buf_kernels(dev) -> tuple:
+    """Phase 20: STRESS with interface buffers (buffered) on both paths
+    against JAX_STRESS_BUF; its k_deliver_small and k_window (buffered)
+    against their plain versions over the window with the most tail drops
+    among the BUF_WINDOWS from BUF_PROBE_NS, and the KO world's k_deliver
+    (deliver_host) the same way, each timed beside the unbuffered
+    instantiation on the same inputs; then lossy_buf_kernels.  Returns
+    (lines, {row: (times, bound, err)}, {row: launches}, {row: other
+    ms})."""
+    from shadow1_tpu_torch import sim
+    from shadow1_tpu_torch.core import engine
+    from shadow1_tpu_torch.core import megakernel as mk
+
+    def summarize(st):
+        return dict(summary(st),
+                    drops_router=int(st.hosts.pkts_dropped_router.sum()))
+    lines, rows, alt = [], {}, {}
+    _pp, launches, line = run_both_paths(
+        dev, sim.build_phold, STRESS, buffered, STRESS_NS, JAX_STRESS_BUF,
+        summarize, f"buffers: STRESS (H={STRESS['num_hosts']}) to "
+                   f"{STRESS_NS // MS} ms with interface buffers")
+    lines.append(line)
+    runs = {}
+    for world, spec in (("STRESS", STRESS), ("KO", KO)):
+        state, params, app = sim.build_phold(**spec, persistent=False,
+                                             device=dev)
+        params = buffered(params)
+        mk.reset_launches()
+        state = engine.run_until(state, params, app, BUF_PROBE_NS)
+        runs[world] = dict(mk.LAUNCHES)
+        # The window with the most tail drops among the next BUF_WINDOWS.
+        state, _sc = pick_window(
+            state, params, app,
+            BUF_PROBE_NS + BUF_WINDOWS * params.min_latency_ns,
+            router_drops, PROBE_MAX_STEPS)
+        unbuf = unbuffered(params)
+        path = mk.deliver_path(state, params, app)
+        want = "small" if world == "STRESS" else "general"
+        if path != want:
+            _fail(f"buffers: the {world} world's K_DELIVER takes the "
+                  f"{path} path, not {want}")
+        name = "deliver_small_buf" if world == "STRESS" else "deliver_buf"
+        rows[name], alt[name], line = deliver_probe(
+            state, params, app, dev, unbuf,
+            f"buffers kernels: deliver ({world}, buffered)")
+        lines.append(line)
+        if world == "STRESS":
+            rows["window_buf"], alt["window_buf"], line = window_probe(
+                state, params, app, unbuf,
+                "buffers kernels: window (STRESS, buffered)", "k_window",
+                params.stop_time)
+            lines.append(line)
+    launches = {"deliver_small_buf": launches["per-phase"]["deliver"],
+                "window_buf": launches["persistent"]["window"],
+                "deliver_buf": runs["KO"]["deliver"]}
+    more = lossy_buf_kernels(dev)
+    for have, add in zip((lines, rows, launches, alt), more):
+        (have.extend if isinstance(have, list) else have.update)(add)
+    return lines, rows, launches, alt
+
+
+def cli_iface(dev, root) -> tuple:
+    """Phase 21: the interface-buffer config (write_iface_config) through
+    the CLI to its 120 s on the persistent path, counters zeroed just
+    before and read just after: heartbeat.csv and summary.json equal the
+    JAX CLI's; the same schedule on the per-phase path (counters zeroed
+    and read the same way) ends in an equal state with the same
+    heartbeat.csv.  Then, from the launch at IFACE_PROBE_S, the window of
+    at most PROBE_MAX_STEPS micro-steps with the most tail drops:
+    k_deliver_tcp (buffered) at each of its micro-steps and k_window_tgen
+    (buffered) over it against their plain versions, timed beside the
+    unbuffered instantiation.  Then the config with
+    --tcp-congestion-control cubic through the CLI, held to the JAX
+    CLI's the same way, and k_window_tgen<1,1> over a window of the
+    launches from IFACE_PROBE_S that moves CUBIC's state (tail-dropping
+    too where one does), timed beside the unbuffered CUBIC
+    instantiation.  Returns (lines, rows, launches, other ms)."""
+    import tempfile
+    import torch
+    from shadow1_tpu_torch import cli
+    from shadow1_tpu_torch.config import assemble
+    from shadow1_tpu_torch.core import megakernel as mk
+    from shadow1_tpu_torch.observe import Tracker
+    label = (f"cli: interface-buffer config ({IFACE_WEB} web hosts, "
+             f"interfacebuffer {IFACE_BYTES})")
+    lines, rows, alt = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        config = write_iface_config(f"{tmp}/config", IFACE_WEB, IFACE_BYTES)
+        res = run_cli([config, "--data-directory", f"{tmp}/m", "--quiet"],
+                      label)
+        lines.append(check_cli_constants(res, "iface", label))
+        main_hb, stop = res["heartbeat"], \
+            int(res["summary"]["simulated_seconds"])
+        launches = {"window_tgen_buf": res["launches"]["window"]}
+        asm = assemble.load(config, persistent=False, device=dev)
+        tr = Tracker(f"{tmp}/pp", asm.hostnames)
+        torch.cuda.synchronize()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        pp, _t = cli.simulate(asm.state, asm.params, asm.app, stop * SEC, tr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["deliver_tcp_buf"] = mk.LAUNCHES["deliver"]
+        if mk.LAUNCHES["window"] or not mk.LAUNCHES["deliver"]:
+            _fail(f"{label}, per-phase path: launches {mk.LAUNCHES}")
+        require_equal(pp, res["state"], f"{label}: per-phase vs persistent")
+        if Path(tr.path).read_bytes() != main_hb:
+            _fail(f"{label}: the per-phase path's heartbeat.csv differs")
+        lines.append(f"{label}: the per-phase path ({wall:.4f} s, "
+                     f"launches {dict(mk.LAUNCHES)}) ends in an equal state "
+                     f"with the same heartbeat.csv")
+        del pp, res
+        label_c = f"{label} with CUBIC"
+        res = run_cli([config, "--data-directory", f"{tmp}/c", "--quiet",
+                       "--tcp-congestion-control", "cubic"], label_c)
+        lines.append(check_cli_constants(res, "iface-cubic", label_c))
+        launches["window_tgen_cubic_buf"] = res["launches"]["window"]
+        del res
+        a = assemble.load(config, device=dev)
+        ac = assemble.load(config, cong="cubic", device=dev)
+    sec0 = IFACE_PROBE_S * SEC
+    at = cli_schedule(a.state, a.params, a.app, sec0)
+    win, _sc = pick_window(
+        at, a.params, a.app, sec0 + SEC,
+        lambda b, e: (router_drops(b, e), int(e.n_steps) - int(b.n_steps)),
+        PROBE_MAX_STEPS)
+    if win is None:
+        _fail(f"{label}: no window of at most {PROBE_MAX_STEPS} micro-steps "
+              f"to probe")
+    unbuf = unbuffered(a.params)
+    rows["deliver_tcp_buf"], alt["deliver_tcp_buf"], line = deliver_probe(
+        win, a.params.replace(persistent=False), a.app, dev,
+        unbuf.replace(persistent=False),
+        f"{label} kernels: deliver at {int(win.now) / SEC:.4f} s")
+    lines.append(line)
+    rows["window_tgen_buf"], alt["window_tgen_buf"], line = window_probe(
+        win, a.params, a.app, unbuf,
+        f"{label} kernels: window at {int(win.now) / SEC:.4f} s",
+        "k_window_tgen", sec0 + SEC)
+    lines.append(line)
+    del a, at, win
+    win, sc, sec = pick_cli_window(
+        ac.state, ac.params, ac.app,
+        range(IFACE_PROBE_S, IFACE_PROBE_S + 4), moves_and_drops,
+        lambda sc: sc[1] > 0)
+    if win is None:
+        _fail(f"{label_c}: no window of at most {PROBE_MAX_STEPS} "
+              f"micro-steps moves CUBIC's state from {IFACE_PROBE_S} s")
+    rows["window_tgen_cubic_buf"], alt["window_tgen_cubic_buf"], line = \
+        window_probe(
+            win, ac.params, ac.app, unbuffered(ac.params),
+            f"{label_c} kernels: window at {int(win.now) / SEC:.4f} s "
+            f"({sc[1]} sockets' CUBIC state moves, {sc[2]} tail drops)",
+            "k_window_tgen", (sec + 1) * SEC)
+    lines.append(line)
+    return lines, rows, launches, alt
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2740,9 +3743,7 @@ def main() -> int:
                                    ("plain", (False, False))):
         s0, p0, a0 = sim.build_phold(**STRESS, megakernel=fused,
                                      persistent=persist, device=dev)
-        p0 = p0.replace(pds_trail=True, cpu_threshold_ns=0,
-                        cpu_ns_per_event=torch.full_like(
-                            p0.cpu_ns_per_event, 50_000))
+        p0 = stressed(p0)
         mk.reset_launches()
         finals[path] = engine.run_until(s0, p0, a0, STRESS_NS)
         used = {k for k, v in mk.LAUNCHES.items() if v > 0}
@@ -2934,6 +3935,11 @@ def main() -> int:
         tgen_probe, params, app, BUSY_WINDOWS,
         label=f"tgen main path (persistent), from {PROBE_TGEN_NS / SEC} s")
     print(line, flush=True)
+    b12, o12, s12 = windows_bound(tgen_probe, params, app, BUSY_WINDOWS)
+    w12 = int(busy_st.n_windows) - int(tgen_probe.n_windows)
+    print(f"tgen main path (persistent): those {w12} windows ({s12} "
+          f"micro-steps) must move {b12} bytes and do {o12} operations: "
+          f"bound {bound_ms(b12, o12) / w12:.6f} ms a window", flush=True)
     # The split of a micro-step by phase for the server and for a client.
     for host in (0, 1):
         lines, trace_st, _ = phase_trace(
@@ -2991,14 +3997,50 @@ def main() -> int:
 
     _phase_done("17")
 
-    # ---- 18. kernels line -----------------------------------------------
+    # ---- 18. CUBIC: the device cbrt, LOSSY with CUBIC, its kernels --------
+    lines, new_rows, new_launches, other_ms = cubic_kernels(dev)
+    for line in lines:
+        print(line, flush=True)
+
+    _phase_done("18")
+
+    # ---- 19. cli: tgen-100host with CUBIC, the main path -------------------
+    lines, row, n, alt = cli_cubic(dev, root)
+    for line in lines:
+        print(line, flush=True)
+    new_rows["window_tgen_cubic"], new_launches["window_tgen_cubic"] = row, n
+    other_ms["window_tgen_cubic"] = alt
+
+    _phase_done("19")
+
+    # ---- 20. interface buffers: STRESS and KO, their kernels ---------------
+    # ---- 21. cli: the interface-buffer config ------------------------------
+    for phase, part in (("20", lambda: buf_kernels(dev)),
+                        ("21", lambda: cli_iface(dev, root))):
+        lines, rows_, launches_, alt_ = part()
+        for line in lines:
+            print(line, flush=True)
+        new_rows.update(rows_)
+        new_launches.update(launches_)
+        other_ms.update(alt_)
+        _phase_done(phase)
+
+    # ---- 22. APSP on the card above 1,024 vertices -------------------------
+    print(check_apsp(dev), flush=True)
+
+    _phase_done("22")
+
+    # ---- 23. kernels line -----------------------------------------------
+    for name, (t, b, e) in new_rows.items():
+        times[name], bounds[name], errs[name] = t, b, e
     rows = []
-    for name in (*PER_PHASE, "window", *TCP_ROWS):
+    for name in (*PER_PHASE, "window", *TCP_ROWS, *NEW_ROWS):
         b, ops = bounds[name]
         bytes_ms = b / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
-        base = TCP_ROWS.get(name, name)
-        n = launches[name] if name == "window" else \
+        base = TCP_ROWS.get(name) or NEW_ROWS.get(name, name)
+        n = new_launches[name] if name in NEW_ROWS else \
+            launches[name] if name == "window" else \
             launches_tp["window"] if name == "window_tcp" else \
             launches_tg["window"] if name == "window_tgen" else \
             launches_cli if name == "window_tgen_cli" else \
@@ -3012,6 +4054,8 @@ def main() -> int:
             "plain_ms": times[name][1][0], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None})
+        if name in NEW_ROWS:
+            rows[-1]["other_ms"] = other_ms[name]
     print(f"K_WINDOW in the main path's profile: {window_dev_ms:.4f} ms "
           f"device per launch; K_WINDOW (TCP) on the bulk main path: "
           f"{window_tcp_ms:.4f} ms device per window; K_WINDOW (tgen) on "

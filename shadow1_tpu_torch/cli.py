@@ -63,7 +63,7 @@ def _parser():
                    help="packet-pool slots per host")
     r.add_argument("--tcp-congestion-control", choices=("reno", "cubic"),
                    default="reno",
-                   help="TCP congestion control (cubic is not ported yet)")
+                   help="TCP congestion control")
     r.add_argument("--interface-qdisc", choices=("fifo", "rr"),
                    default="fifo", help="NIC socket-selection discipline")
     r.add_argument("--cpu-threshold", type=int, default=-1,
@@ -113,10 +113,6 @@ def refusal(args) -> str | None:
         if getattr(args, flag[2:].replace("-", "_")) != default:
             return (f"{flag} is not ported yet (ROADMAP queue 1 item "
                     f"{item})")
-    if args.tcp_congestion_control != "reno":
-        return (f"--tcp-congestion-control "
-                f"{args.tcp_congestion_control} is not ported yet (ROADMAP "
-                f"queue 1 item 3)")
     return None
 
 
@@ -186,6 +182,7 @@ def run_config(args) -> tuple[int, dict | None]:
     t_wall = time.perf_counter()
     try:
         asm, stop = build_world(args)
+        engine.check_supported(asm.state, asm.params, asm.app)
     except (NotImplementedError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return RC_USAGE, None

@@ -10,9 +10,10 @@ device once; the result equals the JAX package's `build` leaf for leaf.
 
 Refused by name, each with the ROADMAP item that will carry it:
 real-process plugins (queue 1 item 10, the substrate), a <netem>
-section (item 5), bucket padding and <host interfacebuffer> (item 4),
-congestion control other than Reno (item 3), and the per-host
-instrumentation attributes logpcap and loglevel (item 8).
+section (item 5), bucket padding (item 4), and the per-host
+instrumentation attributes logpcap and loglevel (item 8).  Both
+congestion controls (Reno, CUBIC) and <host interfacebuffer> are
+carried.
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ from .. import resolve_device
 from ..apps import tgen as tgen_app
 from ..core import simtime
 from ..core.params import QDISC_FIFO, QDISC_RR, NetParams, make_net_params
-from ..core.state import make_sim_state
+from ..core.state import MTU, make_sim_state
 from ..routing import apsp, graphml
 from ..routing.dns import DNS
+from ..transport import cong as _cong
 from ..transport import tcp
 
 SEC = simtime.SIMTIME_ONE_SECOND
@@ -110,11 +112,7 @@ def _plugin_kind(cfg, plugin_id: str) -> str:
     return "real"
 
 
-def _refuse_unported(cfg, specs, cong: str, bucket: bool) -> None:
-    if cong != "reno":
-        raise NotImplementedError(
-            f"congestion control {cong!r} is not ported yet (ROADMAP "
-            f"queue 1 item 3); use 'reno'")
+def _refuse_unported(cfg, specs, bucket: bool) -> None:
     if bucket:
         raise NotImplementedError(
             "bucket padding is not ported yet (ROADMAP queue 1 item 4)")
@@ -122,10 +120,6 @@ def _refuse_unported(cfg, specs, cong: str, bucket: bool) -> None:
         raise NotImplementedError(
             "a <netem> section is not ported yet (ROADMAP queue 1 item 5)")
     for s in specs:
-        if s.interfacebuffer:
-            raise NotImplementedError(
-                f"<host id={s.id!r} interfacebuffer> (interface receive "
-                f"buffers) is not ported yet (ROADMAP queue 1 item 4)")
         if s.logpcap:
             raise NotImplementedError(
                 f"<host id={s.id!r} logpcap> (packet capture) is not "
@@ -155,7 +149,7 @@ def build(cfg, seed: int = 1, sock_slots: int | None = None,
     h = len(names)
     if h == 0:
         raise ValueError("config defines no hosts")
-    _refuse_unported(cfg, specs, cong, bucket)
+    _refuse_unported(cfg, specs, bucket)
 
     # --- topology + attachment -------------------------------------------
     topo = graphml.load(cfg.topology_source())
@@ -170,6 +164,7 @@ def build(cfg, seed: int = 1, sock_slots: int | None = None,
     cpu_ns = np.zeros(h, np.int64)
     snd_buf = np.zeros(h, np.int64)      # 0 = default + autotune
     rcv_buf = np.zeros(h, np.int64)
+    iface_pkts = np.zeros(h, np.int32)   # 0 = unbounded
     hb_freq = np.zeros(h, np.int64)      # 0 = tracker default
     for i, s in enumerate(specs):
         v = host_vertex[i]
@@ -185,6 +180,10 @@ def build(cfg, seed: int = 1, sock_slots: int | None = None,
             snd_buf[i] = s.socketsendbuffer
         if s.socketrecvbuffer:
             rcv_buf[i] = s.socketrecvbuffer
+        if s.interfacebuffer:
+            # Bytes in the config; the router backlog counts packets, so
+            # round up in MTUs.
+            iface_pkts[i] = max(1, -(-s.interfacebuffer // MTU))
         if s.heartbeatfrequency_s:
             hb_freq[i] = s.heartbeatfrequency_s
 
@@ -205,7 +204,8 @@ def build(cfg, seed: int = 1, sock_slots: int | None = None,
         cpu_precision_ns=max(1, cpu_precision_us) * 1000,
         qdisc={"fifo": QDISC_FIFO, "rr": QDISC_RR}[qdisc],
         autotune_snd=snd_buf == 0, autotune_rcv=rcv_buf == 0,
-        cong=cong, persistent=persistent, device=dev)
+        iface_buf_pkts=iface_pkts, cong=_cong.validate(cong),
+        persistent=persistent, device=dev)
 
     # --- connectivity: every pair of vertices hosts attach to must be
     # routable (the diagonal is exempt: loopback never reads the matrix).

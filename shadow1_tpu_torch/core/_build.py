@@ -29,8 +29,11 @@ NAMES = ("exchange", "deliver", "transport", "window")
 # with its per-phase cycle counters (csrc/common.cuh Clk), which
 # chip_smoke.py loads for its phase trace.
 VARIANTS = {"window_clk": ("window", ("-DS1_PHASE_CLOCKS",))}
+# --split-compile=0: nvcc optimises and assembles a library's kernels on
+# every CPU at once (K_WINDOW holds a dozen instantiations).
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-         "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         "--split-compile=0")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The C entry points of each library and their argument types.
@@ -41,8 +44,10 @@ _ARGTYPES = {
                 "deliver_fits_small": [_P]},
     "transport": {"transport_launch": [_P, _P, _P]},
     "window": {"window_launch": [_P, _P], "window_tcp_launch": [_P, _I, _P],
-               "window_occupancy": [_I, _P, _P],
-               "log1p_probe_launch": [_P, _P, _I64, _P]},
+               "window_occupancy": [_I, _I, _I, _P, _P],
+               "log1p_probe_launch": [_P, _P, _I64, _P],
+               "cbrt_probe_launch": [_P, _P, _I64, _P],
+               "cong_probe_launch": [_I, *[_P] * 10, _I64, _P]},
 }
 
 _LOADED: dict = {}

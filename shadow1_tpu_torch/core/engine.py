@@ -23,11 +23,11 @@ small vector per window; without it, one scalar per micro-step (the
 `gmin < window_end` predicate JAX evaluates inside its device while
 loop) and a few per window.
 
-Scope: phold (UDP), bulk and tgen (TCP, Reno) worlds, loopback
-emissions and per-packet jitter included.  Other apps, CUBIC,
-interface buffers and every instrumentation and netem block are later
-slices, refused by `check_supported` with a message naming what is
-missing.
+Scope: phold (UDP), bulk and tgen (TCP, Reno or CUBIC) worlds,
+loopback emissions, per-packet jitter and interface receive buffers
+included.  Other apps, bucket padding and every instrumentation and
+netem block are later slices, refused by `check_supported` with a
+message naming what is missing.
 """
 
 from __future__ import annotations
@@ -66,6 +66,18 @@ def _may_loopback(app) -> bool:
 PORTED_APPS = ("Phold", "Bulk", "Tgen")
 
 
+def check_iface_cube(h: int, ki: int) -> None:
+    """The JAX package ranks an interface buffer's tail drop with an
+    [H, k, k] comparison cube and refuses worlds where it passes 2^28
+    elements; the port refuses the same worlds with the same message."""
+    if h * ki * ki > (1 << 28):
+        raise ValueError(
+            f"<host interfacebuffer> needs an [H={h}, k={ki}, k={ki}] "
+            f"ranking cube (> 2^28 elements) in the compiled step; "
+            f"shrink the inbox slab (--pool-slab) or drop the "
+            f"interfacebuffer bound for worlds this large")
+
+
 def check_supported(state: SimState, params, app) -> None:
     """Refuse, by name, what the port does not carry yet."""
     name = type(app).__name__
@@ -85,9 +97,8 @@ def check_supported(state: SimState, params, app) -> None:
             "a full-width inbox for a UDP app is not ported; build the "
             "world with uses_tcp=False")
     if params.has_iface_buf:
-        raise NotImplementedError(
-            "interface receive buffers (iface_buf_pkts > 0) are not "
-            "ported yet")
+        h = state.hosts.num_hosts
+        check_iface_cube(h, state.inbox.capacity // h)
     if params.hosts_real is not None:
         raise NotImplementedError(
             "bucket-padded worlds (hosts_real) are not ported yet")
@@ -342,11 +353,42 @@ def _rx_phase(state: SimState, params, em, tick_t, active, app, window_end,
         active[:, None]
     k2 = ib.order_keys().reshape(h, ki)
 
+    # Interface receive buffer (<host interfacebuffer>): a host with a
+    # bound keeps at most `room` of its due arrivals, the earliest by
+    # (time, key), and tail-drops the rest.  A due slot's rank is the
+    # number of due slots before it, as the JAX package counts it over
+    # its [H, k, k] cube; the cube is built here only for the hosts whose
+    # dues exceed their room (the others drop nothing).
+    if params.has_iface_buf:
+        cap = params.iface_buf_pkts
+        room = torch.clamp(cap - hosts.rx_queued, min=0)
+        over = ((cap > 0) & (due.sum(dim=1) > room)).nonzero().flatten()
+        tail_drop = torch.zeros_like(due)
+        if over.numel():
+            d_o, t_o, k_o = due[over], t2[over], k2[over]
+            before = d_o[:, None, :] & (
+                (t_o[:, None, :] < t_o[:, :, None]) |
+                ((t_o[:, None, :] == t_o[:, :, None]) &
+                 (k_o[:, None, :] < k_o[:, :, None])))
+            rank = before.sum(dim=2)
+            tail_drop[over] = d_o & (rank >= room[over, None])
+        due = due & ~tail_drop
+    else:
+        tail_drop = None
+
     st2 = torch.where(due, STAGE_RX_QUEUED, st2).to(I32)
     status = ib.status
     if params.pds_trail:
         status = torch.where(due.reshape(-1), status | PDS_ROUTER_ENQUEUED,
                              status)
+    if tail_drop is not None:
+        st2 = torch.where(tail_drop, STAGE_FREE, st2).to(I32)
+        if params.pds_trail:
+            status = torch.where(tail_drop.reshape(-1),
+                                 status | PDS_ROUTER_DROPPED, status)
+        hosts = hosts.replace(
+            pkts_dropped_router=hosts.pkts_dropped_router
+            + tail_drop.sum(dim=1))
     hosts = hosts.replace(
         rx_queued=hosts.rx_queued + due.sum(dim=1, dtype=I32))
 
@@ -373,8 +415,10 @@ def _rx_phase(state: SimState, params, em, tick_t, active, app, window_end,
     for r in range(d_rounds):
         limit = tick_t if r == 0 else bound
         hosts = state.hosts
+        # Candidates: the queued backlog, plus (rounds > 0, in worlds
+        # without interface buffers) in-flight arrivals within the bound.
         cand = st2 == STAGE_RX_QUEUED
-        if r > 0:
+        if r > 0 and not params.has_iface_buf:
             cand = cand | ((st2 == STAGE_IN_FLIGHT) & (t2 <= limit[:, None]))
         cand = cand & active[:, None]
         tq = torch.where(cand, t2, torch.full_like(t2, INV))

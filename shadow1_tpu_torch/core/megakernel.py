@@ -35,6 +35,12 @@ fit (deliver_small, transport_small).  The exchange is one cooperative launch of
 stable radix sort of the movers by destination (csrc/exchange.cuh
 ex_run), which K_WINDOW's window open shares.
 
+Interface receive buffers (params.has_iface_buf) and, in TCP worlds, the
+congestion control (params.cong: Reno or CUBIC) are template parameters
+of the K_DELIVER and K_WINDOW kernels: the launchers pick the
+instantiation from the arguments (`DeliverArgs.has_iface_buf`,
+`TcpArgs.cong`), once per launch.
+
 Dispatch rule, the same for every wrapper: a CUDA tensor launches the
 kernel (or raises); a CPU tensor runs the plain version, which is built
 from the reference functions of core/engine.py.  There is no third path
@@ -326,7 +332,14 @@ class _TcpArgs(ctypes.Structure):
             "rr_next", "em_valid", "em_blk", "gates", "err", "carry")] + [
         ("min_latency", ctypes.c_int64), ("slots", ctypes.c_int32),
         ("e", ctypes.c_int32), ("pc", ctypes.c_int32),
-        ("qdisc", ctypes.c_int32)]
+        ("qdisc", ctypes.c_int32), ("cong", ctypes.c_int32)]
+
+
+def cong_index(params) -> int:
+    """TcpArgs.cong: the index of params.cong in cong.ALGORITHMS
+    (csrc/tcp.cuh CONG_RENO, CONG_CUBIC), which picks the TCP kernels'
+    instantiation."""
+    return cong.ALGORITHMS.index(cong.validate(params.cong))
 
 
 def _tcp_struct(state, params, em, gates=None, carry=None) -> _TcpArgs:
@@ -363,7 +376,7 @@ def _tcp_struct(state, params, em, gates=None, carry=None) -> _TcpArgs:
         em_blk=_addr(em.blk), gates=_addr(gates), err=_addr(state.err),
         carry=_addr(carry),
         min_latency=params.min_latency_ns, slots=s, e=e, pc=pc,
-        qdisc=int(params.qdisc))
+        qdisc=int(params.qdisc), cong=cong_index(params))
 
 
 # Bytes of one host's record across the TCP kernels' gate barriers
@@ -397,11 +410,12 @@ class _DeliverArgs(ctypes.Structure):
         "stype", "local_port", "peer_host", "peer_port", "udp_head",
         "udp_count", "udp_src", "udp_sport", "udp_len", "udp_payload",
         "sock_bytes_recv", "tick_t", "active", "bw_dn", "aux0",
-        "delivered_n", "t_post", "rsqrt_tab")] + [
+        "delivered_n", "t_post", "rsqrt_tab", "iface_buf_pkts")] + [
         ("bootstrap_end", ctypes.c_int64), ("window_end", ctypes.c_int64),
         ("h", ctypes.c_int32), ("ki", ctypes.c_int32),
         ("ic", ctypes.c_int32), ("slots", ctypes.c_int32),
-        ("rx_batch", ctypes.c_int32), ("pds_trail", ctypes.c_int32)]
+        ("rx_batch", ctypes.c_int32), ("pds_trail", ctypes.c_int32),
+        ("has_iface_buf", ctypes.c_int32)]
 
 
 def _deliver_struct(state, params, app, bw_dn, window_end=0, tick_t=None,
@@ -430,6 +444,10 @@ def _deliver_struct(state, params, app, bw_dn, window_end=0, tick_t=None,
         _check(getattr(socks, name), I32, (h, s, 8), f"socks.{name}")
     _check(socks.bytes_recv, I64, (h, s), "socks.bytes_recv")
     _check(bw_dn, I64, (h,), "bw_dn")
+    buf = bool(params.has_iface_buf)
+    if buf:
+        _check(params.iface_buf_pkts, I32, (h,), "params.iface_buf_pkts")
+        engine.check_iface_cube(h, p1 // h)
     return _DeliverArgs(
         ib_blk=_addr(ib.blk), ib_stage=_addr(ib.stage),
         ib_status=_addr(ib.status),
@@ -454,10 +472,11 @@ def _deliver_struct(state, params, app, bw_dn, window_end=0, tick_t=None,
         aux0=_addr(aux0), delivered_n=_addr(delivered_n),
         t_post=_addr(t_post),
         rsqrt_tab=_addr(xlamath.rsqrt_table(bw_dn.device)),
+        iface_buf_pkts=_addr(params.iface_buf_pkts) if buf else 0,
         bootstrap_end=params.bootstrap_end, window_end=int(window_end),
         h=h, ki=p1 // h, ic=ic, slots=s,
         rx_batch=max(1, int(getattr(app, "rx_batch", 1))),
-        pds_trail=int(bool(params.pds_trail)))
+        pds_trail=int(bool(params.pds_trail)), has_iface_buf=int(buf))
 
 
 def deliver_kernel(state, params, app, em, tick_t, active, window_end,
@@ -840,20 +859,23 @@ def set_phase_clocks(buf=None, host: int = 0) -> None:
 
 
 
-def _window_grid(lib, h: int, kernel: int) -> int:
+def _window_grid(lib, h: int, kernel: int, buf: bool = False,
+                 cong_i: int = 0) -> int:
     """Blocks of K_WINDOW's cooperative grid for h hosts and the kernel
-    of index `kernel` (_DEVICE_TICKS): what the card keeps resident
-    (blocks per SM from the occupancy query, times SMs; cached per
-    device, library and kernel), and no more blocks than the hosts fill
+    of index `kernel` (_DEVICE_TICKS) in its instantiation for interface
+    buffers `buf` and congestion control `cong_i` (cong_index): what the
+    card keeps resident (blocks per SM from the occupancy query, times
+    SMs; cached per device, library, kernel and instantiation), and no
+    more blocks than the hosts fill
     -- one thread per host for k_window (_WIN_BLOCK hosts a block), one
     warp per host for the TCP kernels (_BLOCK // 32).  The kernels walk
     hosts grid-stride, so any h runs.  Raises if the card cannot launch
     the kernel cooperatively."""
-    kernel = int(kernel)
-    key = (torch.cuda.current_device(), id(lib), kernel)
+    kernel, buf, cong_i = int(kernel), int(bool(buf)), int(cong_i)
+    key = (torch.cuda.current_device(), id(lib), kernel, buf, cong_i)
     if key not in _OCCUPANCY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-        rc = lib.window_occupancy(kernel, ctypes.byref(per_sm),
+        rc = lib.window_occupancy(kernel, buf, cong_i, ctypes.byref(per_sm),
                                   ctypes.byref(sms))
         if rc == -1:
             raise RuntimeError("K_WINDOW: the device cannot launch "
@@ -958,8 +980,6 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
         raise ValueError(f"K_WINDOW runs {type(app).__name__} with a "
                          f"{'full-width' if tcp_on else 'narrow'} inbox; "
                          f"this one has {ic} columns")
-    if tcp_on:
-        cong.validate(params.cong)
     if p0 % h or p1 % h:
         raise ValueError("pool and inbox capacities must be multiples of h")
     _check(ib.status, I32, (p1,), "inbox.status")
@@ -967,8 +987,14 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
     for name in ("now", "n_windows"):
         _check(getattr(state, name), I64, (), name)
     clk = _PHASE_CLOCKS["buf"]
+    buf = bool(params.has_iface_buf)
+    cong_i = cong_index(params) if tcp_on else 0
+    if clk is not None and tcp_on and (buf or cong_i):
+        raise NotImplementedError(
+            "K_WINDOW's phase clocks trace the Reno TCP kernels without "
+            "interface buffers only")
     lib = _build.load("window" if clk is None else "window_clk")
-    grid = _window_grid(lib, h, kernel)
+    grid = _window_grid(lib, h, kernel, buf, cong_i)
     dev = pool.blk.device
     e = engine._n_lanes(app)
     bw_up, bw_dn = engine._window_ctx(state, params)
@@ -1054,6 +1080,45 @@ def window_fused(state, params, app, t_target):
     if status != STATUS_WINDOW_CAP:
         check_window_status(status, 1)
     return state, t_h, win[0], win[1], win[2]
+
+
+def cbrt_probe(x):
+    """The device f32 cbrt of CUBIC's window target (csrc/xla_cbrt.cuh
+    cbrt_xla) on a CUDA f32 vector."""
+    from . import _build
+    _check(x, torch.float32, (x.numel(),), "x")
+    y = torch.empty_like(x)
+    lib = _build.load("window")
+    _raise_on(lib.cbrt_probe_launch(_addr(x), _addr(y), x.numel(),
+                                    _stream()), "cbrt probe")
+    return y
+
+
+# cong_probe's kinds (csrc/window.cu k_cong_probe).
+CONG_PROBE_KINDS = ("target", "new_ack", "enter_recovery", "timeout")
+
+
+def cong_probe(kind: str, regs: dict):
+    """CUBIC's device window target or hook `kind` (CONG_PROBE_KINDS;
+    csrc/tcp.cuh) on CUDA vectors of socket registers `regs` (cwnd,
+    ssthresh, cub_epoch, cub_wmax, srtt; tick, acked, flight, mask): the
+    target (i32), or the five registers after the hook, where mask is set,
+    as a new dict."""
+    from . import _build
+    n = regs["cwnd"].numel()
+    out = {f: regs[f].clone() for f in
+           ("cwnd", "ssthresh", "cub_epoch", "cub_wmax", "srtt")}
+    for f, dt in (("cwnd", I32), ("ssthresh", I32), ("cub_epoch", I64),
+                  ("cub_wmax", I32), ("srtt", I64), ("tick", I64),
+                  ("acked", I32), ("flight", I32), ("mask", torch.bool)):
+        _check(regs[f], dt, (n,), f)
+    target = torch.empty_like(regs["cwnd"])
+    lib = _build.load("window")
+    _raise_on(lib.cong_probe_launch(
+        CONG_PROBE_KINDS.index(kind), *(_addr(out[f]) for f in out),
+        *(_addr(regs[f]) for f in ("tick", "acked", "flight", "mask")),
+        _addr(target), n, _stream()), "cong probe")
+    return target if kind == "target" else out
 
 
 def log1p_probe(x):

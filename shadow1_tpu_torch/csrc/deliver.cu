@@ -24,7 +24,11 @@
 // registers and one write-back.  Other UDP worlds take k_deliver,
 // deliver_host on the Solo team, which re-reads the slab's stage words
 // and live rows each round and walks the sockets after each pick.  The
-// launcher decides once per launch, from the arguments.
+// launcher decides once per launch, from the arguments, as it decides
+// the instantiation: each kernel is a template on the world's interface
+// buffers (DeliverArgs.has_iface_buf: the router enqueue's tail drop,
+// deliver.cuh) and k_deliver_tcp also on the congestion control
+// (TcpArgs.cong: Reno or CUBIC, tcp.cuh).
 //
 // TCP worlds (k_deliver_tcp): one warp per host, walked warp-stride over
 // a cooperative grid sized from the occupancy query, so any number of
@@ -60,26 +64,29 @@ constexpr int kDeliverBlock = 256;    // k_deliver_tcp
 constexpr int kUdpBlock = 128;        // k_deliver_small, k_deliver
 
 // UDP worlds that fit (deliver_small_fits): the host's loads in two
-// dependent steps, the rest on registers.
+// dependent steps, the rest on registers.  `Buf`: the world has interface
+// buffers (DeliverArgs.has_iface_buf).
+template <bool Buf>
 __global__ void __launch_bounds__(kUdpBlock) k_deliver_small(DeliverArgs a) {
   __shared__ RxRows<kUdpBlock> rows;
   const int hh = blockIdx.x * kUdpBlock + threadIdx.x;
   if (hh >= a.h) return;
   Clk clk = make_clk(nullptr, false);
   RxIn in;
-  const DeliverOut o = deliver_small(a, hh, PhaseRxIn{a}, a.window_end, rows,
-                                     in, clk);
+  const DeliverOut o = deliver_small<Buf>(a, hh, PhaseRxIn{a}, a.window_end,
+                                          rows, in, clk);
   a.delivered_n[hh] = o.delivered;
   a.t_post[hh] = o.t_post;
 }
 
 // Other UDP worlds (larger slabs or socket tables): deliver_host on one
 // thread.
+template <bool Buf>
 __global__ void __launch_bounds__(kUdpBlock) k_deliver(DeliverArgs a) {
   const int hh = blockIdx.x * kUdpBlock + threadIdx.x;
   if (hh >= a.h) return;
   Clk clk = make_clk(nullptr, false);
-  const DeliverOut o = deliver_host(a, Solo{}, hh, a.tick_t[hh],
+  const DeliverOut o = deliver_host<Buf>(a, Solo{}, hh, a.tick_t[hh],
                                     a.active[hh] != 0,
                                     a.rx_batch > 1 ? a.aux0[hh] : INV,
                                     a.window_end, clk);
@@ -87,10 +94,12 @@ __global__ void __launch_bounds__(kUdpBlock) k_deliver(DeliverArgs a) {
   a.t_post[hh] = o.t_post;
 }
 
+// TCP worlds; `Cong`: the congestion control (TcpArgs.cong).
+template <bool Buf, int Cong>
 __global__ void __launch_bounds__(kDeliverBlock, 2)
     k_deliver_tcp(DeliverArgs a, TcpArgs t) {
   Clk clk = make_clk(nullptr, false);
-  const int32_t err = deliver_tcp_warps(
+  const int32_t err = deliver_tcp_warps<Buf, Cong>(
       a, t, t.gates, a.window_end, clk, -1,
       [&](int hh, int64_t& tick, bool& act, int64_t& aux0) {
         tick = a.tick_t[hh];
@@ -107,31 +116,51 @@ __global__ void __launch_bounds__(kDeliverBlock, 2)
     atomicOr(t.err, ERR_SOCKET_OVERFLOW);
 }
 
+// k_deliver_tcp's instantiation for a launch's arguments.
+const void* deliver_tcp_fn(const DeliverArgs& a, const TcpArgs& t) {
+  const bool cubic = t.cong == CONG_CUBIC;
+  if (a.has_iface_buf)
+    return cubic ? (const void*)k_deliver_tcp<true, CONG_CUBIC>
+                 : (const void*)k_deliver_tcp<true, CONG_RENO>;
+  return cubic ? (const void*)k_deliver_tcp<false, CONG_CUBIC>
+               : (const void*)k_deliver_tcp<false, CONG_RENO>;
+}
+
 }  // namespace
 
 // `tcp` is null in UDP worlds, which take k_deliver_small where the world
-// fits (deliver_small_fits) and k_deliver otherwise.  Returns a CUDA error
-// code.  The TCP grid is as many blocks as the card keeps resident (the
-// occupancy query), at most one warp per host.
+// fits (deliver_small_fits) and k_deliver otherwise.  The instantiation
+// (interface buffers; in TCP worlds the congestion control) is picked from
+// the arguments, once per launch.  Returns a CUDA error code.  The TCP
+// grid is as many blocks as the card keeps resident (the occupancy query),
+// at most one warp per host.
 extern "C" int deliver_launch(const DeliverArgs* args, const TcpArgs* tcp,
                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (tcp == nullptr) {
     const int nb = (args->h + kUdpBlock - 1) / kUdpBlock;
-    if (deliver_small_fits(*args))
-      k_deliver_small<<<nb, kUdpBlock, 0, st>>>(*args);
-    else
-      k_deliver<<<nb, kUdpBlock, 0, st>>>(*args);
+    const bool buf = args->has_iface_buf != 0;
+    if (deliver_small_fits(*args)) {
+      if (buf)
+        k_deliver_small<true><<<nb, kUdpBlock, 0, st>>>(*args);
+      else
+        k_deliver_small<false><<<nb, kUdpBlock, 0, st>>>(*args);
+    } else {
+      if (buf)
+        k_deliver<true><<<nb, kUdpBlock, 0, st>>>(*args);
+      else
+        k_deliver<false><<<nb, kUdpBlock, 0, st>>>(*args);
+    }
     return (int)cudaGetLastError();
   }
+  const void* fn = deliver_tcp_fn(*args, *tcp);
   const int tb = kDeliverBlock;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_deliver_tcp,
-                                                      tb, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, tb, 0);
   if (e != cudaSuccess) return (int)e;
   const int warps = tb / 32;
   const int need = (args->h + warps - 1) / warps;
@@ -141,8 +170,7 @@ extern "C" int deliver_launch(const DeliverArgs* args, const TcpArgs* tcp,
   DeliverArgs a = *args;
   TcpArgs t = *tcp;
   void* params[] = {&a, &t};
-  e = cudaLaunchCooperativeKernel((const void*)k_deliver_tcp, dim3(nb),
-                                  dim3(tb), params, 0, st);
+  e = cudaLaunchCooperativeKernel(fn, dim3(nb), dim3(tb), params, 0, st);
   return (int)e;
 }
 

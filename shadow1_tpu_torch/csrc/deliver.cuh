@@ -20,6 +20,20 @@
 // is the UDP body for worlds of up to 8-slot slabs and 8 sockets (the
 // bench world): the same values as deliver_host on one thread, with the
 // host's loads in two dependent steps and the rest on registers.
+//
+// Interface receive buffers (<host interfacebuffer>, params.iface_buf_pkts)
+// are a compile-time choice, the template parameter `Buf` of every body
+// here, so worlds without a buffer keep their code.  With a buffer, the
+// router enqueue keeps at most `room` = max(bound - rx_queued, 0) of a
+// bounded host's due arrivals, the earliest by (time, pkt_id), and frees
+// the rest as tail drops (pkts_dropped_router, PDS_ROUTER_DROPPED); and
+// no round takes an in-flight arrival as a candidate.  The JAX package
+// ranks every due slot against every other in an [H, k, k] cube; here the
+// enqueue is two passes: the first counts the host's due slots and, where
+// they exceed the room, finds the (time, key) of the last one kept (each
+// due slot ranked among the due slots only, by a walk of the slab); the
+// second flips each due slot to RX_QUEUED or frees it.  deliver_small does
+// it on register bitmasks.
 #pragma once
 #include <cooperative_groups.h>
 
@@ -65,9 +79,11 @@ struct DeliverArgs {
   int32_t* delivered_n;
   int64_t* t_post;
   const float* rsqrt_tab;       // xlamath.rsqrt_table: 2048 estimates
+  const int32_t* iface_buf_pkts;  // [h] interface buffer bounds (0: none)
   int64_t bootstrap_end;
   int64_t window_end;
   int32_t h, ki, ic, slots, rx_batch, pds_trail;
+  int32_t has_iface_buf;        // some host has a bound: the Buf bodies
 };
 
 // XLA CPU's f32 rsqrt (core/xlamath.py rsqrt): Intel's rsqrtss estimate
@@ -170,11 +186,67 @@ struct RxPick {
   bool tcp;              // a TCP segment was delivered
 };
 
+// A row's arrival time and its order key ((src << 40) | ctr, pkt_id).
+__device__ __forceinline__ int64_t row_time(const int32_t* row) {
+  return dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]);
+}
+__device__ __forceinline__ int64_t row_key(const int32_t* row) {
+  return ((int64_t)row[ICOL_SRC] << 40) |
+         dec_i64(row[ICOL_CTR_LO], row[ICOL_CTR_HI]);
+}
+
+// The interface buffer's cut for host hh, whose due slots (in flight, time
+// <= tick) number more than `room`: the (time, key) of the last due slot
+// kept -- the largest among those with fewer than `room` due slots before
+// them -- so that a due slot is kept iff its (time, key) is at most that.
+// Each lane ranks its own due slots by a walk of the slab (stopping at
+// `room`), then the team takes the largest kept pair (a min over the
+// negated pairs: times and keys are non-negative).  `keep` is false when
+// nothing is kept (room 0).  Reads only; the caller syncs after it.
+template <class Team>
+__device__ __forceinline__ void iface_cut(const DeliverArgs& a,
+                                          const Team& tm, int hh,
+                                          int64_t tick, int32_t room,
+                                          int64_t& cut_t, int64_t& cut_k,
+                                          bool& keep) {
+  const int ki = a.ki, ic = a.ic;
+  const int64_t base = (int64_t)hh * ki;
+  const int32_t* stage = a.ib_stage + base;
+  int64_t nt = INV, nk = INV;
+  int32_t none = 0;
+  if (room > 0) {
+    each_slot(tm, stage, ki, [&](int j, int32_t st) {
+      if (st != STAGE_IN_FLIGHT) return;
+      const int32_t* rj = a.ib_blk + (base + j) * ic;
+      const int64_t tj = row_time(rj);
+      if (tj > tick) return;
+      const int64_t kj = row_key(rj);
+      int32_t rank = 0;
+      for (int i = 0; i < ki && rank < room; ++i) {
+        if (stage[i] != STAGE_IN_FLIGHT) continue;
+        const int32_t* ri = a.ib_blk + (base + i) * ic;
+        const int64_t ti = row_time(ri);
+        // (tj <= tick, so a slot before it is due too.)
+        if (ti < tj || (ti == tj && row_key(ri) < kj)) ++rank;
+      }
+      if (rank < room && (-tj < nt || (-tj == nt && -kj < nk))) {
+        nt = -tj;
+        nk = -kj;
+      }
+    });
+  }
+  tm.min3(nt, nk, none);
+  keep = nt != INV;
+  cut_t = -nt;
+  cut_k = -nk;
+}
+
 // Router enqueue of host hh's due inbox arrivals (the team's lanes take
 // slots; the count is a sum) and the host's receive state, for a tick at
 // `tick` (active or not); `aux0` is the rx_batch bound at batch start
-// (read only when rx_batch > 1).
-template <class Team>
+// (read only when rx_batch > 1).  With `Buf`, a bounded host's due slots
+// beyond its room are freed as tail drops (iface_cut).
+template <bool Buf, class Team>
 __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
                                            const Team& tm, int hh,
                                            int64_t tick, bool act,
@@ -182,21 +254,51 @@ __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
                                            int64_t window_end) {
   const int ki = a.ki, ic = a.ic;
   const int64_t base = (int64_t)hh * ki;
-  int32_t n = 0;
+  const int32_t rxq0 = a.rx_queued[hh];
+  int32_t n = 0, nd = 0;
+  // With a buffer: cut the due set at (cut_t, cut_k) when it exceeds the
+  // room (`over`).
+  bool over = false, keep = true;
+  int64_t cut_t = 0, cut_k = 0;
+  if constexpr (Buf) {
+    const int32_t cap = a.iface_buf_pkts[hh];
+    if (act && cap > 0) {
+      const int32_t room = imax32(cap - rxq0, 0);
+      int32_t due = 0;
+      each_slot(tm, a.ib_stage + base, ki, [&](int k, int32_t st) {
+        if (st == STAGE_IN_FLIGHT &&
+            row_time(a.ib_blk + (base + k) * ic) <= tick)
+          ++due;
+      });
+      over = tm.sum(due) > room;
+      if (over) iface_cut(a, tm, hh, tick, room, cut_t, cut_k, keep);
+      tm.sync();             // every lane has read the stages
+    }
+  }
   if (act) {
     each_slot(tm, a.ib_stage + base, ki, [&](int k, int32_t st) {
       if (st != STAGE_IN_FLIGHT) return;
       const int64_t slot = base + k;
       const int32_t* row = a.ib_blk + slot * ic;
-      if (dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]) <= tick) {
-        a.ib_stage[slot] = STAGE_RX_QUEUED;
-        if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
-        ++n;
+      const int64_t t = row_time(row);
+      if (t > tick) return;
+      if (Buf && over) {
+        const int64_t key = row_key(row);
+        if (!keep || t > cut_t || (t == cut_t && key > cut_k)) {
+          a.ib_stage[slot] = STAGE_FREE;
+          if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_DROPPED;
+          ++nd;
+          return;
+        }
       }
+      a.ib_stage[slot] = STAGE_RX_QUEUED;
+      if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_ENQUEUED;
+      ++n;
     });
   }
   RxCarry c;
-  c.rxq = a.rx_queued[hh] + tm.sum(n);
+  c.rxq = rxq0 + tm.sum(n);
+  if constexpr (Buf) nd = tm.sum(nd);
   tm.sync();
   c.tick = tick;
   c.act = act;
@@ -213,7 +315,7 @@ __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
   c.cd = Codel{a.codel_count[hh], a.codel_dropping[hh] != 0,
                a.codel_first_above[hh], a.codel_drop_next[hh]};
   c.t_resume = a.t_resume[hh];
-  c.dropped_router = a.pkts_dropped_router[hh];
+  c.dropped_router = a.pkts_dropped_router[hh] + nd;
   c.pkts_recv = a.pkts_recv[hh];
   c.bytes_recv = a.bytes_recv[hh];
   c.delivered = 0;
@@ -225,8 +327,9 @@ __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
 // lowest slot on a full tie (a lexicographic min over the team's lanes),
 // through the NIC rx token bucket and CoDel, into the UDP socket ring
 // (udp.lookup_socket: connected beats wildcard, lowest slot on ties -- a
-// min over the lanes).  Returns the pick for tcp.process_arrivals.
-template <class Team>
+// min over the lanes).  Returns the pick for tcp.process_arrivals.  With
+// `Buf`, only the queued backlog is a candidate.
+template <bool Buf, class Team>
 __device__ __forceinline__ RxPick rx_round(const DeliverArgs& a,
                                            const Team& tm, RxCarry& c,
                                            int hh, int r) {
@@ -238,12 +341,13 @@ __device__ __forceinline__ RxPick rx_round(const DeliverArgs& a,
   if (c.act) {
     // The stage column first: a row is read only for a live slot.
     each_slot(tm, a.ib_stage + base, ki, [&](int k, int32_t st) {
-      if (st != STAGE_RX_QUEUED && (r == 0 || st != STAGE_IN_FLIGHT)) return;
+      if (st != STAGE_RX_QUEUED &&
+          (Buf || r == 0 || st != STAGE_IN_FLIGHT))
+        return;
       const int32_t* rk = a.ib_blk + (base + k) * ic;
-      const int64_t t = dec_i64(rk[ICOL_TIME_LO], rk[ICOL_TIME_HI]);
+      const int64_t t = row_time(rk);
       if (st == STAGE_IN_FLIGHT && t > limit) return;
-      const int64_t key = ((int64_t)rk[ICOL_SRC] << 40) |
-                          dec_i64(rk[ICOL_CTR_LO], rk[ICOL_CTR_HI]);
+      const int64_t key = row_key(rk);
       if (t < tmin || (t == tmin && key < kmin)) {
         tmin = t;
         kmin = key;
@@ -359,17 +463,17 @@ __device__ __forceinline__ DeliverOut rx_close(const DeliverArgs& a,
 // _rx_phase for host hh of a UDP world at tick `tick` (active or not), on
 // one team, with no barrier: the enqueue, the rounds, the write-back,
 // each marked on `clk`.
-template <class Team>
+template <bool Buf, class Team>
 __device__ __forceinline__ DeliverOut deliver_host(const DeliverArgs& a,
                                                    const Team& tm, int hh,
                                                    int64_t tick, bool act,
                                                    int64_t aux0,
                                                    int64_t window_end,
                                                    Clk& clk) {
-  RxCarry c = rx_open(a, tm, hh, tick, act, aux0, window_end);
+  RxCarry c = rx_open<Buf>(a, tm, hh, tick, act, aux0, window_end);
   clk.mark(CLK_ENQUEUE);
   for (int r = 0; r < a.rx_batch; ++r) {
-    rx_round(a, tm, c, hh, r);
+    rx_round<Buf>(a, tm, c, hh, r);
     clk.round(r, CLK_SELECT);
   }
   const DeliverOut o = rx_close(a, tm, c, hh);
@@ -408,7 +512,9 @@ __device__ __forceinline__ DeliverOut deliver_host(const DeliverArgs& a,
 // writer, so the sums are exact).  Register arrays are indexed by unrolled
 // constants.  The same values as deliver_host<Solo> on the inputs
 // Setup::resolve gives (returned in `in`; K_WINDOW's re-armed resume time
-// is written back with the row).
+// is written back with the row).  With `Buf`, the host's bound is a word of
+// step 1, and the tail drop ranks each due slot by the popcount of the due
+// slots before it in (time, key).
 // ---------------------------------------------------------------------------
 
 constexpr int RX_SMALL = 8;
@@ -451,7 +557,7 @@ struct RxRows {
   int2 w[3 * RX_SMALL * B];
 };
 
-template <int B, class Setup>
+template <bool Buf, int B, class Setup>
 __device__ __forceinline__ DeliverOut deliver_small(
     const DeliverArgs& a, int hh, const Setup& setup, int64_t window_end,
     RxRows<B>& rows, RxIn& in, Clk& clk) {
@@ -474,6 +580,7 @@ __device__ __forceinline__ DeliverOut deliver_small(
   const int64_t cd_next = a.codel_drop_next[hh];
   int64_t dropped = a.pkts_dropped_router[hh];
   int64_t pkts = a.pkts_recv[hh], bytes = a.bytes_recv[hh];
+  const int32_t cap = Buf ? a.iface_buf_pkts[hh] : 0;
   int32_t s_type[RX_SMALL], s_port[RX_SMALL], s_phost[RX_SMALL],
       s_pport[RX_SMALL], s_head[RX_SMALL], s_cnt[RX_SMALL];
 #pragma unroll
@@ -510,6 +617,7 @@ __device__ __forceinline__ DeliverOut deliver_small(
   keep(cd_first);
   keep(cd_next);
   keep(dropped);
+  if constexpr (Buf) keep(cap);
   keep(pkts);
   keep(bytes);
   in = setup.resolve(w_in);
@@ -557,6 +665,26 @@ __device__ __forceinline__ DeliverOut deliver_small(
 #pragma unroll
   for (int k = 0; k < RX_SMALL; ++k)
     if ((inf_m & (1u << k)) && tm[k] <= tick) enq_m |= 1u << k;
+  uint32_t tail_m = 0;                   // tail-dropped by this step
+  if constexpr (Buf) {
+    if (cap > 0) {
+      // A due slot's rank: the due slots before it in (time, key).
+      const int32_t room = imax32(cap - rxq, 0);
+#pragma unroll
+      for (int k = 0; k < RX_SMALL; ++k) {
+        uint32_t before = 0;
+#pragma unroll
+        for (int j = 0; j < RX_SMALL; ++j)
+          if (tm[j] < tm[k] || (tm[j] == tm[k] && key[j] < key[k]))
+            before |= 1u << j;
+        if ((enq_m & (1u << k)) && __popc(before & enq_m) >= room)
+          tail_m |= 1u << k;
+      }
+      enq_m &= ~tail_m;
+      inf_m &= ~tail_m;
+      dropped += __popc(tail_m);
+    }
+  }
   inf_m &= ~enq_m;
   rxq_m |= enq_m;
   rxq += __popc(enq_m);
@@ -571,7 +699,7 @@ __device__ __forceinline__ DeliverOut deliver_small(
   uint32_t late_m = 0;                   // in flight and due by `bound`
 #pragma unroll
   for (int k = 0; k < RX_SMALL; ++k)
-    if (tm[k] <= bound) late_m |= 1u << k;
+    if (!Buf && tm[k] <= bound) late_m |= 1u << k;
   Codel cd{cd_count, cd_dropping != 0, cd_first, cd_next};
   int32_t delivered = 0;
   int64_t t_post = tick;
@@ -689,11 +817,13 @@ __device__ __forceinline__ DeliverOut deliver_small(
 #pragma unroll
     for (int k = 0; k < RX_SMALL; ++k) {
       const uint32_t bit = 1u << k;
-      if (!((enq_m | done_m) & bit)) continue;
-      a.ib_stage[base + k] = (done_m & bit) ? STAGE_FREE : STAGE_RX_QUEUED;
+      if (!((enq_m | done_m | tail_m) & bit)) continue;
+      a.ib_stage[base + k] =
+          ((done_m | tail_m) & bit) ? STAGE_FREE : STAGE_RX_QUEUED;
       if (a.pds_trail)
         atomicOr(a.ib_status + base + k,
-                 PDS_ROUTER_ENQUEUED |
+                 (tail_m & bit) ? PDS_ROUTER_DROPPED
+                 : PDS_ROUTER_ENQUEUED |
                      ((drop_m & bit) ? PDS_ROUTER_DROPPED : 0) |
                      ((rcv_m & bit) ? PDS_RCV_SOCKET_PROCESSED : 0));
     }
@@ -740,9 +870,10 @@ static_assert(sizeof(HostCarry) <= HOST_CARRY_BYTES,
 //   between passes, the round's gate: block OR, one atomicOr, one grid
 //   barrier, reached by every thread from this one call site.
 // `setup(hh, tick, act, aux0)` gives a host's tick; `tail(hh, c, out,
-// traced)` gets its carry and K_DELIVER's outputs.  `clk` traces host
+// traced)` gets its carry and K_DELIVER's outputs.  `Buf` and `Cong` are
+// the interface-buffer and congestion-control instantiations.  `clk` traces host
 // `clk_host`.  Returns the socket-overflow error bits of passive opens.
-template <class Setup, class Tail>
+template <bool Buf, int Cong, class Setup, class Tail>
 __device__ __forceinline__ int32_t deliver_tcp_warps(
     const DeliverArgs& a, const TcpArgs& t, int32_t* gate_words,
     int64_t window_end, Clk& clk, int clk_host, const Setup& setup,
@@ -765,17 +896,17 @@ __device__ __forceinline__ int32_t deliver_tcp_warps(
         int64_t tick, aux0;
         bool act;
         setup(hh, tick, act, aux0);
-        c = rx_open(a, tm, hh, tick, act, aux0, window_end);
+        c = rx_open<Buf>(a, tm, hh, tick, act, aux0, window_end);
         if (traced) clk.mark(CLK_ENQUEUE);
       } else {
         c = carry[hh].rx;
         Arrival ar = carry[hh].ar;
-        tcp_arrival_finish(tm, t, ar, hh, g,
+        tcp_arrival_finish<Cong>(tm, t, ar, hh, g,
                            r == 1 ? SLOT_RX_REPLY : NUM_SLOTS + r - 2);
         if (traced) clk.round(r - 1, CLK_FINISH);
       }
       if (r < rb) {
-        const RxPick pk = rx_round(a, tm, c, hh, r);
+        const RxPick pk = rx_round<Buf>(a, tm, c, hh, r);
         if (traced) clk.round(r, CLK_SELECT);
         Arrival ar;
         err |= tcp_arrival_begin(tm, t, ar, hh, pk.row, pk.id, pk.t_eff,

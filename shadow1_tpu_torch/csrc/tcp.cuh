@@ -6,7 +6,8 @@
 //
 // What they compute: shadow1_tpu/transport/tcp.py, rule for rule and in
 // the same order -- process_arrivals (socket match, passive open, RST,
-// handshake, ACK clocking with NewReno (Reno hooks of cong.py), the
+// handshake, ACK clocking with the congestion-control hooks of cong.py
+// (Reno or CUBIC, a template parameter: see below), the
 // sender SACK scoreboard, RTT/RTO, reassembly, FIN, delayed ACKs, the
 // reply segment), run_timers (one due timer per host: SYN / SYN-ACK /
 // RTO back-off, delayed ACK, TIME_WAIT, persist), the socket API
@@ -36,8 +37,17 @@
 // reloads the socket and runs with the global gates.  What crosses the
 // gate is the Arrival record below (no socket in it), kept in device
 // scratch by the caller.
+//
+// Congestion control (cong.py) is a template parameter of the two
+// functions that call its hooks, tcp_arrival_finish (new ACK, fast
+// recovery) and tcp_run_timers (RTO): CONG_RENO instantiations compile to
+// the inline NewReno arithmetic alone, and only CONG_CUBIC ones carry
+// CUBIC's f32 window target and its cube root (xla_cbrt.cuh), so Reno's
+// kernels keep their registers.  The launchers pick the instantiation on
+// the host, once per launch, from TcpArgs.cong.
 #pragma once
 #include "common.cuh"
+#include "xla_cbrt.cuh"
 
 namespace s1 {
 
@@ -61,6 +71,8 @@ constexpr int32_t SSTHRESH_INIT = 1 << 30;
 constexpr int SACK_BLOCKS = 3, SACK_RANGES = 8, SSACK_RANGES = 4;
 constexpr int ERR_SOCKET_OVERFLOW = 1 << 1;
 constexpr int QDISC_RR = 1;
+// cong.ALGORITHMS, by index (TcpArgs.cong).
+constexpr int CONG_RENO = 0, CONG_CUBIC = 1;
 
 // Emission lanes (core/emit.py) and the full-width row's TCP columns.
 constexpr int SLOT_RX_REPLY = 0, SLOT_TIMER = 1, SLOT_TX_BASE = 3,
@@ -164,6 +176,7 @@ struct TcpArgs {
   void* carry;           // [h] deliver.cuh HostCarry records (TCP kernels)
   int64_t min_latency;
   int32_t slots, e, pc, qdisc;
+  int32_t cong;            // CONG_RENO or CONG_CUBIC
 };
 
 // One socket's fields in registers (transport/tcp.py _Sock.FIELDS and
@@ -557,6 +570,106 @@ __device__ __forceinline__ void rtt_update(Sock& v, bool mask, int64_t rtt) {
 }
 
 // ---------------------------------------------------------------------------
+// Congestion control: cong.py's hooks on one gathered socket
+// ---------------------------------------------------------------------------
+
+// CUBIC's f32 constants as XLA CPU folds them (cong.py): 1 / 1e9, 1 / MSS,
+// (1 - beta) / (C * MSS), C, beta, (1 + beta) / 2, SND_BUF_MAX / MSS.
+constexpr float CUBIC_NS = 1e-09f;
+constexpr float CUBIC_INV_MSS = 0.000684931525f;
+constexpr float CUBIC_K_ARG = 0.000513698673f;
+constexpr float CUBIC_C = 0.4f;
+constexpr float CUBIC_BETA = 0.7f;
+constexpr float CUBIC_FAST_CONV = 0.85f;
+constexpr float CUBIC_WMAX_SEG = 2872.81104f;
+
+// cong._cubic_target: W_cubic(t + RTT) in bytes, the f32 sequence XLA CPU
+// runs (two fused multiply-adds), truncated to i32.
+__device__ __forceinline__ int32_t cubic_target(const Sock& v, int64_t tick) {
+  const float wmax = __int2float_rn(v.cub_wmax);
+  const float k = cbrt_xla(fmaxf(__fmul_rn(wmax, CUBIC_K_ARG), 0.0f));
+  const float t_s = __ll2float_rn(imax(tick - v.cub_epoch, 0));
+  const float rtt_s = __fmul_rn(__ll2float_rn(imax(v.srtt, 1)), CUBIC_NS);
+  const float d = __fsub_rn(__fmaf_rn(t_s, CUBIC_NS, rtt_s), k);
+  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(d, CUBIC_C), d), d);
+  float w = __fmaf_rn(wmax, CUBIC_INV_MSS, cube);
+  w = fminf(fmaxf(w, 2.0f), CUBIC_WMAX_SEG);
+  return __float2int_rz(__fmul_rn(w, (float)TCP_MSS));
+}
+
+// i32(f32(cwnd) * f), truncating (the JAX astype).
+__device__ __forceinline__ int32_t cwnd_scaled(int32_t cwnd, float f) {
+  return __float2int_rz(__fmul_rn(__int2float_rn(cwnd), f));
+}
+
+// The new-ACK hook (cong.new_ack) on a socket whose ACK is new outside
+// recovery (`normal`): slow start below ssthresh, then Reno's linear or
+// CUBIC's cubic growth.
+template <int Cong>
+__device__ __forceinline__ void cong_new_ack(Sock& v, bool normal,
+                                             int32_t acked_bytes,
+                                             int64_t tick) {
+  if (!normal) return;
+  if (v.cwnd < v.ssthresh) {
+    v.cwnd = imin32(v.cwnd + acked_bytes, v.ssthresh);
+    return;
+  }
+  const int32_t reno_step =
+      imax32((TCP_MSS * TCP_MSS) / imax32(v.cwnd, 1), 1);
+  if constexpr (Cong == CONG_CUBIC) {
+    if (v.cub_epoch == 0) {          // a fresh epoch
+      v.cub_epoch = tick;
+      v.cub_wmax = imax32(v.cub_wmax, v.cwnd);
+    }
+    const int32_t target = cubic_target(v, tick);
+    // The JAX `//` floors and `/` truncates: they differ only on a
+    // negative quotient, which the clip at 0 maps to 0 either way.  The
+    // i64 quotient goes to i32 with wrap-around, as XLA's convert.
+    int32_t step = (int32_t)((int64_t)(target - v.cwnd) * acked_bytes /
+                             imax32(v.cwnd, TCP_MSS));
+    step = imin32(imax32(step, 0), imax32(acked_bytes, TCP_MSS));
+    v.cwnd = v.cwnd + imax32(step, reno_step);
+  } else {
+    v.cwnd = v.cwnd + reno_step;
+  }
+}
+
+// The fast-recovery hook (cong.enter_recovery) at the third duplicate ACK.
+template <int Cong>
+__device__ __forceinline__ void cong_enter_recovery(Sock& v,
+                                                    int32_t flight) {
+  if constexpr (Cong == CONG_CUBIC) {
+    // Fast convergence: a Wmax below the previous one shrinks further.
+    const int32_t wmax = v.cwnd < v.cub_wmax
+                             ? cwnd_scaled(v.cwnd, CUBIC_FAST_CONV)
+                             : v.cwnd;
+    const int32_t reduced =
+        imax32(cwnd_scaled(v.cwnd, CUBIC_BETA), 2 * TCP_MSS);
+    v.cub_wmax = wmax;
+    v.ssthresh = reduced;
+    v.cwnd = reduced + 3 * TCP_MSS;
+    v.cub_epoch = 0;
+  } else {
+    const int32_t half = imax32(flight / 2, 2 * TCP_MSS);
+    v.ssthresh = half;
+    v.cwnd = half + 3 * TCP_MSS;
+  }
+}
+
+// The RTO hook (cong.timeout) of an established retransmission timeout.
+template <int Cong>
+__device__ __forceinline__ void cong_timeout(Sock& v, int32_t flight) {
+  if constexpr (Cong == CONG_CUBIC) {
+    v.ssthresh = imax32(cwnd_scaled(v.cwnd, CUBIC_BETA), 2 * TCP_MSS);
+    v.cub_wmax = imax32(v.cub_wmax, v.cwnd);
+    v.cub_epoch = 0;
+  } else {
+    v.ssthresh = imax32(flight / 2, 2 * TCP_MSS);
+  }
+  v.cwnd = TCP_MSS;
+}
+
+// ---------------------------------------------------------------------------
 // Arrival processing (tcp.process_arrivals), split at the global gates
 // ---------------------------------------------------------------------------
 
@@ -762,8 +875,9 @@ __device__ __forceinline__ int32_t tcp_arrival_begin(const Team& tm,
 }
 
 // The rest of process_arrivals under the grid-wide gates, then the
-// socket store and the reply segment into lane `reply_slot`.
-template <class Team>
+// socket store and the reply segment into lane `reply_slot`; `Cong` is
+// the congestion control.
+template <int Cong, class Team>
 __device__ __forceinline__ void tcp_arrival_finish(const Team& tm,
                                                    const TcpArgs& t,
                                                    Arrival& a, int hh,
@@ -813,19 +927,13 @@ __device__ __forceinline__ void tcp_arrival_finish(const Team& tm,
 
     rtt_update(v, new_ack && p.tse > 0, tick - p.tse);
 
-    // NewReno (cong.py Reno hooks).
+    // NewReno's recovery, with the congestion-control hooks (cong.py).
     const int32_t flight = sdiff(v.snd_nxt, v.snd_una);
     const bool exit_rec = new_ack && v.in_recovery &&
                           seq_leq(v.recover, p.ack);
     const bool partial = new_ack && v.in_recovery && !exit_rec;
     const bool normal = new_ack && !v.in_recovery;
-    if (normal) {
-      if (v.cwnd < v.ssthresh) {
-        v.cwnd = imin32(v.cwnd + acked_bytes, v.ssthresh);
-      } else {
-        v.cwnd = v.cwnd + imax32((TCP_MSS * TCP_MSS) / imax32(v.cwnd, 1), 1);
-      }
-    }
+    cong_new_ack<Cong>(v, normal, acked_bytes, tick);
     if (exit_rec) {
       v.cwnd = v.ssthresh;
       v.in_recovery = false;
@@ -849,9 +957,7 @@ __device__ __forceinline__ void tcp_arrival_finish(const Team& tm,
     if (dup) v.dup_acks += 1;
     const bool fr = dup && v.dup_acks == 3 && !v.in_recovery;
     if (fr) {
-      const int32_t half = imax32(flight / 2, 2 * TCP_MSS);
-      v.ssthresh = half;
-      v.cwnd = half + 3 * TCP_MSS;
+      cong_enter_recovery<Cong>(v, flight);
       v.in_recovery = true;
       v.recover = v.snd_nxt;
       v.retrans_nxt = v.snd_una;
@@ -1129,9 +1235,9 @@ constexpr int K_RTO = 0, K_DELACK = 1, K_TW = 2, K_PERSIST = 3;
 // on a host every write of the body to it (the socket scatter and the
 // emission) is masked off.  So each thread decides for its own host and
 // the timers need no grid barrier.  The pick is the team's min over
-// (time, slot * 4 + kind).  Reno's timeout hook only (CUBIC is refused
-// before any kernel runs).
-template <class Team>
+// (time, slot * 4 + kind).  An established RTO calls the timeout hook of
+// `Cong`.
+template <int Cong, class Team>
 __device__ __forceinline__ void tcp_run_timers(const Team& tm,
                                                const TcpArgs& t, int hh,
                                                int64_t tick, bool act) {
@@ -1179,8 +1285,7 @@ __device__ __forceinline__ void tcp_run_timers(const Team& tm,
   const int32_t flight = sdiff(v.snd_nxt, v.snd_una);
   const bool est_rto = rto_f && sendable_state(v.tcp_state) && flight > 0;
   if (est_rto) {
-    v.ssthresh = imax32(flight / 2, 2 * TCP_MSS);     // cong.py Reno
-    v.cwnd = TCP_MSS;
+    cong_timeout<Cong>(v, flight);
     v.retrans_nxt = v.snd_una;
     v.retrans_end = v.snd_nxt;
     v.in_recovery = false;

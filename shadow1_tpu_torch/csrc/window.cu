@@ -16,7 +16,13 @@
 // k_window_tgen with tgen's (tgen_tick.cuh), the same template
 // (window_tcp) on two tick policies.  They share the window's opening
 // (exchange and scan) and closing as device functions, so phold's kernel
-// does not carry the TCP machine's registers.
+// does not carry the TCP machine's registers.  Each is a template on the
+// world's interface buffers (k_window<Buf>; deliver.cuh) and, the TCP
+// kernels, on its congestion control (k_window_tcp<Buf, Cong>; tcp.cuh),
+// picked on the host once per launch from the arguments, so Reno worlds
+// without buffers run the code they ran before either existed.  One
+// library holds every instantiation; nvcc's --split-compile builds its
+// kernels in parallel (core/_build.py).
 //
 // Design.  Within a window every phase is row-local over hosts (the
 // megakernel's blocking contract): the only cross-host values are the
@@ -501,6 +507,7 @@ __device__ __forceinline__ void write_status(const WindowArgs& a,
   if (blockIdx.x == 0 && threadIdx.x == 0) a.win[4] = status;
 }
 
+template <bool Buf>
 __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
   cg::grid_group grid = cg::this_grid();
   const int h = a.x.h;
@@ -540,8 +547,8 @@ __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
         if (small) {
           // The tick setup's loads are deliver_small's first step.
           RxIn in;
-          dl = deliver_small(a.d, hh, PholdRxIn{a, we}, we, rx_rows, in,
-                             clk);
+          dl = deliver_small<Buf>(a.d, hh, PholdRxIn{a, we}, we, rx_rows,
+                                  in, clk);
           tick = in.tick;
           act = in.act;
         } else {
@@ -552,7 +559,7 @@ __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
           if (act) a.d.t_resume[hh] = INV;
           const int64_t aux0 = PholdTick::aux(a, tm, hh);
           clk.mark(CLK_SETUP);
-          dl = deliver_host(a.d, tm, hh, tick, act, aux0, we, clk);
+          dl = deliver_host<Buf>(a.d, tm, hh, tick, act, aux0, we, clk);
         }
         phold_tick(a.p, a.d, hh, dl.t_post, act, we,
                    a.em_valid + (int64_t)hh * e,
@@ -589,8 +596,10 @@ __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
 
 // The TCP window: one warp per host, every thread through every barrier
 // (see the design note above).  `clk` traces host a.clk_host's phases in
-// the lane 0 of the warp that runs it (S1_PHASE_CLOCKS builds).
-template <class Tick>
+// the lane 0 of the warp that runs it (S1_PHASE_CLOCKS builds).  `Buf` and
+// `Cong` are the interface-buffer and congestion-control instantiations
+// (deliver.cuh, tcp.cuh).
+template <class Tick, bool Buf, int Cong>
 __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
   cg::grid_group grid = cg::this_grid();
   const int h = a.x.h, e = a.t.e, rb = a.d.rx_batch;
@@ -638,7 +647,7 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
       s.th = imin(s.th, o.th);
       s.err |= o.err;
     };
-    const int32_t sock_err = deliver_tcp_warps(
+    const int32_t sock_err = deliver_tcp_warps<Buf, Cong>(
         a.d, a.tcp, gates + g * rb, we, clk, a.clk_host,
         [&](int hh, int64_t& tick, bool& act, int64_t& aux0) {
           // Tick setup: re-arm the resume time of active hosts only; the
@@ -654,7 +663,7 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
         },
         [&](int hh, const RxCarry& c, const DeliverOut& dl, bool traced) {
           Clk& ck = traced ? clk : no_clk;
-          tcp_run_timers(tm, a.tcp, hh, dl.t_post, c.act);
+          tcp_run_timers<Cong>(tm, a.tcp, hh, dl.t_post, c.act);
           ck.mark(CLK_TIMERS);
           if constexpr (Tick::kSplit) {
             // The client stage; the host's step goes on after the barrier.
@@ -703,46 +712,72 @@ __device__ __forceinline__ void window_tcp(const WindowArgs& a) {
   clk.mark(CLK_WCLOSE);
 }
 
+template <bool Buf, int Cong>
 __global__ void __launch_bounds__(kBlock, 2) k_window_tcp(WindowArgs a) {
-  window_tcp<BulkTick>(a);
+  window_tcp<BulkTick, Buf, Cong>(a);
 }
 
+template <bool Buf, int Cong>
 __global__ void __launch_bounds__(kBlock, 2) k_window_tgen(WindowArgs a) {
-  window_tcp<TgenTick>(a);
+  window_tcp<TgenTick, Buf, Cong>(a);
+}
+
+template <bool Buf, int Cong>
+const void* window_tcp_fn(int kernel) {
+  return kernel == 2 ? (const void*)k_window_tgen<Buf, Cong>
+                     : (const void*)k_window_tcp<Buf, Cong>;
 }
 
 }  // namespace
 
-// K_WINDOW's kernels by the wrapper's index: k_window (phold), then the
-// TCP kernels k_window_tcp (bulk) and k_window_tgen (tgen).
-static const void* window_kernel_fn(int kernel) {
-  return kernel == 2   ? (const void*)k_window_tgen
-         : kernel == 1 ? (const void*)k_window_tcp
-                       : (const void*)k_window;
+// K_WINDOW's kernel by the wrapper's index -- k_window (phold), then the
+// TCP kernels k_window_tcp (bulk) and k_window_tgen (tgen) -- in the
+// instantiation of the world's interface buffers and, the TCP kernels,
+// congestion control.  The phase-clock build (S1_PHASE_CLOCKS, for
+// chip_smoke.py's phase traces) carries the TCP kernels for Reno without
+// buffers only; null for an instantiation the library does not hold.
+static const void* window_kernel_fn(int kernel, bool buf, int cong) {
+  if (kernel == 0)
+    return buf ? (const void*)k_window<true> : (const void*)k_window<false>;
+#ifdef S1_PHASE_CLOCKS
+  return buf || cong != CONG_RENO ? nullptr
+                                  : window_tcp_fn<false, CONG_RENO>(kernel);
+#else
+  if (cong == CONG_CUBIC)
+    return buf ? window_tcp_fn<true, CONG_CUBIC>(kernel)
+               : window_tcp_fn<false, CONG_CUBIC>(kernel);
+  return buf ? window_tcp_fn<true, CONG_RENO>(kernel)
+             : window_tcp_fn<false, CONG_RENO>(kernel);
+#endif
 }
 
-// Blocks per SM of K_WINDOW's kernel `kernel` (window_kernel_fn) and the
-// card's SM count: the wrapper sizes the cooperative grid from them.
-// Returns a CUDA error code, or -1 when the device cannot launch
-// cooperative kernels or the kernel does not fit on an SM.
-extern "C" int window_occupancy(int kernel, int* per_sm, int* sms) {
+// Blocks per SM of K_WINDOW's kernel `kernel` in instantiation (buf,
+// cong) (window_kernel_fn) and the card's SM count: the wrapper sizes the
+// cooperative grid from them.  Returns a CUDA error code, or -1 when the
+// device cannot launch cooperative kernels or the kernel does not fit on
+// an SM.
+extern "C" int window_occupancy(int kernel, int buf, int cong, int* per_sm,
+                                int* sms) {
   int dev = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  const void* fn = window_kernel_fn(kernel, buf != 0, cong);
+  if (fn == nullptr) return (int)cudaErrorInvalidDeviceFunction;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, window_kernel_fn(kernel), kernel ? kBlock : kWinBlock, 0);
+        per_sm, fn, kernel ? kBlock : kWinBlock, 0);
   if (e != cudaSuccess) return (int)e;
   return (!coop || *per_sm < 1) ? -1 : 0;
 }
 
 extern "C" int window_launch(const WindowArgs* args, void* stream) {
   void* params[] = {(void*)args};
-  return (int)cudaLaunchCooperativeKernel((const void*)k_window,
-                                          dim3(args->n_blocks),
+  const void* fn = window_kernel_fn(0, args->d.has_iface_buf != 0, 0);
+  if (fn == nullptr) return (int)cudaErrorInvalidDeviceFunction;
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(args->n_blocks),
                                           dim3(kWinBlock), params, 0,
                                           (cudaStream_t)stream);
 }
@@ -751,8 +786,11 @@ extern "C" int window_launch(const WindowArgs* args, void* stream) {
 extern "C" int window_tcp_launch(const WindowArgs* args, int kernel,
                                  void* stream) {
   void* params[] = {(void*)args};
-  return (int)cudaLaunchCooperativeKernel(window_kernel_fn(kernel),
-                                          dim3(args->n_blocks), dim3(kBlock),
+  const void* fn =
+      window_kernel_fn(kernel, args->d.has_iface_buf != 0, args->tcp.cong);
+  if (fn == nullptr) return (int)cudaErrorInvalidDeviceFunction;
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(args->n_blocks),
+                                          dim3(kBlock),
                                           params, 0, (cudaStream_t)stream);
 }
 
@@ -770,5 +808,75 @@ extern "C" int log1p_probe_launch(const double* x, double* y, int64_t n,
   const int tb = 256;
   k_log1p_probe<<<(unsigned)((n + tb - 1) / tb), tb, 0,
                   (cudaStream_t)stream>>>(x, y, n);
+  return (int)cudaGetLastError();
+}
+
+// The device f32 cbrt of CUBIC's window target (xla_cbrt.cuh cbrt_xla) over
+// a vector, for chip_smoke.py's check against xlamath.cbrt.
+namespace {
+__global__ void k_cbrt_probe(const float* x, float* y, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = cbrt_xla(x[i]);
+}
+}  // namespace
+
+extern "C" int cbrt_probe_launch(const float* x, float* y, int64_t n,
+                                 void* stream) {
+  const int tb = 256;
+  k_cbrt_probe<<<(unsigned)((n + tb - 1) / tb), tb, 0,
+                 (cudaStream_t)stream>>>(x, y, n);
+  return (int)cudaGetLastError();
+}
+
+// CUBIC's window target and hooks (tcp.cuh cubic_target, cong_new_ack,
+// cong_enter_recovery, cong_timeout) over vectors of socket registers, for
+// chip_smoke.py's check against transport/cong.py.  `kind` 0 writes the
+// target; 1-3 run the new-ACK, fast-recovery or RTO hook where `mask` is
+// set (the new ACK with `acked` there, 0 elsewhere) and write the five
+// registers back in place.
+namespace {
+__global__ void k_cong_probe(int kind, int32_t* cwnd, int32_t* ssthresh,
+                             int64_t* cub_epoch, int32_t* cub_wmax,
+                             int64_t* srtt, const int64_t* tick,
+                             const int32_t* acked, const int32_t* flight,
+                             const bool* mask, int32_t* target, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Sock v{};
+  v.cwnd = cwnd[i];
+  v.ssthresh = ssthresh[i];
+  v.cub_epoch = cub_epoch[i];
+  v.cub_wmax = cub_wmax[i];
+  v.srtt = srtt[i];
+  const bool m = mask[i];
+  if (kind == 0) {
+    target[i] = cubic_target(v, tick[i]);
+    return;
+  }
+  if (kind == 1)
+    cong_new_ack<CONG_CUBIC>(v, m, m ? acked[i] : 0, tick[i]);
+  else if (m && kind == 2)
+    cong_enter_recovery<CONG_CUBIC>(v, flight[i]);
+  else if (m)
+    cong_timeout<CONG_CUBIC>(v, flight[i]);
+  cwnd[i] = v.cwnd;
+  ssthresh[i] = v.ssthresh;
+  cub_epoch[i] = v.cub_epoch;
+  cub_wmax[i] = v.cub_wmax;
+  srtt[i] = v.srtt;
+}
+}  // namespace
+
+extern "C" int cong_probe_launch(int kind, int32_t* cwnd, int32_t* ssthresh,
+                                 int64_t* cub_epoch, int32_t* cub_wmax,
+                                 int64_t* srtt, const int64_t* tick,
+                                 const int32_t* acked, const int32_t* flight,
+                                 const bool* mask, int32_t* target,
+                                 int64_t n, void* stream) {
+  const int tb = 256;
+  k_cong_probe<<<(unsigned)((n + tb - 1) / tb), tb, 0,
+                 (cudaStream_t)stream>>>(kind, cwnd, ssthresh, cub_epoch,
+                                         cub_wmax, srtt, tick, acked, flight,
+                                         mask, target, n);
   return (int)cudaGetLastError();
 }

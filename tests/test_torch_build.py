@@ -15,10 +15,10 @@ def test_sources_follow_includes():
     assert set(names["window"]) == {
         "window.cu", "exchange.cuh", "deliver.cuh", "transport.cuh",
         "phold_tick.cuh", "bulk_tick.cuh", "tgen_tick.cuh", "tcp.cuh",
-        "common.cuh"}
+        "xla_cbrt.cuh", "common.cuh"}
     for n in ("exchange", "deliver", "transport"):
         assert set(names[n]) == {f"{n}.cu", f"{n}.cuh", "tcp.cuh",
-                                 "common.cuh"}
+                                 "xla_cbrt.cuh", "common.cuh"}
 
 
 def test_header_edit_changes_the_key(tmp_path, monkeypatch):

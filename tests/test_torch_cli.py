@@ -57,17 +57,18 @@ def _run(main, argv):
     return rc, line, summary, hb
 
 
-def _argv(config, out, stop=None):
+def _argv(config, out, stop=None, extra=()):
     argv = ["run", config, "--data-directory", str(out), "--quiet"]
-    return argv + (["--stop-time", str(stop)] if stop else [])
+    return argv + (["--stop-time", str(stop)] if stop else []) + list(extra)
 
 
-def _port(config, out, stop=None):
-    return _run(tcli.main, _argv(config, out, stop) + ["--device", "cpu"])
+def _port(config, out, stop=None, extra=()):
+    return _run(tcli.main,
+                _argv(config, out, stop, extra) + ["--device", "cpu"])
 
 
-def _jax(config, out, stop=None):
-    return _run(jcli.main, _argv(config, out, stop))
+def _jax(config, out, stop=None, extra=()):
+    return _run(jcli.main, _argv(config, out, stop, extra))
 
 
 def _constants(rc, line, summary, hb):
@@ -115,7 +116,6 @@ def test_jitter_config_equals_jax_constants(tmp_path):
     (["--auto-resume"], "--auto-resume", 10),
     (["--watchdog", "5"], "--watchdog", 10),
     (["--progress"], "--progress", 6),
-    (["--tcp-congestion-control", "cubic"], "--tcp-congestion-control", 3),
 ])
 def test_refused_flags(argv, flag, item, tmp_path, capsys):
     config = os.path.join(REPO, "examples", "tgen-2host",
@@ -127,6 +127,19 @@ def test_refused_flags(argv, flag, item, tmp_path, capsys):
     assert rc == tcli.RC_USAGE == 2
     assert flag in err and f"ROADMAP queue 1 item {item}" in err
     assert not out.exists(), "a refused run wrote its data directory"
+
+
+def test_cubic_flag_runs(tmp_path):
+    """`--tcp-congestion-control cubic` is carried: the run exits 0 and
+    writes its artifacts (tests/test_torch_cubic.py holds them to the JAX
+    CLI's)."""
+    config = os.path.join(REPO, "examples", "tgen-2host",
+                          "shadow.config.xml")
+    rc, line, summary, hb = _port(config, tmp_path / "out", 3,
+                                  ["--tcp-congestion-control", "cubic"])
+    assert rc == tcli.RC_OK == 0
+    assert summary["simulated_seconds"] == 3.0
+    assert hb.count(b"\n") == 1 + 2 * 3      # a row per host a second
 
 
 def test_no_card_fails_without_running(tmp_path, capsys, monkeypatch):

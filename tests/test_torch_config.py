@@ -12,8 +12,8 @@ routing/graphml, routing/apsp) against the JAX package (CPU).
   (vertex and edge loss, jitter, explicit self-loops, multi-edges and an
   unreachable component);
 * `assemble.build` equals the JAX build leaf for leaf (state and params)
-  on both examples and an attribute config, and refuses by name what the
-  port does not carry.
+  on both examples, an attribute config, an interfacebuffer config and
+  CUBIC, and refuses by name what the port does not carry.
 """
 
 import dataclasses
@@ -255,17 +255,14 @@ _NETEM = '<netem><event time="1" kind="link_down" a="server" b="client"/>' \
 
 
 @pytest.mark.parametrize("case,match", [
-    ("interfacebuffer", "interface receive buffers.*item 4"),
     ("logpcap", "packet capture.*item 8"),
     ("loglevel", "event log.*item 8"),
     ("netem", "<netem>.*item 5"),
-    ("cubic", "'cubic'.*item 3"),
     ("bucket", "bucket padding.*item 4"),
     ("real", "real processes.*item 10"),
 ])
 def test_assemble_refusals(case, match, tmp_path):
-    attrs = {"interfacebuffer": 'interfacebuffer="3000"',
-             "logpcap": 'logpcap="true"',
+    attrs = {"logpcap": 'logpcap="true"',
              "loglevel": 'loglevel="debug"'}.get(case, "")
     xml, base = _attr_config(tmp_path, attrs)
     if case == "netem":
@@ -277,7 +274,26 @@ def test_assemble_refusals(case, match, tmp_path):
         xml = xml.replace('path="tgen"', f'path="{prog}"')
     cfg = txml.parse(xml)
     cfg.base_dir = base
-    kw = {"cong": "cubic"} if case == "cubic" else \
-        {"bucket": True} if case == "bucket" else {}
+    kw = {"bucket": True} if case == "bucket" else {}
     with pytest.raises(NotImplementedError, match=match):
         tasm.build(cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", ["interfacebuffer", "cubic"])
+def test_assemble_carries_equal_jax(case, tmp_path):
+    """What the port used to refuse and now carries: an interfacebuffer
+    (bytes, rounded up to whole MTUs of packets) and CUBIC assemble to
+    the JAX build, leaf for leaf, statics included."""
+    attrs = 'interfacebuffer="3001"' if case == "interfacebuffer" else ""
+    xml, base = _attr_config(tmp_path, attrs)
+    cfgs = [m.parse(xml) for m in (txml, jxml)]
+    for c in cfgs:
+        c.base_dir = base
+    kw = {"cong": "cubic"} if case == "cubic" else {}
+    t = tasm.build(cfgs[0], device="cpu", **kw)
+    _same_assembled(t, jasm.build(cfgs[1], **kw), case)
+    if case == "cubic":
+        assert t.params.cong == "cubic" and not t.params.has_iface_buf
+    else:
+        assert t.params.has_iface_buf and t.params.cong == "reno"
+        assert sorted(t.params.iface_buf_pkts.tolist()) == [0, 3]

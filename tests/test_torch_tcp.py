@@ -23,8 +23,9 @@ the port's plain torch counterpart, and every output leaf must be equal:
 * (slow) a micro-step of that world through the JAX microstep_fused
   kernels and the port's microstep_fused (K_DELIVER, run_timers, the
   tick, K_TRANSPORT; their plain versions on the CPU);
-* `check_supported` refusing CUBIC, Echo and Gossip, and admitting Bulk
-  and Tgen on the persistent path (K_WINDOW's TCP kernels).
+* `check_supported` refusing Echo, Gossip and an unknown congestion
+  control, and admitting CUBIC, and Bulk and Tgen on the persistent path
+  (K_WINDOW's TCP kernels).
 
 (slow) The bulk bench world of chip_smoke.py: the JAX package's
 trajectory equals the constants chip_smoke.py holds the card to, and the
@@ -551,8 +552,6 @@ def _refusal_cases():
     from shadow1_tpu.apps.gossip import Gossip
     ts, tp, ta = tsim.build_bulk(**WORLD, reliability=0.97, device="cpu")
     return {
-        "cubic": (ts, tp.replace(cong="cubic", persistent=False), ta,
-                  NotImplementedError, "cubic"),
         "echo": (ts, tp.replace(persistent=False), EchoServer(),
                  NotImplementedError, "EchoServer is not ported"),
         "gossip": (ts, tp.replace(persistent=False), Gossip(),
@@ -560,13 +559,26 @@ def _refusal_cases():
     }
 
 
-@pytest.mark.parametrize("case", ["cubic", "echo", "gossip"])
+@pytest.mark.parametrize("case", ["echo", "gossip"])
 def test_check_supported_refuses_by_name(case):
     ts, tp, app, exc, msg = _refusal_cases()[case]
     with pytest.raises(exc, match=msg):
         teng.run_until(ts, tp, app, 10 * MS)
     with pytest.raises(exc, match=msg):
         teng.run_chunked(ts, tp, app, 10 * MS)
+
+
+def test_check_supported_admits_cubic():
+    """CUBIC is carried on both paths (tests/test_torch_cubic.py holds its
+    runs to the JAX package); an unknown algorithm is refused by name."""
+    ts, tp, ta = tsim.build_bulk(**WORLD, reliability=0.97, device="cpu")
+    for persistent in (True, False):
+        p = tp.replace(cong="cubic", persistent=persistent)
+        teng.check_supported(ts, p, ta)
+        out = teng.run_until(ts, p, ta, 10 * MS)
+        assert int(out.now) == 10 * MS and int(out.err) == 0
+    with pytest.raises(ValueError, match="unknown congestion control"):
+        teng.run_until(ts, tp.replace(cong="vegas"), ta, 10 * MS)
 
 
 def test_persistent_bulk_is_admitted():

@@ -239,7 +239,7 @@ def test_tcp_window_grid_follows_occupancy(monkeypatch, h):
     walk hosts grid-stride: no host count is refused."""
     class Lib:
         @staticmethod
-        def window_occupancy(tcp, per_sm, sms):
+        def window_occupancy(tcp, buf, cong, per_sm, sms):
             per_sm._obj.value = 2 if tcp else 4
             sms._obj.value = 132
             return 0
