@@ -34,7 +34,8 @@ Phases, each reported on its own line:
 4. main path -- the bench world (H = 16,384, 4 messages per host, 10 ms
    mean delay, rx_batch = 2, pool H*8) for 2 simulated seconds through
    engine.run_until / run_chunked with the defaults (megakernel and
-   persistent: one K_WINDOW launch per window); every kernel's launch
+   persistent: one K_WINDOW launch per run_until call); every kernel's
+   launch
    counter is zeroed just before and read just after, and the trajectory
    must equal the JAX package's.  The timed part runs again under
    torch.profiler: K_WINDOW's device time per launch, the host time per
@@ -66,13 +67,14 @@ Phases, each reported on its own line:
    launches its windows and micro-steps.  Then one window under
    torch.profiler, as in phase 5.
 8. TCP main path, persistent -- BULK with sim.build_bulk's defaults (one
-   K_WINDOW TCP launch per window), the same schedule, counters zeroed
-   just before and read just after: the trajectory must equal the JAX
-   package's, the launches one window launch per window and nothing else,
-   and the final state the per-phase path's, leaf for leaf.  Then the
-   timed part again, and its first BUSY_WINDOWS windows, with CUDA events
-   around each K_WINDOW call (device time per window, the device's busy
-   share); those windows through K_WINDOW's phase-clock build, opened by
+   K_WINDOW TCP launch per run_until call), the same schedule, counters
+   zeroed just before and read just after: the trajectory must equal the
+   JAX package's, the launches one window launch per run_until call
+   (RunCalls) and nothing else, and the final state the per-phase path's,
+   leaf for leaf.  Then the timed part again, and its first BUSY_WINDOWS
+   windows, with CUDA events around each K_WINDOW call (device time per
+   launch and per window, the device's busy share); those windows
+   through K_WINDOW's phase-clock build, opened by
    the previous exchange passes and by ex_run (the split of the server's
    micro-step by phase, the open's exchange stages among them; final
    state equal to the untraced run's), the exchange's bound at their
@@ -85,26 +87,32 @@ Phases, each reported on its own line:
    window_plain on its heaviest window.
 10. tgen kernels -- the tgen world (TGEN_HOSTS = 100, sim.build_tgen's
    defaults: Shadow's examples/tgen-100host at full width) on the
-   persistent path to PROBE_TGEN_NS, mid fan-in: K_WINDOW's tgen kernel
-   (k_window_tgen) against window_plain over the next window, timed and
-   bounded as in phase 3; then K_TRANSPORT's TCP kernel with the
-   staging's loopback insert against its plain version at every
+   persistent path to PROBE_TGEN_NS, mid fan-in: K_WINDOW's two tgen
+   designs (TGEN_DESIGNS: the warp design k_window_tgen and the resident
+   kernel k_window_tgen_res, one block per host with its record in
+   shared memory, whose bytes it prints) each against
+   window_plain over the next window, and over the BUSY_WINDOWS windows
+   of one call (window_plain with that max_windows), timed on the same
+   inputs and bounded as in phase 3; then K_TRANSPORT's TCP kernel with
+   the staging's loopback insert against its plain version at every
    micro-step of the loopback world's first window.
 11. tgen per-phase path -- the tgen world with persistent=False to
    TGEN_MID_NS, counters zeroed just before and read just after; the
    trajectory must equal the JAX package's and the launches its windows
    and micro-steps.  Then one window under torch.profiler, as in phase 5.
 12. tgen main path, persistent -- the tgen world with sim.build_tgen's
-   defaults (one k_window_tgen launch per window) to TGEN_MID_NS and on
-   to TGEN_NS (120 s), counters zeroed just before and read just after:
-   the trajectory must equal the JAX package's, the launches one window
-   launch per window and nothing else, and the state at TGEN_MID_NS the
-   per-phase path's, leaf for leaf.  Then the part after TGEN_MID_NS
-   again with CUDA events around each K_WINDOW call (device time per
-   window, the device's busy share), and BUSY_WINDOWS windows from
-   PROBE_TGEN_NS timed, bounded (windows_bound) and traced by phase for
-   the server (host 0) and a client (final states equal to the untraced
-   run's).
+   defaults (the resident kernel, one launch per run_until call) to
+   TGEN_MID_NS and on to TGEN_NS (120 s), counters zeroed just before and
+   read just after: the trajectory must equal the JAX package's, the
+   launches one window launch per run_until call and nothing else, and
+   the state at TGEN_MID_NS the per-phase path's, leaf for leaf; the same
+   run with the warp design forced, held the same way.  Then the part
+   after TGEN_MID_NS again with CUDA events around each K_WINDOW call, on
+   the same input for each design (device time per window, the device's
+   busy share), and BUSY_WINDOWS windows from PROBE_TGEN_NS timed,
+   bounded (windows_bound) and traced by phase (the warp design: the
+   server, host 0, and a client; the resident kernel: the server's block;
+   final states equal to the untraced run's).
 13. loopback world -- LOOP_HOSTS = 4 hosts where host 0 streams to its
    own listener, to LOOP_NS on both paths, counters zeroed just before
    and read just after: both trajectories equal the JAX package's and the
@@ -121,20 +129,24 @@ Phases, each reported on its own line:
    timed with jitter and on the same inputs without.
 15. cli: tgen-2host -- `python -m shadow1_tpu_torch run`'s run_config on
    examples/tgen-2host to its 60 s on the card, counters zeroed just
-   before and read just after (one K_WINDOW launch a window and nothing
-   else): heartbeat.csv's sha256 and summary.json equal the JAX CLI's
-   (JAX_CLI), and the printed summary line summary.json's.
+   before and read just after (one K_WINDOW launch a run_until call and
+   nothing else): heartbeat.csv's sha256 and summary.json equal the JAX
+   CLI's (JAX_CLI), and the printed summary line summary.json's.
 16. cli: tgen-100host, the main path -- examples/tgen-100host through
-   the CLI to its 120 s on the persistent path, counters zeroed just
-   before and read just after: heartbeat.csv and summary.json equal the
-   JAX CLI's; wall, events/s, windows, launches.  The same schedule on
-   the per-phase path ends in an equal state with the same heartbeat
-   file; the main path again with CUDA events around each K_WINDOW call
-   gives the device time per window and the device's busy share.  Then
-   the main path's launch (heartbeat second) from CLI_PROBE_S: the bound
-   of its windows (window_bound over each) beside their device time, and
-   its busiest window, reached again on the CLI's schedule, k_window_tgen
-   against window_plain over it, timed and bounded as in phase 3.
+   the CLI to its 120 s on the persistent path (the resident kernel),
+   counters zeroed just before and read just after: heartbeat.csv and
+   summary.json equal the JAX CLI's; wall, events/s, windows, launches;
+   the same with the warp design forced.  The same schedule on the
+   per-phase path ends in an equal state with the same heartbeat file;
+   the main path again with CUDA events around each K_WINDOW call gives
+   the device time per launch and per window and the device's busy
+   share.  Then the main path's launch (heartbeat second) from
+   CLI_PROBE_S: each design's device time on its input, the bound of its
+   windows (window_bound over each), and its busiest window (its windows
+   one a call), reached again on the CLI's schedule, each design against
+   window_plain over it, timed and bounded as in phase 3; and that
+   window on the resident kernel again right after a 4-host world's
+   launch (a smaller record) in this process, against window_plain.
 17. cli: jittered config -- JITTER_CONFIG through the CLI to its 5 s:
    heartbeat.csv and summary.json equal the JAX CLI's.
 18. cubic -- the device f32 cbrt (cbrt_xla) against xlamath.cbrt run on
@@ -542,7 +554,8 @@ DELIVER_KERNELS = {"small": "k_deliver_small", "general": "k_deliver",
                    "tcp": "k_deliver_tcp"}
 TCP_ROWS = {"exchange_tcp": "exchange", "deliver_tcp": "deliver",
             "transport_tcp": "transport", "window_tcp": "window",
-            "window_tgen": "window", "window_tgen_cli": "window"}
+            "window_tgen": "window", "window_tgen_cli": "window",
+            "window_tgen_res": "window", "window_tgen_res_cli": "window"}
 # The CUBIC and interface-buffer instantiations (phases 18-21), one row
 # each, by the template arguments <Buf, Cong>: each row also carries
 # `other_ms`, the device time on the same inputs of the Reno instantiation
@@ -558,7 +571,16 @@ NEW_ROWS = {"deliver_tcp_cubic": "deliver",         # k_deliver_tcp<0,1>
             "window_tcp_cubic_buf": "window",       # k_window_tcp<1,1>
             "deliver_tcp_buf": "deliver",           # k_deliver_tcp<1,0>
             "window_tgen_buf": "window",            # k_window_tgen<1,0>
-            "window_tgen_cubic_buf": "window"}      # k_window_tgen<1,1>
+            "window_tgen_cubic_buf": "window",      # k_window_tgen<1,1>
+            "window_tgen_res_cubic": "window",      # k_window_tgen_res<0,1>
+            "window_tgen_res_buf": "window",        # k_window_tgen_res<1,0>
+            "window_tgen_res_cubic_buf": "window"}  # k_window_tgen_res<1,1>
+# K_WINDOW's two designs for tgen worlds (megakernel.
+# set_window_tgen_resident): (resident, the CUDA kernel, what a row name
+# gains).  The warp design keeps the rows it had (window_tgen*); the
+# resident kernel's rows put "_res" after "window_tgen".
+TGEN_DESIGNS = ((False, "k_window_tgen", ""),
+                (True, "k_window_tgen_res", "_res"))
 # Windows of the persistent TCP main path timed again with CUDA events,
 # traced by phase and bounded.
 BUSY_WINDOWS = 8
@@ -580,6 +602,58 @@ PAIRS_NS = 100 * MS
 
 
 _T0 = time.perf_counter()
+
+
+def res_row(name: str) -> str:
+    """The resident kernel's row beside the warp design's row `name`."""
+    return name.replace("window_tgen", "window_tgen_res", 1)
+
+
+class tgen_design:
+    """Within the block, tgen worlds run on the resident kernel
+    (resident=True) or on the warp design (False); by shape after it."""
+
+    def __init__(self, resident: bool):
+        self.resident = resident
+
+    def __enter__(self):
+        from shadow1_tpu_torch.core import megakernel as mk
+        mk.set_window_tgen_resident(self.resident)
+        return self
+
+    def __exit__(self, *exc):
+        from shadow1_tpu_torch.core import megakernel as mk
+        mk.set_window_tgen_resident(None)
+        return False
+
+
+class RunCalls:
+    """Within the block, counts the run_until calls (engine.run_until_impl,
+    which run_until, run_chunked and the CLI's loop all reach) that ran at
+    least one window: the persistent path launches K_WINDOW once for each.
+    Each call's n_windows before and after are copied on the card and read
+    after the run (`n`), so the count adds no host read to it."""
+
+    def __enter__(self):
+        from shadow1_tpu_torch.core import engine
+        self._engine, self._impl, self._pairs = engine, \
+            engine.run_until_impl, []
+
+        def counted(state, params, app, t_target):
+            before = state.n_windows.clone()
+            out = self._impl(state, params, app, t_target)
+            self._pairs.append((before, out.n_windows.clone()))
+            return out
+        engine.run_until_impl = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.run_until_impl = self._impl
+        return False
+
+    @property
+    def n(self) -> int:
+        return sum(int(b) > int(a) for a, b in self._pairs)
 
 
 def _fail(msg: str) -> None:
@@ -1510,7 +1584,8 @@ def check_ko(dev) -> list:
 
 
 def check_window(state, params, app, advance=3, label="kernels: window",
-                 kernel="k_window", plain_reps=7, span=None, until=None):
+                 kernel="k_window", plain_reps=7, span=None, until=None,
+                 reuse=None):
     """K_WINDOW (`kernel`) against window_plain on clones of `state`
     advanced by `advance` windows, at a window boundary: one window
     (`span` None: max_windows 1, t_target `until`, else the world's stop
@@ -1519,9 +1594,11 @@ def check_window(state, params, app, advance=3, label="kernels: window",
     engine._run_windows hands down, which a right predicate never
     reaches).  Every leaf of the state and t_h / gmin / ws / we / outbox
     pending / status must be equal; the plain version is timed over
-    `plain_reps` calls (not at all when 0).  Returns ((kernel (device
-    ms, call ms), plain (device ms, call ms)), (bytes, operations) bound,
-    max |kernel - plain|)."""
+    `plain_reps` calls (not at all when 0).  `reuse`, another kernel's
+    check_window result on the same inputs, gives the plain version's
+    times and the bound (neither is taken again).  Returns ((kernel
+    (device ms, call ms), plain (device ms, call ms)), (bytes,
+    operations) bound, max |kernel - plain|)."""
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     params = params.replace(persistent=True)
@@ -1538,17 +1615,21 @@ def check_window(state, params, app, advance=3, label="kernels: window",
     out_k = mk.window_kernel(*args())
     out_p = mk.window_plain(*args())
     err = require_equal(out_k, out_p, label)
-    if span is None:
+    steps = int(out_k[0].n_steps) - int(state.n_steps)
+    if reuse is not None:
+        b, ops = reuse[1]
+    elif span is None:
         b, ops, steps = window_bound(state, params, app, t_target)
-        windows = 1
     else:
         b, ops, steps = windows_bound(state, params, app, span)
-        windows = int(out_k[0].n_windows) - int(state.n_windows)
+    windows = int(out_k[0].n_windows) - int(state.n_windows)
+    if span is not None:
         if windows < 5 or int(out_k[2][4]) != 0 or \
                 int(out_k[0].now) != t_target:
             _fail(f"{label}: {windows} windows to {int(out_k[0].now)} ns "
                   f"(status {int(out_k[2][4])}) for t_target {t_target}")
     times = (time_call(mk.window_kernel, args, kernel=kernel),
+             reuse[0][1] if reuse is not None else
              time_call(mk.window_plain, args, reps=plain_reps, warm=False)
              if plain_reps else (float("nan"), float("nan")))
     (kd, kc), (pd, pc) = times
@@ -1935,10 +2016,10 @@ def drive_tcp(dev, persistent: bool):
     """BULK from 0 to BULK_RUN_NS (warm-up with run_until, then
     run_chunked), every launch counter zeroed just before and read just
     after; the trajectory must equal the JAX package's, and the launches
-    one K_WINDOW per window (persistent, sim.build_bulk's default) or one
-    exchange per window and one K_DELIVER and K_TRANSPORT per micro-step
-    (persistent=False).  Returns (final state, warm state, params, app,
-    launches, wall seconds of the timed part)."""
+    one K_WINDOW per run_until call (persistent, sim.build_bulk's default)
+    or one exchange per window and one K_DELIVER and K_TRANSPORT per
+    micro-step (persistent=False).  Returns (final state, warm state,
+    params, app, launches, wall seconds of the timed part)."""
     import torch
     from shadow1_tpu_torch import sim
     from shadow1_tpu_torch.core import engine
@@ -1955,13 +2036,14 @@ def drive_tcp(dev, persistent: bool):
         label = "tcp per-phase path"
     torch.cuda.synchronize()
     mk.reset_launches()
-    t0 = time.perf_counter()
-    warm = engine.run_until(state, params, app, WARM_NS)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    out = engine.run_chunked(warm, params, app, BULK_RUN_NS)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    with RunCalls() as calls:
+        t0 = time.perf_counter()
+        warm = engine.run_until(state, params, app, WARM_NS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = engine.run_chunked(warm, params, app, BULK_RUN_NS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     launches = dict(mk.LAUNCHES)
     w, f = tcp_summary(warm), tcp_summary(out)
     if w != JAX_BULK_WARM:
@@ -1969,7 +2051,7 @@ def drive_tcp(dev, persistent: bool):
     if f != JAX_BULK_FINAL:
         _fail(f"{label}: trajectory {f} != JAX {JAX_BULK_FINAL}")
     if persistent:
-        bad = launches["window"] != f["n_windows"] or \
+        bad = launches["window"] != calls.n or \
             any(launches[k] for k in PER_PHASE)
     else:
         bad = launches["window"] or \
@@ -1977,8 +2059,8 @@ def drive_tcp(dev, persistent: bool):
             launches["deliver"] != f["n_steps"] or \
             launches["transport"] != f["n_steps"]
     if bad:
-        _fail(f"{label}: launches {launches} do not match its windows / "
-              f"micro-steps")
+        _fail(f"{label}: launches {launches} do not match its run_until "
+              f"calls ({calls.n}) / windows / micro-steps")
     wall = t2 - t1
     windows = f["n_windows"] - w["n_windows"]
     steps = f["n_steps"] - w["n_steps"]
@@ -1996,22 +2078,19 @@ def drive_tcp(dev, persistent: bool):
     return out, warm, params, app, launches, wall
 
 
-def _timed_windows(warm, params, app, n: int | None, before=None,
+def _timed_windows(warm, params, app, n: int | None,
                    until: int | None = None):
     """The first `n` windows after `warm` through the engine's persistent
     loop (n None: the main path's run_chunked to BULK_RUN_NS, or, given
     `until`, its run_until to there), with CUDA events around each
-    K_WINDOW call (megakernel.window_call wrapped); `before`, if given,
-    sees each call's input state first.  Returns (final state, wall
-    seconds, device ms of each window)."""
+    K_WINDOW call (megakernel.window_call wrapped; one a run_until call).
+    Returns (final state, wall seconds, device ms of each call)."""
     import torch
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     call, marks = mk.window_call, []
 
     def timed(*a):
-        if before is not None:
-            before(a[0])
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -2048,20 +2127,20 @@ def busy_windows(warm, params, app, n: int | None,
                  until: int | None = None):
     """The first `n` windows after `warm` on the persistent path again
     (n None: the whole timed part, to `until` if given), with CUDA events
-    around each K_WINDOW call: device ms per window (min, median, max)
-    and the device's busy share of the wall.  Returns (printable line,
-    mean device ms per launch, final state)."""
+    around each K_WINDOW call (one a run_until call): device ms per launch
+    and per window, and the device's busy share of the wall.  Returns
+    (printable line, mean device ms per window, final state)."""
     st, wall, ms = _timed_windows(warm, params, app, n, until=until)
     steps = int(st.n_steps) - int(warm.n_steps)
+    windows = max(int(st.n_windows) - int(warm.n_windows), 1)
     busy = sum(ms) / 1e3 / wall
-    return (f"{label}: {len(ms)} windows ({steps} "
+    return (f"{label}: {windows} windows ({steps} "
             f"micro-steps{'' if n else ', the whole timed part'}) again "
-            f"with CUDA events: wall {wall:.4f} s, "
-            f"K_WINDOW device {statistics.mean(ms):.4f} ms per window (min "
-            f"{min(ms):.4f}, median {statistics.median(ms):.4f}, max "
-            f"{max(ms):.4f}), {sum(ms) / max(steps, 1):.4f} ms per "
-            f"micro-step; device busy {100 * busy:.1f} %"), \
-        statistics.mean(ms), st
+            f"with CUDA events: wall {wall:.4f} s, {len(ms)} K_WINDOW "
+            f"launches, device {sum(ms):.4f} ms ({statistics.mean(ms):.4f} "
+            f"ms a launch), {sum(ms) / windows:.4f} ms per window, "
+            f"{sum(ms) / max(steps, 1):.4f} ms per micro-step; device busy "
+            f"{100 * busy:.1f} %"), sum(ms) / windows, st
 
 
 # K_WINDOW's traced phases (csrc/common.cuh ClkPhase), in kernel order.
@@ -2205,7 +2284,7 @@ def pairs_world(dev, h: int, persistent: bool):
 def run_pairs(dev) -> tuple:
     """The pairs world (PAIRS_H hosts) to PAIRS_NS on both of the port's
     paths, each with its launch counters zeroed just before and read just
-    after (one K_WINDOW per window; one exchange per window and one
+    after (one K_WINDOW per run_until call; one exchange per window and one
     K_DELIVER and K_TRANSPORT per micro-step): the final states must be
     equal leaf for leaf.  Then k_window_tcp against window_plain on the
     window with the most events, timed.  Returns that window's ((kernel
@@ -2220,14 +2299,15 @@ def run_pairs(dev) -> tuple:
                  f"{'persistent' if persistent else 'per-phase'} path)")
         torch.cuda.synchronize()
         mk.reset_launches()
-        t0 = time.perf_counter()
-        out = engine.run_chunked(state, params, app, PAIRS_NS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with RunCalls() as calls:
+            t0 = time.perf_counter()
+            out = engine.run_chunked(state, params, app, PAIRS_NS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = dict(mk.LAUNCHES)
         f = tcp_summary(out)
         if persistent:
-            bad = launches["window"] != f["n_windows"] or \
+            bad = launches["window"] != calls.n or \
                 any(launches[k] for k in PER_PHASE)
         else:
             bad = launches["window"] or \
@@ -2334,33 +2414,41 @@ def check_loopback_transport(dev) -> str:
             f"window ({loops} loopback rows staged)")
 
 
-def drive_tgen(dev, persistent: bool):
+def drive_tgen(dev, persistent: bool, resident: bool | None = None):
     """The tgen world (TGEN_HOSTS, sim.build_tgen's defaults) through
     run_until to TGEN_MID_NS and then to TGEN_NS (only to TGEN_MID_NS on
     the per-phase path), every launch counter zeroed just before and read
     just after; the trajectories must equal the JAX package's and the
-    launches one K_WINDOW per window (persistent) or one exchange per
-    window and one K_DELIVER and K_TRANSPORT per micro-step.  Returns
-    (state at TGEN_MID_NS, final state, params, app, launches, wall
-    seconds of the whole run)."""
+    launches one K_WINDOW per run_until call (persistent; `resident`
+    forces a design, tgen_design) or one exchange per window and one
+    K_DELIVER and K_TRANSPORT per micro-step.  Returns (state at
+    TGEN_MID_NS, final state, params, app, launches, wall seconds of the
+    whole run)."""
     import torch
     from shadow1_tpu_torch import sim
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     label = "tgen main path (persistent)" if persistent \
         else "tgen per-phase path"
+    if resident is not None:
+        label += f", {'resident kernel' if resident else 'warp design'}"
     state, params, app = sim.build_tgen(TGEN_HOSTS, persistent=persistent,
                                         device=dev)
     if persistent and not (params.megakernel and params.persistent):
         _fail("sim.build_tgen's defaults are not megakernel + persistent")
     torch.cuda.synchronize()
     mk.reset_launches()
-    t0 = time.perf_counter()
-    mid = engine.run_until(state, params, app, TGEN_MID_NS)
-    out = engine.run_until(mid, params, app, TGEN_NS) if persistent \
-        else mid
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    mk.set_window_tgen_resident(resident)
+    try:
+        with RunCalls() as calls:
+            t0 = time.perf_counter()
+            mid = engine.run_until(state, params, app, TGEN_MID_NS)
+            out = engine.run_until(mid, params, app, TGEN_NS) if persistent \
+                else mid
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        mk.set_window_tgen_resident(None)
     launches = dict(mk.LAUNCHES)
     m, f = tgen_summary(mid), tgen_summary(out)
     if m != JAX_TGEN_MID:
@@ -2369,7 +2457,7 @@ def drive_tgen(dev, persistent: bool):
     if persistent and f != JAX_TGEN_FINAL:
         _fail(f"{label}: trajectory {f} != JAX {JAX_TGEN_FINAL}")
     if persistent:
-        bad = launches["window"] != f["n_windows"] or \
+        bad = launches["window"] != calls.n or \
             any(launches[k] for k in PER_PHASE)
     else:
         bad = launches["window"] or \
@@ -2377,8 +2465,8 @@ def drive_tgen(dev, persistent: bool):
             launches["deliver"] != f["n_steps"] or \
             launches["transport"] != f["n_steps"]
     if bad:
-        _fail(f"{label}: launches {launches} do not match its windows / "
-              f"micro-steps")
+        _fail(f"{label}: launches {launches} do not match its run_until "
+              f"calls ({calls.n}) / windows / micro-steps")
     t_end = TGEN_NS if persistent else TGEN_MID_NS
     print(f"{label}: 0 -> {t_end // SEC} s: n_steps {f['n_steps']} "
           f"n_windows {f['n_windows']} n_events {f['n_events']} events/s "
@@ -2405,14 +2493,15 @@ def run_loopback(dev) -> str:
         state, params, app = loopback_world(persistent=persistent,
                                             device=dev)
         mk.reset_launches()
-        outs[persistent] = engine.run_until(state, params, app, LOOP_NS)
-        torch.cuda.synchronize()
+        with RunCalls() as calls:
+            outs[persistent] = engine.run_until(state, params, app, LOOP_NS)
+            torch.cuda.synchronize()
         used[persistent] = dict(mk.LAUNCHES)
         got = tgen_summary(outs[persistent])
         if got != JAX_LOOP_FINAL:
             _fail(f"loopback world (persistent={persistent}): trajectory "
                   f"{got} != JAX {JAX_LOOP_FINAL}")
-    if used[True]["window"] != JAX_LOOP_FINAL["n_windows"] or \
+    if used[True]["window"] != calls.n or calls.n != 1 or \
             used[False]["deliver"] != JAX_LOOP_FINAL["n_steps"]:
         _fail(f"loopback world: launches {used}")
     require_equal(outs[True], outs[False], "loopback world: persistent vs "
@@ -2637,8 +2726,10 @@ def check_jitter_kernels(dev) -> tuple[list, dict]:
     note("k_transport_tcp", jitter_transport(
         state, asm.params, asm.app, dev, f"JITTER_CONFIG at "
         f"{JITTER_TCP_PROBE_NS / SEC:g} s", "k_transport_tcp", windows=4))
-    note("k_window_tgen", jitter_window(state, asm.params, asm.app,
-                                        "JITTER_CONFIG", "k_window_tgen"))
+    for resident, kernel, _tag in TGEN_DESIGNS:
+        with tgen_design(resident):
+            note(kernel, jitter_window(state, asm.params, asm.app,
+                                       "JITTER_CONFIG", kernel))
     state, params, app = jittered_world("bulk", LOSSY, dev)
     state = engine.run_until(state, params, app, JITTER_BULK_PROBE_NS)
     note("k_window_tcp", jitter_window(state, params, app,
@@ -2656,7 +2747,8 @@ def run_cli(argv: list, label: str) -> dict:
     """shadow1_tpu_torch.cli's `run` with `argv` (its flags and the
     config) on the card, every launch counter zeroed just before and read
     just after; the run must exit 0, launch only K_WINDOW (one launch a
-    window) and print the summary it writes.  Returns the CLI's result
+    run_until call) and print the summary it writes.  Returns the CLI's
+    result
     (state, summary, loop seconds), plus the printed summary line, the
     heartbeat.csv bytes, the wall seconds and the launches."""
     import contextlib
@@ -2669,7 +2761,7 @@ def run_cli(argv: list, label: str) -> dict:
     torch.cuda.synchronize()
     mk.reset_launches()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), RunCalls() as calls:
         rc, res = cli.run_config(args)
     if res is None:
         _fail(f"{label}: exit code {rc} and no run")
@@ -2682,11 +2774,12 @@ def run_cli(argv: list, label: str) -> dict:
     with open(Path(args.data_directory) / "summary.json") as f:
         res["summary_json"] = json.load(f)
     st = res["state"]
-    if res["launches"]["window"] != int(st.n_windows) or \
+    res["run_calls"] = calls.n
+    if res["launches"]["window"] != calls.n or \
             any(res["launches"][k] for k in PER_PHASE):
-        _fail(f"{label}: launches {res['launches']} for "
-              f"{int(st.n_windows)} windows: want one K_WINDOW launch a "
-              f"window and nothing else")
+        _fail(f"{label}: launches {res['launches']} for {calls.n} run_until "
+              f"calls ({int(st.n_windows)} windows): want one K_WINDOW "
+              f"launch a run_until call and nothing else")
     line = dict(res["summary_json"])
     line.pop("object_census")
     if line != res["line"]:
@@ -2727,39 +2820,84 @@ def cli_schedule(state, params, app, t_end: int):
     return state
 
 
+def cli_designs(argv, label: str, jax_key: str, name: str,
+                tmp: str) -> tuple:
+    """run_cli on `argv(data directory)` twice: by the world's shape (the
+    main path, which must take the resident kernel at every launch) and
+    with the warp design forced (which must take it at every launch),
+    each held to JAX_CLI[jax_key].  Returns (the main run's result, lines,
+    {row: launches}: `name` the warp design's, res_row(name) the resident
+    kernel's)."""
+    from shadow1_tpu_torch.core import megakernel as mk
+    lines, launches, out = [], {}, None
+    for resident in (None, False):
+        lab = label if resident is None else f"{label}, warp design forced"
+        mk.set_window_tgen_resident(resident)
+        try:
+            res = run_cli(argv(f"{tmp}/{'main' if resident is None else 'warp'}"),
+                          lab)
+        finally:
+            mk.set_window_tgen_resident(None)
+        want = {"resident": 0, "warp": 0}
+        want["warp" if resident is False else "resident"] = \
+            res["launches"]["window"]
+        if mk.TGEN_LAUNCHES != want:
+            _fail(f"{lab}: K_WINDOW's tgen launches by design "
+                  f"{mk.TGEN_LAUNCHES}, want {want}")
+        lines.append(check_cli_constants(res, jax_key, lab))
+        lines.append(
+            f"{lab}: wall {res['wall']:.4f} s (run loop "
+            f"{res['loop_seconds']:.4f} s), launches {res['launches']} for "
+            f"{res['run_calls']} run_until calls, {int(res['state'].n_windows)}"
+            f" windows")
+        launches[name if resident is False else res_row(name)] = \
+            res["launches"]["window"]
+        if resident is None:
+            out = res
+    return out, lines, launches
+
+
 def cli_100host(dev, smi: str) -> tuple:
     """Phase 16, the main path: examples/tgen-100host through the CLI to
-    its 120 s on the persistent path, counters zeroed just before and read
-    just after: heartbeat.csv and summary.json equal the JAX CLI's; wall,
-    events/s, windows and launches.  The same schedule (cli.simulate with
-    a heartbeat tracker) on the per-phase path ends in the same state,
-    leaf for leaf, with the same heartbeat file.  Then the run again with
-    CUDA events around each K_WINDOW call: device ms per window and the
-    device's busy share.  Then the launch (heartbeat second) from
-    CLI_PROBE_S: its windows' bound beside their device time, and its
-    busiest window, reached again on the CLI's schedule, k_window_tgen
-    against window_plain over it (check_window).  Returns (k_window_tgen
-    device ms per window, check_window's (times, bound, max error) at that
-    window, its launches on the main path)."""
+    its 120 s on the persistent path (the resident kernel), counters
+    zeroed just before and read just after: heartbeat.csv and
+    summary.json equal the JAX CLI's; wall, events/s, windows and
+    launches; the same with the warp design forced (cli_designs).  The
+    same schedule (cli.simulate with a heartbeat tracker) on the
+    per-phase path ends in the same state, leaf for leaf, with the same
+    heartbeat file.  Then the run again with CUDA events around each
+    K_WINDOW call (one a run_until call): device ms per launch and per
+    window and the device's busy share.  Then the launch (heartbeat
+    second) from CLI_PROBE_S: each design's device time on its input
+    (the state the CLI's schedule reaches there), its windows' bound, and
+    its busiest window -- its windows run one a call with CUDA events --
+    each design against window_plain over it (check_window).  Returns
+    (the main path's device ms per window, {row: check_window's (times,
+    bound, max error)} at that window, {row: launches on the CLI's main
+    path})."""
     import tempfile
     import torch
     from shadow1_tpu_torch import cli
     from shadow1_tpu_torch.config import assemble
+    from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     from shadow1_tpu_torch.observe import Tracker
     config = str(Path(__file__).resolve().parent / CLI_100HOST)
     label = "cli: tgen-100host main path (persistent)"
     with tempfile.TemporaryDirectory() as tmp:
-        main = run_cli([config, "--data-directory", f"{tmp}/m", "--quiet"],
-                       label)
-        print(check_cli_constants(main, "tgen-100host", label), flush=True)
+        main, lines, launches = cli_designs(
+            lambda d: [config, "--data-directory", d, "--quiet"], label,
+            "tgen-100host", "window_tgen_cli", tmp)
+        for line in lines:
+            print(line, flush=True)
         st, stop = main["state"], int(main["summary"]["simulated_seconds"])
         print(
             f"{label} 0 -> {stop} s on {smi}: wall {main['wall']:.4f} s (run "
             f"loop {main['loop_seconds']:.4f} s), {int(st.n_events)} "
             f"events, {int(st.n_events) / main['loop_seconds']:.1f} events/s "
             f"of the run loop, {int(st.n_windows)} windows, "
-            f"{int(st.n_steps)} micro-steps, launches {main['launches']}", flush=True)
+            f"{int(st.n_steps)} micro-steps, launches {main['launches']}",
+            flush=True)
         asm = assemble.load(config, persistent=False, device=dev)
         tr = Tracker(f"{tmp}/pp", asm.hostnames)
         t0 = time.perf_counter()
@@ -2774,20 +2912,19 @@ def cli_100host(dev, smi: str) -> tuple:
             f"leaf for leaf, and the same heartbeat.csv", flush=True)
         del pp, asm
         # The main path's schedule again, CUDA events around each K_WINDOW
-        # call (megakernel.window_call wrapped); each call's now before it,
-        # micro-step count after it and window start are kept on the card.
+        # call (megakernel.window_call wrapped); each call's windows and
+        # micro-steps after it are kept on the card.
         call, marks, rows = mk.window_call, [], []
 
         def timed(*a):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
-            now = a[0].now.clone()
             e0.record()
             out = call(*a)
             e1.record()
             marks.append((e0, e1))
-            rows.append(torch.stack([now, out[0].n_steps.to(now.dtype),
-                                     out[2][1].to(now.dtype)]))
+            rows.append(torch.stack([out[0].n_windows, out[0].n_steps,
+                                     out[2][1]]))
             return out
         asm = assemble.load(config, device=dev)
         tr = Tracker(f"{tmp}/busy", asm.hostnames)
@@ -2803,62 +2940,104 @@ def cli_100host(dev, smi: str) -> tuple:
         if Path(tr.path).read_bytes() != main["heartbeat"]:
             _fail("tgen-100host: the timed run's heartbeat.csv differs")
         ms = [e0.elapsed_time(e1) for e0, e1 in marks]
-        steps = int(again.n_steps)
+        steps, windows = int(again.n_steps), int(again.n_windows)
         print(
-            f"{label} again with CUDA events: {len(ms)} windows, wall "
-            f"{wall:.4f} s, k_window_tgen device {statistics.mean(ms):.4f} "
-            f"ms per window (min {min(ms):.4f}, median "
-            f"{statistics.median(ms):.4f}, max {max(ms):.4f}), "
+            f"{label} again with CUDA events: {len(ms)} launches, {windows} "
+            f"windows, wall {wall:.4f} s, k_window_tgen_res device "
+            f"{sum(ms):.4f} ms ({statistics.mean(ms):.4f} ms a launch, max "
+            f"{max(ms):.4f}), {sum(ms) / windows:.4f} ms per window, "
             f"{sum(ms) / steps:.4f} ms per micro-step; device busy "
             f"{100 * sum(ms) / 1e3 / wall:.1f} %", flush=True)
-    # The launch (heartbeat second) CLI_PROBE_S -> +1 s: its windows'
-    # bound beside their device time, and its busiest window -- the state
-    # its K_WINDOW call was given, reached again on the CLI's schedule --
-    # k_window_tgen against window_plain.
     rows = torch.stack(rows).tolist()
-    n_win = [r[1] - (rows[k - 1][1] if k else 0) for k, r in enumerate(rows)]
-    by_sec = {}
-    for k, r in enumerate(rows):
-        by_sec.setdefault(r[2] // SEC, []).append(k)
-    busiest = sorted(by_sec.items(), key=lambda kv: -sum(
-        n_win[k] for k in kv[1]))[:4]
+    n_win = [r[0] - (rows[k - 1][0] if k else 0) for k, r in enumerate(rows)]
+    n_st = [r[1] - (rows[k - 1][1] if k else 0) for k, r in enumerate(rows)]
+    top = sorted(range(len(ms)), key=lambda k: -ms[k])[:4]
     print("cli: tgen-100host main path, its busiest launches: " + "; ".join(
-        f"{t} -> {t + 1} s: {len(ks)} windows, "
-        f"{sum(n_win[k] for k in ks)} micro-steps, "
-        f"{sum(ms[k] for k in ks):.4f} ms device, the longest window "
-        f"{max(n_win[k] for k in ks)} micro-steps, "
-        f"{max(ms[k] for k in ks):.4f} ms" for t, ks in busiest), flush=True)
+        f"to {rows[k][2] // SEC + 1} s: {n_win[k]} windows, {n_st[k]} "
+        f"micro-steps, {ms[k]:.4f} ms device" for k in top), flush=True)
+    # The launch (heartbeat second) CLI_PROBE_S -> +1 s, from the state
+    # the CLI's schedule reaches: each design on it, its windows' bound,
+    # and its busiest window, each design against window_plain there.
     sec0 = CLI_PROBE_S * SEC
     hb = cli.next_sync(sec0, stop * SEC, SEC)
-    in_sec = [k for k, r in enumerate(rows) if sec0 <= r[2] < hb]
-    if not in_sec:
-        _fail(f"tgen-100host: no window in {sec0} -> {hb} ns")
-    top = max(in_sec, key=ms.__getitem__)
-    t_launch, ws = rows[top][0], rows[top][2]
     params, app = asm.params, asm.app
     at_sec = cli_schedule(asm.state, params, app, sec0)
+    cap = -(-(hb - sec0) // params.min_latency_ns)
+    launch_ms = {}
+    for resident, kernel, _tag in TGEN_DESIGNS:
+        with tgen_design(resident):
+            launch_ms[kernel] = time_call(
+                mk.window_kernel, lambda: (engine.clone_state(at_sec), params,
+                                           app, hb, cap), kernel=kernel)[0]
     b, ops, s_b = windows_bound(at_sec, params, app, 0, until=hb)
-    if sum(n_win[k] for k in in_sec) != s_b:
+    # Its windows one a call, on the main path's design.
+    st, w_ms, starts = engine.clone_state(at_sec), [], []
+    while int(st.now) < hb:
+        before = engine.clone_state(st)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        st, _t_h, win = mk.window_call(st, params, app, hb, 1)
+        e1.record()
+        torch.cuda.synchronize()
+        starts.append(before)
+        w_ms.append(e0.elapsed_time(e1))
+        if min(int(win[0]), int(win[3])) >= hb:
+            break
+    if int(st.n_steps) - int(at_sec.n_steps) != s_b:
         _fail(f"tgen-100host: the bound's replay of {sec0} -> {hb} ns ran "
-              f"{s_b} micro-steps, the main path's windows there "
-              f"{sum(n_win[k] for k in in_sec)}")
-    sec_ms = [ms[k] for k in in_sec]
+              f"{s_b} micro-steps, the windows one a call "
+              f"{int(st.n_steps) - int(at_sec.n_steps)}")
+    n_w = len(w_ms)
     print(
         f"cli: tgen-100host main path, the launch {sec0 // SEC} -> "
-        f"{hb // SEC} s: {len(in_sec)} windows ({s_b} micro-steps), device "
-        f"{statistics.mean(sec_ms):.4f} ms a window (CUDA events); they "
-        f"must move {b} bytes and do {ops} operations: bound "
-        f"{bound_ms(b, ops) / len(in_sec):.6f} ms a window", flush=True)
+        f"{hb // SEC} s on the same input: {n_w} windows ({s_b} micro-steps);"
+        f" device " + ", ".join(f"{k} {v:.4f} ms ({v / n_w:.4f} ms a window)"
+                                for k, v in launch_ms.items()) +
+        f"; resident / warp {launch_ms['k_window_tgen_res'] / launch_ms['k_window_tgen']:.3f}; "
+        f"they must move {b} bytes and do {ops} operations: bound "
+        f"{bound_ms(b, ops) / n_w:.6f} ms a window", flush=True)
+    top = max(range(n_w), key=w_ms.__getitem__)
+    probe = starts[top]
     print(
-        f"cli: tgen-100host main path, its busiest window there: K_WINDOW "
-        f"call {top} of {len(ms)}, from {ws} ns, {n_win[top]} micro-steps, "
-        f"device {ms[top]:.4f} ms (CUDA events)", flush=True)
-    probe = cli_schedule(at_sec, params, app, t_launch)
-    check = check_window(probe, params, app, advance=0,
-                         label=f"cli: tgen-100host kernels: window at "
-                               f"{ws / SEC:.4f} s", kernel="k_window_tgen",
-                         plain_reps=1, until=hb)
-    return statistics.mean(ms), check, main["launches"]["window"]
+        f"cli: tgen-100host main path, its busiest window there: window "
+        f"{top} of {n_w}, from {int(probe.now)} ns, device {w_ms[top]:.4f} "
+        f"ms (one a call, CUDA events)", flush=True)
+    checks, prev = {}, None
+    for resident, kernel, _tag in TGEN_DESIGNS:
+        with tgen_design(resident):
+            prev = check_window(
+                probe, params, app, advance=0,
+                label=f"cli: tgen-100host kernels: {kernel}, window at "
+                      f"{int(probe.now) / SEC:.4f} s", kernel=kernel,
+                plain_reps=1, until=hb, reuse=prev)
+        checks[res_row("window_tgen_cli") if resident
+               else "window_tgen_cli"] = prev
+    # That window again on the resident kernel after a smaller world's
+    # launch in this process: the kernel's dynamic shared-memory limit is
+    # the function's, lowered by the smaller record's occupancy query (a
+    # new query, as in a fresh process) and launch, so the launch must
+    # raise it again.
+    from shadow1_tpu_torch import sim
+    mk._RES_OCCUPANCY.clear()
+    s4, p4, a4 = sim.build_tgen(4, device=dev)
+    n_res = mk.TGEN_LAUNCHES["resident"]
+    small = engine.run_until(s4, p4, a4, 5 * SEC + 200 * MS)  # clients at 5 s
+    with tgen_design(True):
+        again = mk.window_kernel(engine.clone_state(probe), params, app, hb,
+                                 1)
+    if mk.TGEN_LAUNCHES["resident"] - n_res != 2:
+        _fail(f"tgen-100host after a 4-host world: resident launches "
+              f"{mk.TGEN_LAUNCHES['resident'] - n_res}, want 2")
+    require_equal(again, mk.window_plain(engine.clone_state(probe), params,
+                                         app, hb, 1),
+                  "tgen-100host's window after a 4-host world's launch")
+    print(f"cli: tgen-100host kernels: k_window_tgen_res, the window at "
+          f"{int(probe.now) / SEC:.4f} s ({mk.tgen_record_bytes(probe, app)}"
+          f"-byte record) right after a 4-host world's launch "
+          f"({mk.tgen_record_bytes(small, a4)}-byte record) in this "
+          f"process: equal to window_plain", flush=True)
+    return sum(ms) / windows, checks, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3154,14 +3333,15 @@ def deliver_probe(state, params, app, dev, alt, label: str):
 
 
 def window_probe(state, params, app, alt, label: str, kernel: str,
-                 until: int):
-    """check_window over the window `state` opens (to `until`), and the
-    kernel on the same inputs under `alt`.  Returns ((times, bound, max
-    error), alt device ms, line)."""
+                 until: int, reuse=None):
+    """check_window over the window `state` opens (to `until`; `reuse` as
+    there), and the kernel on the same inputs under `alt`.  Returns
+    ((times, bound, max error), alt device ms, line)."""
     from shadow1_tpu_torch.core import engine
     from shadow1_tpu_torch.core import megakernel as mk
     check = check_window(state, params, app, advance=0, label=label,
-                         kernel=kernel, plain_reps=1, until=until)
+                         kernel=kernel, plain_reps=1, until=until,
+                         reuse=reuse)
     alt = alt.replace(persistent=True)
 
     def args():
@@ -3169,6 +3349,38 @@ def window_probe(state, params, app, alt, label: str, kernel: str,
     alt_ms = time_call(mk.window_kernel, args, kernel=kernel)[0]
     return check, alt_ms, (f"{label}: the other instantiation on the same "
                            f"inputs {alt_ms:.4f} ms device")
+
+
+def record_line(state, app, label: str) -> str:
+    """The resident kernel's record of one host for a world: its dynamic
+    shared memory (megakernel.tgen_record_bytes; the launch refuses any
+    other size)."""
+    from shadow1_tpu_torch.core import megakernel as mk
+    from shadow1_tpu_torch.core import engine
+    h = state.hosts.num_hosts
+    return (f"tgen kernels: the resident kernel's record for {label} "
+            f"({h} hosts, {state.socks.slots} sockets, "
+            f"{state.inbox.stage.shape[0] // h}-slot slabs, "
+            f"{engine._n_lanes(app)} lanes of {state.pool.blk.shape[1]} "
+            f"columns): {mk.tgen_record_bytes(state, app)} bytes of dynamic "
+            f"shared memory a block")
+
+
+def tgen_probes(state, params, app, alt, label: str, name: str,
+                until: int, rows: dict, others: dict, lines: list) -> None:
+    """window_probe over the window `state` opens, for each tgen design on
+    the same inputs (TGEN_DESIGNS): into rows / others[name] the warp
+    design's, into [res_row(name)] the resident kernel's; their lines
+    into `lines`."""
+    prev = None
+    for resident, kernel, _tag in TGEN_DESIGNS:
+        row = res_row(name) if resident else name
+        with tgen_design(resident):
+            rows[row], others[row], line = window_probe(
+                state, params, app, alt, f"{label}, {kernel}", kernel, until,
+                reuse=prev)
+        prev = rows[row]
+        lines.append(line)
 
 
 def pick_window(state, params, app, t_end: int, score, max_steps: int):
@@ -3350,27 +3562,27 @@ def cli_cubic(dev, root) -> tuple:
     and the per-phase path, launch by launch as the CLI runs it, equal
     leaf for leaf at every heartbeat second from BURST_FROM_S to
     BURST_TO_S (the opening bursts), CUBIC's moves counted each second;
-    and k_window_tgen (CUBIC) against window_plain over a window of at
+    and each tgen design (CUBIC) against window_plain over a window of at
     most PROBE_MAX_STEPS micro-steps that moves CUBIC's state, in the
     first launch from CLI_PROBE_S (else from 1 s) that has one, timed
-    beside the Reno instantiation.  Returns (lines, row, launches, other
-    ms)."""
+    beside the Reno instantiation.  The CLI runs by shape (the resident
+    kernel) and with the warp design forced (cli_designs).  Returns
+    (lines, rows, launches, other ms), by row."""
     import tempfile
     from shadow1_tpu_torch.config import assemble
     from shadow1_tpu_torch.core import engine
     config = str(root / CLI_100HOST)
     label = "cli: tgen-100host with CUBIC, the main path"
-    lines = []
     with tempfile.TemporaryDirectory() as tmp:
-        res = run_cli([config, "--data-directory", tmp, "--quiet",
-                       "--tcp-congestion-control", "cubic"], label)
-    lines.append(check_cli_constants(res, "tgen-100host-cubic", label))
+        res, lines, launches = cli_designs(
+            lambda d: [config, "--data-directory", d, "--quiet",
+                       "--tcp-congestion-control", "cubic"], label,
+            "tgen-100host-cubic", "window_tgen_cubic", tmp)
     st = res["state"]
     lines.append(
         f"{label}: {int(st.n_events) / res['loop_seconds']:.1f} events/s "
         f"of the run loop ({res['loop_seconds']:.4f} s), "
         f"{int(st.n_windows)} windows, {int(st.n_steps)} micro-steps")
-    launches = res["launches"]["window"]
     del res, st
     runs = {p: assemble.load(config, cong="cubic", persistent=p, device=dev)
             for p in (True, False)}
@@ -3410,13 +3622,13 @@ def cli_cubic(dev, root) -> tuple:
         _fail(f"tgen-100host with CUBIC: no window of at most "
               f"{PROBE_MAX_STEPS} micro-steps moves CUBIC's state in the "
               f"launches from {seconds[:6]} s")
-    row, alt, line = window_probe(
+    rows, alt = {}, {}
+    tgen_probes(
         win, a.params, a.app, a.params.replace(cong="reno"),
         f"cli: tgen-100host (CUBIC) kernels: window at "
         f"{int(win.now) / SEC:.4f} s ({sc[0]} sockets' CUBIC state moves)",
-        "k_window_tgen", (sec + 1) * SEC)
-    lines.append(line)
-    return lines, row, launches, alt
+        "window_tgen_cubic", (sec + 1) * SEC, rows, alt, lines)
+    return lines, rows, launches, alt
 
 
 def lossy_buf_kernels(dev) -> tuple:
@@ -3552,14 +3764,16 @@ def cli_iface(dev, root) -> tuple:
     and read the same way) ends in an equal state with the same
     heartbeat.csv.  Then, from the launch at IFACE_PROBE_S, the window of
     at most PROBE_MAX_STEPS micro-steps with the most tail drops:
-    k_deliver_tcp (buffered) at each of its micro-steps and k_window_tgen
-    (buffered) over it against their plain versions, timed beside the
-    unbuffered instantiation.  Then the config with
+    k_deliver_tcp (buffered) at each of its micro-steps and each tgen
+    design (buffered) over it against their plain versions, timed beside
+    the unbuffered instantiation.  Then the config with
     --tcp-congestion-control cubic through the CLI, held to the JAX
-    CLI's the same way, and k_window_tgen<1,1> over a window of the
+    CLI's the same way, and each tgen design <1,1> over a window of the
     launches from IFACE_PROBE_S that moves CUBIC's state (tail-dropping
     too where one does), timed beside the unbuffered CUBIC
-    instantiation.  Returns (lines, rows, launches, other ms)."""
+    instantiation.  Each CLI run is made by shape (the resident kernel)
+    and with the warp design forced (cli_designs).  Returns (lines, rows,
+    launches, other ms)."""
     import tempfile
     import torch
     from shadow1_tpu_torch import cli
@@ -3568,15 +3782,14 @@ def cli_iface(dev, root) -> tuple:
     from shadow1_tpu_torch.observe import Tracker
     label = (f"cli: interface-buffer config ({IFACE_WEB} web hosts, "
              f"interfacebuffer {IFACE_BYTES})")
-    lines, rows, alt = [], {}, {}
+    rows, alt = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         config = write_iface_config(f"{tmp}/config", IFACE_WEB, IFACE_BYTES)
-        res = run_cli([config, "--data-directory", f"{tmp}/m", "--quiet"],
-                      label)
-        lines.append(check_cli_constants(res, "iface", label))
+        res, lines, launches = cli_designs(
+            lambda d: [config, "--data-directory", d, "--quiet"], label,
+            "iface", "window_tgen_buf", f"{tmp}/m")
         main_hb, stop = res["heartbeat"], \
             int(res["summary"]["simulated_seconds"])
-        launches = {"window_tgen_buf": res["launches"]["window"]}
         asm = assemble.load(config, persistent=False, device=dev)
         tr = Tracker(f"{tmp}/pp", asm.hostnames)
         torch.cuda.synchronize()
@@ -3596,10 +3809,12 @@ def cli_iface(dev, root) -> tuple:
                      f"with the same heartbeat.csv")
         del pp, res
         label_c = f"{label} with CUBIC"
-        res = run_cli([config, "--data-directory", f"{tmp}/c", "--quiet",
-                       "--tcp-congestion-control", "cubic"], label_c)
-        lines.append(check_cli_constants(res, "iface-cubic", label_c))
-        launches["window_tgen_cubic_buf"] = res["launches"]["window"]
+        res, more, n = cli_designs(
+            lambda d: [config, "--data-directory", d, "--quiet",
+                       "--tcp-congestion-control", "cubic"], label_c,
+            "iface-cubic", "window_tgen_cubic_buf", f"{tmp}/c")
+        lines += more
+        launches.update(n)
         del res
         a = assemble.load(config, device=dev)
         ac = assemble.load(config, cong="cubic", device=dev)
@@ -3618,11 +3833,9 @@ def cli_iface(dev, root) -> tuple:
         unbuf.replace(persistent=False),
         f"{label} kernels: deliver at {int(win.now) / SEC:.4f} s")
     lines.append(line)
-    rows["window_tgen_buf"], alt["window_tgen_buf"], line = window_probe(
-        win, a.params, a.app, unbuf,
-        f"{label} kernels: window at {int(win.now) / SEC:.4f} s",
-        "k_window_tgen", sec0 + SEC)
-    lines.append(line)
+    tgen_probes(win, a.params, a.app, unbuf,
+                f"{label} kernels: window at {int(win.now) / SEC:.4f} s",
+                "window_tgen_buf", sec0 + SEC, rows, alt, lines)
     del a, at, win
     win, sc, sec = pick_cli_window(
         ac.state, ac.params, ac.app,
@@ -3631,13 +3844,10 @@ def cli_iface(dev, root) -> tuple:
     if win is None:
         _fail(f"{label_c}: no window of at most {PROBE_MAX_STEPS} "
               f"micro-steps moves CUBIC's state from {IFACE_PROBE_S} s")
-    rows["window_tgen_cubic_buf"], alt["window_tgen_cubic_buf"], line = \
-        window_probe(
-            win, ac.params, ac.app, unbuffered(ac.params),
-            f"{label_c} kernels: window at {int(win.now) / SEC:.4f} s "
-            f"({sc[1]} sockets' CUBIC state moves, {sc[2]} tail drops)",
-            "k_window_tgen", (sec + 1) * SEC)
-    lines.append(line)
+    tgen_probes(win, ac.params, ac.app, unbuffered(ac.params),
+                f"{label_c} kernels: window at {int(win.now) / SEC:.4f} s "
+                f"({sc[1]} sockets' CUBIC state moves, {sc[2]} tail drops)",
+                "window_tgen_cubic_buf", (sec + 1) * SEC, rows, alt, lines)
     return lines, rows, launches, alt
 
 
@@ -3657,6 +3867,7 @@ def main() -> int:
     from shadow1_tpu_torch import sim
     from shadow1_tpu_torch.core import engine, nic, xlamath
     from shadow1_tpu_torch.core import megakernel as mk
+    from shadow1_tpu_torch.config import assemble
 
     # ---- 1. device ------------------------------------------------------
     smi = subprocess.run(
@@ -3875,14 +4086,17 @@ def main() -> int:
                       "phase trace vs the untraced windows")
     del trace_st
     del busy_st
-    # The exchange's bound at each of those windows' opens.
+    # The exchange's bound at each of those windows' opens (the windows
+    # one a call).
     xb = [0, 0]
-
-    def ex_share(st):
+    st = engine.clone_state(warm_tp)
+    t_end = int(st.now) + BUSY_WINDOWS * params.min_latency_ns
+    for _ in range(BUSY_WINDOWS):
         b, ops = exchange_bound(st)
         xb[0] += b
         xb[1] += ops
-    _timed_windows(warm_tp, params, app, BUSY_WINDOWS, before=ex_share)
+        st = mk.window_call(st, params, app, t_end, 1)[0]
+    del st
     print(f"tcp main path (persistent): the exchange in k_window_tcp's "
           f"window open, the first {BUSY_WINDOWS} windows: {ex_ms:.4f} ms a "
           f"window (phase trace share of the device time), bound "
@@ -3905,10 +4119,26 @@ def main() -> int:
     # ---- 10. tgen kernels against their plain versions -------------------
     state, params, app = sim.build_tgen(TGEN_HOSTS, device=dev)
     tgen_probe = engine.run_until(state, params, app, PROBE_TGEN_NS)
-    times["window_tgen"], bounds["window_tgen"], errs["window_tgen"] = \
-        check_window(tgen_probe, params, app, advance=0,
-                     label="tgen kernels: window (tgen)",
-                     kernel="k_window_tgen", plain_reps=1)
+    print(record_line(tgen_probe, app, "the tgen world"), flush=True)
+    asm = assemble.load(str(root / CLI_100HOST), device=dev)
+    print(record_line(asm.state, asm.app, "examples/tgen-100host"),
+          flush=True)
+    del asm
+    # Each design over the next window (a row each; the plain version and
+    # the bound are taken once, on the same inputs) and over BUSY_WINDOWS
+    # windows in one call.
+    one = many = None
+    for resident, kernel, tag in TGEN_DESIGNS:
+        with tgen_design(resident):
+            one = check_window(tgen_probe, params, app, advance=0,
+                               label=f"tgen kernels: {kernel}, window",
+                               kernel=kernel, plain_reps=1, reuse=one)
+            many = check_window(tgen_probe, params, app, advance=0,
+                                label=f"tgen kernels: {kernel}, windows",
+                                kernel=kernel, plain_reps=0,
+                                span=BUSY_WINDOWS, reuse=many)
+        row = f"window_tgen{tag}"
+        times[row], bounds[row], errs[row] = one
     print(check_loopback_transport(dev), flush=True)
 
     _phase_done("10")
@@ -3920,31 +4150,56 @@ def main() -> int:
 
     _phase_done("11")
 
-    # ---- 12. tgen main path: the defaults, one K_WINDOW launch per window
+    # ---- 12. tgen main path: the defaults, one launch per run_until call
     mid_tg, _, params, app, launches_tg, _ = drive_tgen(dev, True)
+    if mk.TGEN_LAUNCHES != {"resident": launches_tg["window"], "warp": 0}:
+        _fail(f"tgen main path: launches by design {mk.TGEN_LAUNCHES}: the "
+              f"world's shape takes the resident kernel")
     require_equal(mid_tg, mid_pp, f"tgen: persistent vs per-phase path at "
                   f"{TGEN_MID_NS // SEC} s")
     print(f"tgen main path (persistent): state at {TGEN_MID_NS // SEC} s "
           f"equal to the per-phase path's", flush=True)
     del mid_pp
-    line, window_tgen_ms, _ = busy_windows(
-        mid_tg, params, app, None, label="tgen main path (persistent), "
-        f"{TGEN_MID_NS // SEC} -> {TGEN_NS // SEC} s", until=TGEN_NS)
-    print(line, flush=True)
-    line, _, busy_st = busy_windows(
-        tgen_probe, params, app, BUSY_WINDOWS,
-        label=f"tgen main path (persistent), from {PROBE_TGEN_NS / SEC} s")
-    print(line, flush=True)
+    mid_w, _, _, _, launches_tgw, _ = drive_tgen(dev, True, resident=False)
+    require_equal(mid_w, mid_tg, "tgen: the warp design vs the resident "
+                  "kernel")
+    del mid_w
+    # Both designs on the same inputs: TGEN_MID_NS -> TGEN_NS in one call,
+    # and BUSY_WINDOWS windows from PROBE_TGEN_NS.
+    window_tgen_ms, busy = {}, {}
+    for resident, kernel, tag in TGEN_DESIGNS:
+        with tgen_design(resident):
+            line, window_tgen_ms[tag], _ = busy_windows(
+                mid_tg, params, app, None, label=f"tgen main path "
+                f"(persistent, {kernel}), {TGEN_MID_NS // SEC} -> "
+                f"{TGEN_NS // SEC} s", until=TGEN_NS)
+            print(line, flush=True)
+            line, busy[tag], busy_st = busy_windows(
+                tgen_probe, params, app, BUSY_WINDOWS,
+                label=f"tgen main path (persistent, {kernel}), from "
+                      f"{PROBE_TGEN_NS / SEC} s")
+            print(line, flush=True)
+    print(f"tgen main path: device ms per window, resident kernel / warp "
+          f"design on the same inputs: {TGEN_MID_NS // SEC} -> "
+          f"{TGEN_NS // SEC} s {window_tgen_ms['_res']:.4f} / "
+          f"{window_tgen_ms['']:.4f} = "
+          f"{window_tgen_ms['_res'] / window_tgen_ms['']:.3f}; the "
+          f"{BUSY_WINDOWS} windows from {PROBE_TGEN_NS / SEC} s "
+          f"{busy['_res']:.4f} / {busy['']:.4f} = "
+          f"{busy['_res'] / busy['']:.3f}", flush=True)
     b12, o12, s12 = windows_bound(tgen_probe, params, app, BUSY_WINDOWS)
     w12 = int(busy_st.n_windows) - int(tgen_probe.n_windows)
     print(f"tgen main path (persistent): those {w12} windows ({s12} "
           f"micro-steps) must move {b12} bytes and do {o12} operations: "
           f"bound {bound_ms(b12, o12) / w12:.6f} ms a window", flush=True)
-    # The split of a micro-step by phase for the server and for a client.
-    for host in (0, 1):
-        lines, trace_st, _ = phase_trace(
-            tgen_probe, params, app, BUSY_WINDOWS, host=host,
-            label=f"tgen phase trace (host {host})")
+    # The split of a micro-step by phase: the warp design's server and a
+    # client, the resident kernel's server block.
+    for resident, host in ((False, 0), (False, 1), (True, 0)):
+        with tgen_design(resident):
+            lines, trace_st, _ = phase_trace(
+                tgen_probe, params, app, BUSY_WINDOWS, host=host,
+                label=f"tgen phase trace ({TGEN_DESIGNS[resident][1]}, "
+                      f"host {host})")
         for line in lines:
             print(line, flush=True)
         require_equal(trace_st, busy_st,
@@ -3977,9 +4232,9 @@ def main() -> int:
     _phase_done("15")
 
     # ---- 16. cli: examples/tgen-100host, the main path ----------------------
-    window_cli_ms, cli_check, launches_cli = cli_100host(dev, smi)
-    (times["window_tgen_cli"], bounds["window_tgen_cli"],
-     errs["window_tgen_cli"]) = cli_check
+    window_cli_ms, cli_checks, launches_cli = cli_100host(dev, smi)
+    for row, (t, b, e) in cli_checks.items():
+        times[row], bounds[row], errs[row] = t, b, e
 
     _phase_done("16")
 
@@ -4005,11 +4260,12 @@ def main() -> int:
     _phase_done("18")
 
     # ---- 19. cli: tgen-100host with CUBIC, the main path -------------------
-    lines, row, n, alt = cli_cubic(dev, root)
+    lines, rows_, launches_, alt_ = cli_cubic(dev, root)
     for line in lines:
         print(line, flush=True)
-    new_rows["window_tgen_cubic"], new_launches["window_tgen_cubic"] = row, n
-    other_ms["window_tgen_cubic"] = alt
+    new_rows.update(rows_)
+    new_launches.update(launches_)
+    other_ms.update(alt_)
 
     _phase_done("19")
 
@@ -4042,8 +4298,9 @@ def main() -> int:
         n = new_launches[name] if name in NEW_ROWS else \
             launches[name] if name == "window" else \
             launches_tp["window"] if name == "window_tcp" else \
-            launches_tg["window"] if name == "window_tgen" else \
-            launches_cli if name == "window_tgen_cli" else \
+            launches_tgw["window"] if name == "window_tgen" else \
+            launches_tg["window"] if name == "window_tgen_res" else \
+            launches_cli[name] if name in launches_cli else \
             launches_tcp[base] if name in TCP_ROWS else launches_pp[name]
         rows.append({
             "name": name, "route": "cuda",
@@ -4059,9 +4316,11 @@ def main() -> int:
     print(f"K_WINDOW in the main path's profile: {window_dev_ms:.4f} ms "
           f"device per launch; K_WINDOW (TCP) on the bulk main path: "
           f"{window_tcp_ms:.4f} ms device per window; K_WINDOW (tgen) on "
-          f"the tgen main path: {window_tgen_ms:.4f} ms device per window, "
-          f"on the CLI's tgen-100host main path: {window_cli_ms:.4f} ms "
-          f"device per window", flush=True)
+          f"the tgen main path {TGEN_MID_NS // SEC} -> {TGEN_NS // SEC} s: "
+          f"the resident kernel {window_tgen_ms['_res']:.4f} ms device per "
+          f"window, the warp design {window_tgen_ms['']:.4f}; on the CLI's "
+          f"tgen-100host main path (the resident kernel): "
+          f"{window_cli_ms:.4f} ms device per window", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,8 @@ _ARGTYPES = {
     "transport": {"transport_launch": [_P, _P, _P]},
     "window": {"window_launch": [_P, _P], "window_tcp_launch": [_P, _I, _P],
                "window_occupancy": [_I, _I, _I, _P, _P],
+               "window_res_launch": [_P, _I64, _P],
+               "window_res_occupancy": [_I, _I, _I64, _P, _P, _P, _P],
                "log1p_probe_launch": [_P, _P, _I64, _P],
                "cbrt_probe_launch": [_P, _P, _I64, _P],
                "cong_probe_launch": [_I, *[_P] * 10, _I64, _P]},

@@ -960,8 +960,8 @@ def run_until_impl(state: SimState, params, app, t_target: int) -> SimState:
 def _run_windows(state: SimState, params, app, t_target: int) -> SimState:
     """The persistent window loop: window_call while the predicate holds,
     and one host read of the (gmin, ws, we, outbox pending, status) vector
-    of each call's last window.  K_WINDOW's UDP kernel runs the windows
-    of the whole call itself (one launch), the TCP kernel one a launch.
+    of each call's last window.  K_WINDOW's kernels run the windows of
+    the whole call themselves (one launch).
     Each window ends at least min(now + min_latency, t_target), so the
     cap handed down -- that many windows reach t_target -- binds only
     when the kernel's predicate is wrong, and then raises."""

@@ -17,18 +17,22 @@ sm_90a in `csrc/` and built by core/_build.py:
 * window    (csrc/window.cu)    <- window_fused's K_WINDOW,
   megakernel.py:391-424, body engine._window_body_ref: the exchange, the
   scan, the window bounds and the whole micro-step loop with the app's
-  tick as device code, as one cooperative launch -- k_window for UDP
-  worlds with phold's tick (csrc/phold_tick.cuh), which also loops the
-  windows of a whole run_until call on the card, and, one window a
-  launch, for TCP worlds with tcp.run_timers (csrc/tcp.cuh) k_window_tcp
-  with bulk's tick (csrc/bulk_tick.cuh) and k_window_tgen with tgen's
-  (csrc/tgen_tick.cuh).  The three phases are one copy of device code
+  tick as device code, as one cooperative launch that loops the windows
+  of a whole run_until call on the card -- k_window for UDP worlds with
+  phold's tick (csrc/phold_tick.cuh), and for TCP worlds with
+  tcp.run_timers (csrc/tcp.cuh) k_window_tcp with bulk's tick
+  (csrc/bulk_tick.cuh) and, with tgen's (csrc/tgen_tick.cuh), the
+  resident kernel k_window_tgen_res (one block per host, its sockets and
+  slab keys in shared memory) where the world's shape fits, else
+  k_window_tgen.  The three phases are one copy of device code
   (csrc/*.cuh) that the per-phase kernels share.
 
 The TCP kernels of K_DELIVER, K_TRANSPORT and K_WINDOW run one warp per
 host -- K_DELIVER's and K_WINDOW's hosts walked warp-stride over a
 cooperative grid sized from the occupancy query, K_TRANSPORT's as a plain
-launch of one warp per host -- so no host count is refused; the UDP
+launch of one warp per host -- so no host count is refused (the resident
+tgen kernel, one block per host, takes the worlds whose hosts all fit one
+resident block each, and k_window_tgen the rest); the UDP
 kernels run one thread per host (csrc/common.cuh, the Solo and Warp
 teams), with the host's loads in a few dependent steps where its slabs
 fit (deliver_small, transport_small).  The exchange is one cooperative launch of a
@@ -50,8 +54,8 @@ tensors.  Each wrapper counts its launches in `LAUNCHES`.
 
 With `params.persistent` (the default, as in the JAX package) the
 windows run through K_WINDOW, for every app with a device tick (Phold,
-Bulk and Tgen: `app.device_tick`): one launch per run_until call for
-phold, one per window for bulk and tgen.  Without it, the app tick (and
+Bulk and Tgen: `app.device_tick`): one launch per run_until call.
+Without it, the app tick (and
 in TCP worlds tcp.run_timers before it) runs between K_DELIVER and
 K_TRANSPORT as plain torch on the state's device, as it runs between the
 Pallas kernels in the JAX per-phase graph.
@@ -73,6 +77,10 @@ INV = engine.INV
 # Launches of each kernel since the last reset (plain versions do not
 # count).  chip_smoke.py zeroes these around the run of each path.
 LAUNCHES = {"exchange": 0, "deliver": 0, "transport": 0, "window": 0}
+# K_WINDOW's launches on tgen worlds by design (window_tgen_resident):
+# the resident kernel and the warp design, each also one of
+# LAUNCHES["window"].
+TGEN_LAUNCHES = {"resident": 0, "warp": 0}
 
 _BLOCK = 256     # threads per block of the per-host kernels
 _TR_BLOCK = 128  # threads per block of k_transport (csrc/transport.cu)
@@ -102,8 +110,9 @@ def _phase(name: str):
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, TGEN_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def enabled(state, params, app) -> bool:
@@ -887,6 +896,112 @@ def _window_grid(lib, h: int, kernel: int, buf: bool = False,
     return min(-(-h // per_block), _OCCUPANCY[key])
 
 
+# ---------------------------------------------------------------------------
+# The resident tgen kernel (csrc/window.cu k_window_tgen_res): one block
+# per host, its sockets, slab keys and emission lanes in shared memory
+# ---------------------------------------------------------------------------
+
+# The shared memory one block may opt into on the H100 (227 KB); the
+# occupancy query checks the card's own figure
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin) with the kernel's static
+# shared memory added.
+RES_SMEM_OPTIN = 227 * 1024
+
+
+def _res_span(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def resident_record_bytes(slots: int, ki: int, e: int, pc: int) -> int:
+    """Bytes of one host's record in the resident tgen kernel's shared
+    memory (csrc/window.cu res_record_bytes, the same sum): every field of
+    the socket table for `slots` sockets in its own dtype (ranges
+    included), then the inbox slab's stage words, arrival times and order
+    keys for `ki` slots (4, 8 and 8 bytes a slot), then the `e` emission
+    lanes' valid flags and rows of `pc` int32 columns; each array rounded
+    up to 16 bytes."""
+    b = sum(_res_span(slots * (r or 1) * dt.itemsize)
+            for _name, dt, r in _TCP_SOCK_FIELDS)
+    return b + _res_span(4 * ki) + 2 * _res_span(8 * ki) + _res_span(e) + \
+        _res_span(4 * e * pc)
+
+
+def tgen_record_bytes(state, app) -> int:
+    """resident_record_bytes of a world's shapes."""
+    h = state.hosts.num_hosts
+    return resident_record_bytes(state.socks.slots,
+                                 state.inbox.stage.shape[0] // h,
+                                 engine._n_lanes(app),
+                                 state.pool.blk.shape[1])
+
+
+# K_WINDOW's design for tgen worlds: None picks by shape
+# (window_tgen_resident), True / False force the resident kernel / the
+# warp design (chip_smoke.py runs both on the same inputs).
+_WINDOW_TGEN_RESIDENT = {"on": None}
+
+
+def set_window_tgen_resident(on: bool | None) -> None:
+    """Run tgen worlds' windows on the resident kernel (True), on the warp
+    design, k_window_tgen (False), or by the world's shape (None)."""
+    _WINDOW_TGEN_RESIDENT["on"] = None if on is None else bool(on)
+
+
+_RES_OCCUPANCY: dict = {}
+
+
+def _res_blocks(lib, record: int, buf: bool, cong_i: int) -> int:
+    """Blocks of the resident kernel the card keeps resident with a host
+    record of `record` bytes as their dynamic shared memory: blocks per SM
+    from the occupancy query (0 when the record and the kernel's static
+    shared memory exceed what a block may opt into) times SMs; cached per
+    device, library, instantiation and record size.  Raises if the card
+    cannot launch the kernel cooperatively."""
+    key = (torch.cuda.current_device(), id(lib), int(bool(buf)), int(cong_i),
+           int(record))
+    if key not in _RES_OCCUPANCY:
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        static, optin = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.window_res_occupancy(
+            int(bool(buf)), int(cong_i), int(record), ctypes.byref(per_sm),
+            ctypes.byref(sms), ctypes.byref(static), ctypes.byref(optin))
+        if rc == -1:
+            raise RuntimeError("K_WINDOW: the device cannot launch "
+                               "cooperative kernels")
+        _raise_on(rc, "window (resident occupancy query)")
+        _RES_OCCUPANCY[key] = per_sm.value * sms.value
+    return _RES_OCCUPANCY[key]
+
+
+def window_tgen_resident(lib, h: int, record: int, buf: bool = False,
+                         cong_i: int = 0) -> bool:
+    """Does a tgen world of h hosts whose host record takes `record`
+    bytes (resident_record_bytes) run on the resident kernel?  By its
+    shape: the record within RES_SMEM_OPTIN, and h blocks resident with
+    it (_res_blocks); else the warp design (k_window_tgen), which takes
+    any world.  set_window_tgen_resident forces either; forced onto a
+    world it does not take, the resident kernel raises.  The choice never
+    follows a failed build or launch."""
+    on = _WINDOW_TGEN_RESIDENT["on"]
+    if on is False:
+        return False
+    why = None
+    if record > RES_SMEM_OPTIN:
+        why = (f"a host's record takes {record} bytes of shared memory, "
+               f"over the {RES_SMEM_OPTIN} a block may opt into")
+    else:
+        blocks = _res_blocks(lib, record, buf, cong_i)
+        if h > blocks:
+            why = (f"{h} hosts, {blocks} blocks resident with a "
+                   f"{record}-byte record")
+    if why is None:
+        return True
+    if on:
+        raise ValueError(f"the resident tgen kernel does not take this "
+                         f"world: {why}")
+    return False
+
+
 def _phold_struct(state, params, app) -> _PholdArgs:
     a_st, hosts = state.app, state.hosts
     h = hosts.num_hosts
@@ -954,13 +1069,14 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
     """Launch csrc/window.cu: whole windows (exchange, scan, bounds, the
     micro-step loop with the app's tick on the card; in TCP worlds
     run_timers and the TCP machine too) as one cooperative kernel --
-    k_window for phold, which runs windows as window_plain does (the
-    first always, then while the window loop's predicate holds, at most
-    `max_windows`), k_window_tcp for bulk and k_window_tgen for tgen,
-    which run one window whatever `max_windows` is (and so equal
-    window_plain when it is 1).  Updates the state's tensors in place; returns
-    (state, t_h, win) with win = i64[5] (the last window's gmin, ws, we,
-    outbox pending, and the status) on the card."""
+    k_window for phold, k_window_tcp for bulk, and for tgen the resident
+    kernel (k_window_tgen_res, one block per host, where the world's shape
+    fits: window_tgen_resident) or k_window_tgen -- each of which runs
+    windows as window_plain does: the first always, then while the window
+    loop's predicate holds, at most `max_windows`.  Updates the state's
+    tensors in place; returns (state, t_h, win) with win = i64[5] (the
+    last window's gmin, ws, we, outbox pending, and the status) on the
+    card."""
     from . import _build
     if max_windows < 1:
         raise ValueError(f"max_windows must be at least 1, not {max_windows}")
@@ -994,13 +1110,19 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
             "K_WINDOW's phase clocks trace the Reno TCP kernels without "
             "interface buffers only")
     lib = _build.load("window" if clk is None else "window_clk")
-    grid = _window_grid(lib, h, kernel, buf, cong_i)
     dev = pool.blk.device
     e = engine._n_lanes(app)
+    record = resident_record_bytes(state.socks.slots, p1 // h, e, pc) \
+        if tick == "tgen" else 0
+    resident = tick == "tgen" and window_tgen_resident(lib, h, record, buf,
+                                                        cong_i)
+    grid = h if resident else _window_grid(lib, h, kernel, buf, cong_i)
     bw_up, bw_dn = engine._window_ctx(state, params)
     v1 = _WINDOW_EXCHANGE["v1"]
+    # The resident kernel opens its windows with ex_run.
     x, ex_keep, _ = _ex_struct(pool, ib, h, params, grid,
-                               v1=_WINDOW_EXCHANGE_V1[tcp_on] if v1 is None
+                               v1=False if resident else
+                               _WINDOW_EXCHANGE_V1[tcp_on] if v1 is None
                                else v1)
     t_h = torch.empty((h,), dtype=I64, device=dev)
     part_min = torch.empty((2 * grid,), dtype=I64, device=dev)
@@ -1013,7 +1135,7 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
     if tcp_on:
         rx_batch = max(1, int(getattr(app, "rx_batch", 1)))
         gates = torch.empty((2 * rx_batch,), dtype=I32, device=dev)
-        carry = _carry_scratch(h, dev)
+        carry = None if resident else _carry_scratch(h, dev)
         app_args = dict(tcp=_tcp_struct(state, params, em, gates, carry))
         if tick == "tgen":
             app_args["g"], split = _tgen_struct(state, params, app)
@@ -1032,13 +1154,17 @@ def window_kernel(state, params, app, t_target, max_windows: int = 1):
         t_target=int(t_target), min_latency=params.min_latency_ns,
         max_steps=MAX_STEPS, max_windows=int(max_windows), n_blocks=grid,
         clk_host=_PHASE_CLOCKS["host"])
-    if tcp_on:
+    if resident:
+        rc = lib.window_res_launch(ctypes.byref(args), record, _stream())
+    elif tcp_on:
         rc = lib.window_tcp_launch(ctypes.byref(args), kernel, _stream())
     else:
         rc = lib.window_launch(ctypes.byref(args), _stream())
     del ex_keep
     _raise_on(rc, "window")
     LAUNCHES["window"] += 1
+    if tick == "tgen":
+        TGEN_LAUNCHES["resident" if resident else "warp"] += 1
     return state, t_h, win
 
 

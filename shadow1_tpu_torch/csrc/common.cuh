@@ -177,8 +177,9 @@ __device__ __forceinline__ int64_t time_until(int64_t deficit,
 // Team-width policy of the per-host device code.  A host's scans (its inbox
 // and outbox slabs, its socket table) run on a team: Solo is one thread
 // (the per-phase kernels, phold's K_WINDOW), Warp is the 32 lanes of a
-// warp (K_WINDOW's TCP kernel and K_DELIVER's TCP kernel, one warp per
-// host).  A scan strides the lanes over the slab -- coalesced loads -- and
+// warp (K_WINDOW's TCP kernels and K_DELIVER's TCP kernel, one warp per
+// host), Cta the threads of a block (the resident tgen kernel, one block
+// per host).  A scan strides the lanes over the slab -- coalesced loads -- and
 // ends in a reduction that every lane gets; min, sum and OR of integers do
 // not depend on order, and a lexicographic min that ends in the slot
 // index picks the lowest slot on a full tie, as the serial walk does.  The
@@ -256,6 +257,142 @@ struct Warp {
   }
 };
 
+// A row's arrival time and its order key ((src << 40) | ctr, pkt_id).
+__device__ __forceinline__ int64_t row_time(const int32_t* row) {
+  return dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]);
+}
+__device__ __forceinline__ int64_t row_key(const int32_t* row) {
+  return ((int64_t)row[ICOL_SRC] << 40) |
+         dec_i64(row[ICOL_CTR_LO], row[ICOL_CTR_HI]);
+}
+
+// Where the walks read an inbox slot's (time, key) -- `slot` is the flat
+// index hh * ki + k, `a` the kernel's DeliverArgs or TransportArgs: from
+// the row itself (InboxRows, every kernel but one), or from the copies that
+// the resident tgen kernel keeps in shared memory (window.cu; `t` and `k`
+// are offset so that its host's flat slot indexes them), which `put`
+// keeps up to date when a row is written.
+struct InboxRows {
+  template <class A>
+  __device__ int64_t time(const A& a, int64_t slot) const {
+    return row_time(a.ib_blk + slot * a.ic);
+  }
+  template <class A>
+  __device__ int64_t key(const A& a, int64_t slot) const {
+    return row_key(a.ib_blk + slot * a.ic);
+  }
+  __device__ void put(int64_t, int64_t, int64_t) const {}
+};
+
+struct CachedRows {
+  int64_t* t;
+  int64_t* k;
+  template <class A>
+  __device__ int64_t time(const A&, int64_t slot) const { return t[slot]; }
+  template <class A>
+  __device__ int64_t key(const A&, int64_t slot) const { return k[slot]; }
+  __device__ void put(int64_t slot, int64_t time, int64_t key) const {
+    t[slot] = time;
+    k[slot] = key;
+  }
+};
+
+// Cta<B> is the B threads of a block (the resident tgen kernel, window.cu:
+// one block per host).  Walks stride all B threads; a reduction is the
+// warp's shuffles, then the warps' partials through shared memory, which
+// every thread folds in warp order.  The partials are double-buffered by
+// a parity that each thread keeps in its team object, so a reduction takes
+// one barrier: the next reduction writes the other buffer, and the one
+// after it writes this one only after the next one's barrier, which no
+// thread passes before every thread has read this one.  So one team object
+// serves a whole launch, and every thread makes the same sequence of
+// reductions (as the Warp team's full-mask collectives require too).
+// `sync` is the block barrier; a ballot only for a one-warp block
+// (next_free below takes a min for wider ones).
+template <int B>
+struct Cta {
+  static constexpr int W = B;
+  static constexpr int NW = B / 32;
+  static_assert(B % 32 == 0 && NW <= 32, "Cta takes whole warps");
+  mutable int par = 0;
+  __device__ int lane() const { return (int)threadIdx.x; }
+  __device__ bool leader() const { return threadIdx.x == 0; }
+  __device__ void sync() const { __syncthreads(); }
+  __device__ bool any(bool p) const { return __syncthreads_or(p) != 0; }
+  __device__ uint32_t ballot(bool p) const {
+    static_assert(B == 32, "a ballot covers one warp");
+    return __ballot_sync(0xffffffffu, p);
+  }
+
+  // The warps' partials, [parity][word][warp].
+  __device__ static int64_t (&parts())[2][3][NW] {
+    __shared__ int64_t s[2][3][NW];
+    return s;
+  }
+  // The block's fold of x by op (commutative and associative).
+  template <class Op>
+  __device__ int64_t fold(int64_t x, const Op& op) const {
+    for (int o = 16; o > 0; o >>= 1)
+      x = op(x, (int64_t)__shfl_xor_sync(0xffffffffu, (long long)x, o));
+    int64_t* const s = parts()[par][0];
+    if ((threadIdx.x & 31u) == 0) s[threadIdx.x >> 5] = x;
+    __syncthreads();
+    int64_t r = s[0];
+    for (int w = 1; w < NW; ++w) r = op(r, s[w]);
+    par ^= 1;
+    return r;
+  }
+  __device__ int64_t min64(int64_t x) const {
+    return fold(x, [](int64_t a, int64_t b) { return a < b ? a : b; });
+  }
+  __device__ int64_t sum64(int64_t x) const {
+    return fold(x, [](int64_t a, int64_t b) { return a + b; });
+  }
+  __device__ int32_t min32(int32_t x) const { return (int32_t)min64(x); }
+  __device__ int32_t sum(int32_t x) const { return (int32_t)sum64(x); }
+  __device__ int32_t or32(int32_t x) const {
+    return (int32_t)fold(x, [](int64_t a, int64_t b) { return a | b; });
+  }
+  // Lexicographic mins: (a, b) and (a, b, c), in place.
+  __device__ void min3(int64_t& a, int64_t& b, int32_t& c) const {
+    for (int o = 16; o > 0; o >>= 1) {
+      const int64_t a2 = __shfl_xor_sync(0xffffffffu, (long long)a, o);
+      const int64_t b2 = __shfl_xor_sync(0xffffffffu, (long long)b, o);
+      const int32_t c2 = __shfl_xor_sync(0xffffffffu, c, o);
+      if (a2 < a || (a2 == a && (b2 < b || (b2 == b && c2 < c)))) {
+        a = a2;
+        b = b2;
+        c = c2;
+      }
+    }
+    auto& s = parts()[par];
+    if ((threadIdx.x & 31u) == 0) {
+      const int w = threadIdx.x >> 5;
+      s[0][w] = a;
+      s[1][w] = b;
+      s[2][w] = c;
+    }
+    __syncthreads();
+    a = s[0][0];
+    b = s[1][0];
+    c = (int32_t)s[2][0];
+    for (int w = 1; w < NW; ++w) {
+      const int64_t a2 = s[0][w], b2 = s[1][w];
+      const int32_t c2 = (int32_t)s[2][w];
+      if (a2 < a || (a2 == a && (b2 < b || (b2 == b && c2 < c)))) {
+        a = a2;
+        b = b2;
+        c = c2;
+      }
+    }
+    par ^= 1;
+  }
+  __device__ void min2(int64_t& a, int32_t& b) const {
+    int64_t z = 0;
+    min3(a, z, b);
+  }
+};
+
 // Calls f(k, stage[k]) for every slot k < n of a slab, in ascending k on
 // each lane.  The Warp team strides its lanes over the slab (coalesced
 // loads).  The Solo team reads the stage words eight at a time -- two
@@ -326,15 +463,21 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // The lowest index >= `from` (and < n) whose `stage` is STAGE_FREE, or n:
-// the team reads 32 stages at a time and takes the lowest set bit of the
-// ballot.
+// the team reads W stages at a time and takes the lowest set bit of the
+// ballot (a min over the lanes in a Cta team).
 template <class Team>
 __device__ __forceinline__ int next_free(const Team& tm, const int32_t* stage,
                                          int from, int n) {
   for (int c0 = from; c0 < n; c0 += Team::W) {
     const int k = c0 + tm.lane();
-    const uint32_t m = tm.ballot(k < n && stage[k] == STAGE_FREE);
-    if (m != 0u) return c0 + __ffs((int)m) - 1;
+    const bool f = k < n && stage[k] == STAGE_FREE;
+    if constexpr (Team::W > 32) {
+      const int m = tm.min32(f ? k : n);
+      if (m < n) return m;
+    } else {
+      const uint32_t m = tm.ballot(f);
+      if (m != 0u) return c0 + __ffs((int)m) - 1;
+    }
   }
   return n;
 }

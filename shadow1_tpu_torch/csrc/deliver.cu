@@ -32,9 +32,10 @@
 //
 // TCP worlds (k_deliver_tcp): one warp per host, walked warp-stride over
 // a cooperative grid sized from the occupancy query, so any number of
-// hosts (deliver_tcp_warps, deliver.cuh, which K_WINDOW's TCP kernel
-// shares).  The two scoreboard inserts of process_arrivals take a global
-// gate per round (tcp.cuh): each round ends in a block OR, one atomic OR
+// hosts (deliver_tcp_rounds on WarpHosts, deliver.cuh, which K_WINDOW's
+// TCP kernels share).  The two scoreboard inserts of process_arrivals
+// take a global gate per round (tcp.cuh): each round ends in a block OR,
+// one atomic OR
 // per block into a word of `gates` and one grid sync, reached by every
 // thread from one call site; what a host carries across it is a record
 // of device scratch, not registers.  A host's slab and socket walks run
@@ -99,8 +100,9 @@ template <bool Buf, int Cong>
 __global__ void __launch_bounds__(kDeliverBlock, 2)
     k_deliver_tcp(DeliverArgs a, TcpArgs t) {
   Clk clk = make_clk(nullptr, false);
-  const int32_t err = deliver_tcp_warps<Buf, Cong>(
-      a, t, t.gates, a.window_end, clk, -1,
+  WarpHosts hosts(t.carry, a.h);
+  const int32_t err = deliver_tcp_rounds<Buf, Cong>(
+      a, t, hosts, t.gates, a.window_end, clk, -1,
       [&](int hh, int64_t& tick, bool& act, int64_t& aux0) {
         tick = a.tick_t[hh];
         act = a.active[hh] != 0;

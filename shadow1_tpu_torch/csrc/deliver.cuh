@@ -14,9 +14,10 @@
 //
 // The pieces (rx_open, rx_round, rx_close) take a team (common.cuh): the
 // UDP kernels run deliver_host on one thread per host where the world is
-// larger than deliver_small takes, the TCP kernels run deliver_tcp_warps,
-// one warp per host, with each round split at its gate barrier and the
-// host's state parked in device scratch across it.  deliver_small (below)
+// larger than deliver_small takes, the TCP kernels run deliver_tcp_rounds,
+// one warp per host (WarpHosts) or one block (K_WINDOW's resident tgen
+// kernel), with each round split at its gate barrier and the host's state
+// parked across it.  deliver_small (below)
 // is the UDP body for worlds of up to 8-slot slabs and 8 sockets (the
 // bench world): the same values as deliver_host on one thread, with the
 // host's loads in two dependent steps and the rest on registers.
@@ -186,15 +187,6 @@ struct RxPick {
   bool tcp;              // a TCP segment was delivered
 };
 
-// A row's arrival time and its order key ((src << 40) | ctr, pkt_id).
-__device__ __forceinline__ int64_t row_time(const int32_t* row) {
-  return dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]);
-}
-__device__ __forceinline__ int64_t row_key(const int32_t* row) {
-  return ((int64_t)row[ICOL_SRC] << 40) |
-         dec_i64(row[ICOL_CTR_LO], row[ICOL_CTR_HI]);
-}
-
 // The interface buffer's cut for host hh, whose due slots (in flight, time
 // <= tick) number more than `room`: the (time, key) of the last due slot
 // kept -- the largest among those with fewer than `room` due slots before
@@ -203,13 +195,13 @@ __device__ __forceinline__ int64_t row_key(const int32_t* row) {
 // `room`), then the team takes the largest kept pair (a min over the
 // negated pairs: times and keys are non-negative).  `keep` is false when
 // nothing is kept (room 0).  Reads only; the caller syncs after it.
-template <class Team>
+template <class Team, class Rows>
 __device__ __forceinline__ void iface_cut(const DeliverArgs& a,
                                           const Team& tm, int hh,
                                           int64_t tick, int32_t room,
                                           int64_t& cut_t, int64_t& cut_k,
-                                          bool& keep) {
-  const int ki = a.ki, ic = a.ic;
+                                          bool& keep, const Rows& rows) {
+  const int ki = a.ki;
   const int64_t base = (int64_t)hh * ki;
   const int32_t* stage = a.ib_stage + base;
   int64_t nt = INV, nk = INV;
@@ -217,17 +209,15 @@ __device__ __forceinline__ void iface_cut(const DeliverArgs& a,
   if (room > 0) {
     each_slot(tm, stage, ki, [&](int j, int32_t st) {
       if (st != STAGE_IN_FLIGHT) return;
-      const int32_t* rj = a.ib_blk + (base + j) * ic;
-      const int64_t tj = row_time(rj);
+      const int64_t tj = rows.time(a, base + j);
       if (tj > tick) return;
-      const int64_t kj = row_key(rj);
+      const int64_t kj = rows.key(a, base + j);
       int32_t rank = 0;
       for (int i = 0; i < ki && rank < room; ++i) {
         if (stage[i] != STAGE_IN_FLIGHT) continue;
-        const int32_t* ri = a.ib_blk + (base + i) * ic;
-        const int64_t ti = row_time(ri);
+        const int64_t ti = rows.time(a, base + i);
         // (tj <= tick, so a slot before it is due too.)
-        if (ti < tj || (ti == tj && row_key(ri) < kj)) ++rank;
+        if (ti < tj || (ti == tj && rows.key(a, base + i) < kj)) ++rank;
       }
       if (rank < room && (-tj < nt || (-tj == nt && -kj < nk))) {
         nt = -tj;
@@ -245,14 +235,16 @@ __device__ __forceinline__ void iface_cut(const DeliverArgs& a,
 // slots; the count is a sum) and the host's receive state, for a tick at
 // `tick` (active or not); `aux0` is the rx_batch bound at batch start
 // (read only when rx_batch > 1).  With `Buf`, a bounded host's due slots
-// beyond its room are freed as tail drops (iface_cut).
-template <bool Buf, class Team>
+// beyond its room are freed as tail drops (iface_cut).  `rows` gives the
+// slots' (time, key).
+template <bool Buf, class Team, class Rows = InboxRows>
 __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
                                            const Team& tm, int hh,
                                            int64_t tick, bool act,
                                            int64_t aux0,
-                                           int64_t window_end) {
-  const int ki = a.ki, ic = a.ic;
+                                           int64_t window_end,
+                                           const Rows& rows = Rows{}) {
+  const int ki = a.ki;
   const int64_t base = (int64_t)hh * ki;
   const int32_t rxq0 = a.rx_queued[hh];
   int32_t n = 0, nd = 0;
@@ -266,12 +258,10 @@ __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
       const int32_t room = imax32(cap - rxq0, 0);
       int32_t due = 0;
       each_slot(tm, a.ib_stage + base, ki, [&](int k, int32_t st) {
-        if (st == STAGE_IN_FLIGHT &&
-            row_time(a.ib_blk + (base + k) * ic) <= tick)
-          ++due;
+        if (st == STAGE_IN_FLIGHT && rows.time(a, base + k) <= tick) ++due;
       });
       over = tm.sum(due) > room;
-      if (over) iface_cut(a, tm, hh, tick, room, cut_t, cut_k, keep);
+      if (over) iface_cut(a, tm, hh, tick, room, cut_t, cut_k, keep, rows);
       tm.sync();             // every lane has read the stages
     }
   }
@@ -279,11 +269,10 @@ __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
     each_slot(tm, a.ib_stage + base, ki, [&](int k, int32_t st) {
       if (st != STAGE_IN_FLIGHT) return;
       const int64_t slot = base + k;
-      const int32_t* row = a.ib_blk + slot * ic;
-      const int64_t t = row_time(row);
+      const int64_t t = rows.time(a, slot);
       if (t > tick) return;
       if (Buf && over) {
-        const int64_t key = row_key(row);
+        const int64_t key = rows.key(a, slot);
         if (!keep || t > cut_t || (t == cut_t && key > cut_k)) {
           a.ib_stage[slot] = STAGE_FREE;
           if (a.pds_trail) a.ib_status[slot] |= PDS_ROUTER_DROPPED;
@@ -328,11 +317,13 @@ __device__ __forceinline__ RxCarry rx_open(const DeliverArgs& a,
 // through the NIC rx token bucket and CoDel, into the UDP socket ring
 // (udp.lookup_socket: connected beats wildcard, lowest slot on ties -- a
 // min over the lanes).  Returns the pick for tcp.process_arrivals.  With
-// `Buf`, only the queued backlog is a candidate.
-template <bool Buf, class Team>
+// `Buf`, only the queued backlog is a candidate.  `rows` gives the slots'
+// (time, key); the picked row itself is read from the inbox.
+template <bool Buf, class Team, class Rows = InboxRows>
 __device__ __forceinline__ RxPick rx_round(const DeliverArgs& a,
                                            const Team& tm, RxCarry& c,
-                                           int hh, int r) {
+                                           int hh, int r,
+                                           const Rows& rows = Rows{}) {
   const int ki = a.ki, ic = a.ic, S = a.slots;
   const int64_t base = (int64_t)hh * ki;
   const int64_t limit = r == 0 ? c.tick : c.bound;
@@ -344,10 +335,9 @@ __device__ __forceinline__ RxPick rx_round(const DeliverArgs& a,
       if (st != STAGE_RX_QUEUED &&
           (Buf || r == 0 || st != STAGE_IN_FLIGHT))
         return;
-      const int32_t* rk = a.ib_blk + (base + k) * ic;
-      const int64_t t = row_time(rk);
+      const int64_t t = rows.time(a, base + k);
       if (st == STAGE_IN_FLIGHT && t > limit) return;
-      const int64_t key = row_key(rk);
+      const int64_t key = rows.key(a, base + k);
       if (t < tmin || (t == tmin && key < kmin)) {
         tmin = t;
         kmin = key;
@@ -855,40 +845,71 @@ constexpr int HOST_CARRY_BYTES = 512;    // megakernel.py CARRY_BYTES
 static_assert(sizeof(HostCarry) <= HOST_CARRY_BYTES,
               "HostCarry outgrew its scratch record");
 
-// _rx_phase with tcp.process_arrivals for every host of a TCP world, one
-// warp per host, hosts walked warp-stride over the whole grid (so any
-// number of hosts).  Each delivery round's scoreboard gates are global,
-// so a round is split at its gate barrier into two passes over the hosts;
-// the same warp always takes the same host, so pass B of round r and pass
-// A of round r + 1 are one pass:
+// The warp design's hosts (k_deliver_tcp, k_window_tcp, k_window_tgen):
+// one warp per host, the hosts walked warp-stride over the whole grid (so
+// any number of hosts), a host's carry across a gate parked in its record
+// of device scratch (`carry`), its rows read from the inbox.  A host
+// policy of deliver_tcp_rounds gives its team `tm` and row policy `rows`,
+// `each(f)` -- f(hh) for every host of the calling team -- and `park` /
+// `unpark` of a host's carry.
+struct WarpHosts {
+  using Team = Warp;
+  Team tm{};
+  InboxRows rows{};
+  HostCarry* carry;
+  int h;
+  __device__ WarpHosts(void* carry_, int h_)
+      : carry((HostCarry*)carry_), h(h_) {}
+  template <class F>
+  __device__ void each(const F& f) const {
+    const int64_t nw = (int64_t)gridDim.x * blockDim.x / Warp::W;
+    for (int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) /
+                     Warp::W;
+         i < h; i += nw)
+      f((int)i);
+  }
+  __device__ void park(int hh, const RxCarry& c, const Arrival& ar) const {
+    if (tm.leader()) {
+      carry[hh].rx = c;
+      carry[hh].ar = ar;
+    }
+  }
+  __device__ void unpark(int hh, RxCarry& c, Arrival& ar) const {
+    c = carry[hh].rx;
+    ar = carry[hh].ar;
+  }
+};
+
+// _rx_phase with tcp.process_arrivals for every host of a TCP world on
+// the host policy `hosts` (WarpHosts, or window.cu's resident block).
+// Each delivery round's scoreboard gates are global, so a round is split
+// at its gate barrier into two passes over the hosts; the same team
+// always takes the same host, so pass B of round r and pass A of round
+// r + 1 are one pass:
 //   pass r (r = 0 .. rb): finish of round r - 1 under its gates (r > 0;
 //     before it: `setup`, the tick and the router enqueue, at r = 0);
 //     then (r < rb) round r's select/NIC and tcp_arrival_begin, the
-//     host's carry parked in scratch (`t.carry`), its gate bits OR-ed
-//     into the lane's; or (r == rb) the write-back and `tail`, the rest of
-//     the host's micro-step;
+//     host's carry parked (hosts.park), its gate bits OR-ed into the
+//     thread's; or (r == rb) the write-back and `tail`, the rest of the
+//     host's micro-step;
 //   between passes, the round's gate: block OR, one atomicOr, one grid
 //   barrier, reached by every thread from this one call site.
 // `setup(hh, tick, act, aux0)` gives a host's tick; `tail(hh, c, out,
 // traced)` gets its carry and K_DELIVER's outputs.  `Buf` and `Cong` are
-// the interface-buffer and congestion-control instantiations.  `clk` traces host
-// `clk_host`.  Returns the socket-overflow error bits of passive opens.
-template <bool Buf, int Cong, class Setup, class Tail>
-__device__ __forceinline__ int32_t deliver_tcp_warps(
-    const DeliverArgs& a, const TcpArgs& t, int32_t* gate_words,
-    int64_t window_end, Clk& clk, int clk_host, const Setup& setup,
-    const Tail& tail) {
-  const Warp tm{};
-  const int64_t nw = (int64_t)gridDim.x * blockDim.x / Warp::W;
-  const int64_t w0 = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) /
-                     Warp::W;
-  HostCarry* const carry = (HostCarry*)t.carry;
+// the interface-buffer and congestion-control instantiations.  `clk`
+// traces host `clk_host`.  Returns the socket-overflow error bits of
+// passive opens.
+template <bool Buf, int Cong, class Hosts, class Setup, class Tail>
+__device__ __forceinline__ int32_t deliver_tcp_rounds(
+    const DeliverArgs& a, const TcpArgs& t, Hosts& hosts,
+    int32_t* gate_words, int64_t window_end, Clk& clk, int clk_host,
+    const Setup& setup, const Tail& tail) {
+  const auto& tm = hosts.tm;
   const int rb = a.rx_batch;
   int32_t err = 0, g = 0;
   for (int r = 0; r <= rb; ++r) {
     int32_t bits = 0;
-    for (int64_t i = w0; i < a.h; i += nw) {
-      const int hh = (int)i;
+    hosts.each([&](int hh) {
       const bool traced = hh == clk_host;
       if (traced) clk.start();
       RxCarry c;
@@ -896,31 +917,29 @@ __device__ __forceinline__ int32_t deliver_tcp_warps(
         int64_t tick, aux0;
         bool act;
         setup(hh, tick, act, aux0);
-        c = rx_open<Buf>(a, tm, hh, tick, act, aux0, window_end);
+        c = rx_open<Buf>(a, tm, hh, tick, act, aux0, window_end,
+                         hosts.rows);
         if (traced) clk.mark(CLK_ENQUEUE);
       } else {
-        c = carry[hh].rx;
-        Arrival ar = carry[hh].ar;
+        Arrival ar;
+        hosts.unpark(hh, c, ar);
         tcp_arrival_finish<Cong>(tm, t, ar, hh, g,
-                           r == 1 ? SLOT_RX_REPLY : NUM_SLOTS + r - 2);
+                                 r == 1 ? SLOT_RX_REPLY : NUM_SLOTS + r - 2);
         if (traced) clk.round(r - 1, CLK_FINISH);
       }
       if (r < rb) {
-        const RxPick pk = rx_round<Buf>(a, tm, c, hh, r);
+        const RxPick pk = rx_round<Buf>(a, tm, c, hh, r, hosts.rows);
         if (traced) clk.round(r, CLK_SELECT);
         Arrival ar;
         err |= tcp_arrival_begin(tm, t, ar, hh, pk.row, pk.id, pk.t_eff,
                                  pk.tcp);
         bits |= ar.gate_bits;
-        if (tm.leader()) {
-          carry[hh].rx = c;
-          carry[hh].ar = ar;
-        }
+        hosts.park(hh, c, ar);
         if (traced) clk.round(r, CLK_BEGIN);
       } else {
         tail(hh, c, rx_close(a, tm, c, hh), traced);
       }
-    }
+    });
     if (r < rb) {
       clk.start();
       g = GridGate{gate_words}(r, bits);

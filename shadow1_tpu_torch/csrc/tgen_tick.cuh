@@ -92,6 +92,7 @@ __device__ __forceinline__ void tgen_client(const Team& tm,
   if (act && started && stop != INV && stop <= tick) finished = true;
   const bool run = act && started && !finished && cur0 >= 0;
   if (!run) {                // only the start / stop registers can change
+    tm.sync();               // every lane has read the registers
     if (tm.leader()) {
       g.t_next[hh] = start_now ? tick : t_next;
       g.started[hh] = started;
@@ -185,6 +186,7 @@ __device__ __forceinline__ void tgen_client(const Team& tm,
     else t_next = tick;
   }
   if (start_now) t_next = tick;
+  tm.sync();                 // every lane has read the registers
   if (tm.leader()) {
     g.cur[hh] = cur_new;
     g.t_next[hh] = t_next;

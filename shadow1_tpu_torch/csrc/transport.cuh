@@ -84,19 +84,20 @@ struct HostOut {
 };
 
 // engine._scan_all for host hh: its earliest IN_FLIGHT inbox arrival (a
-// min over the team's lanes), the non-packet wake time `aux` (re-ticks
-// and the app), and the virtual-CPU clamp.
-template <class Team>
+// min over the team's lanes; `rows` gives the arrival times), the
+// non-packet wake time `aux` (re-ticks and the app), and the virtual-CPU
+// clamp.
+template <class Team, class Rows = InboxRows>
 __device__ __forceinline__ int64_t scan_host(const TransportArgs& a,
                                              const Team& tm, int hh,
                                              int64_t aux, int64_t cpu_ns,
-                                             int64_t cpu_avail) {
+                                             int64_t cpu_avail,
+                                             const Rows& rows = Rows{}) {
   int64_t t_in = INV;
   const int64_t ibase = (int64_t)hh * a.ki;
   each_slot(tm, a.ib_stage + ibase, a.ki, [&](int k, int32_t st) {
     if (st != STAGE_IN_FLIGHT) return;
-    const int32_t* row = a.ib_blk + (ibase + k) * a.ic;
-    t_in = imin(t_in, dec_i64(row[ICOL_TIME_LO], row[ICOL_TIME_HI]));
+    t_in = imin(t_in, rows.time(a, ibase + k));
   });
   t_in = tm.min64(t_in);
   int64_t th = imin(t_in, aux);
@@ -237,12 +238,15 @@ __device__ __forceinline__ bool stage_route(const TransportArgs& a, int hh,
 // The loopback row of emission `er` in inbox slot `slot`, as
 // engine._loopback_insert builds it: the emission's columns in inbox
 // layout with the source, the arrival send + 1 ns, the pkt_id counter
-// and, in full-width rows, the TS send stamp; IN_FLIGHT.
+// and, in full-width rows, the TS send stamp; IN_FLIGHT.  `rows` gets the
+// row's (time, key).
+template <class Rows>
 __device__ __forceinline__ void stage_loopback_row(const TransportArgs& a,
                                                    int hh,
                                                    const int32_t* er,
                                                    int64_t slot, int64_t ctr2,
-                                                   int64_t send_t) {
+                                                   int64_t send_t,
+                                                   const Rows& rows) {
   int32_t* ir = a.ib_blk + slot * a.ic;
   const int64_t arr = send_t + 1;
   ir[ICOL_SRC] = hh;
@@ -260,6 +264,8 @@ __device__ __forceinline__ void stage_loopback_row(const TransportArgs& a,
   if (a.pds_trail)
     a.ib_status[slot] = PDS_SND_CREATED | PDS_SND_INTERFACE_SENT |
                         PDS_INET_SENT;
+  rows.put(slot, arr, ((int64_t)hh << 40) |
+                          dec_i64(enc_lo(ctr2), enc_hi(ctr2)));
 }
 
 // engine._stage_emissions for host hh, its emission lanes in order on
@@ -270,13 +276,14 @@ __device__ __forceinline__ void stage_loopback_row(const TransportArgs& a,
 // takes the next of the host's `ib_free` free inbox slots instead
 // (outside the outbox ranks and the byte prefix), or, with none left, is
 // a counted pool drop.
-template <class Team>
+template <class Team, class Rows>
 __device__ __forceinline__ StageOut stage_serial(const TransportArgs& a,
                                                  const Team& tm, int hh,
                                                  int64_t ctr, int64_t budget,
                                                  int32_t txq0, bool boot,
                                                  int64_t tp, int n_free,
-                                                 int ib_free, int32_t vs) {
+                                                 int ib_free, int32_t vs,
+                                                 const Rows& rows) {
   const int e = a.e, pc = a.pc, ko = a.ko;
   const int64_t pbase = (int64_t)hh * ko, ibase = (int64_t)hh * a.ki;
   const int32_t* const pstage = a.pool_stage + pbase;
@@ -305,7 +312,7 @@ __device__ __forceinline__ StageOut stage_serial(const TransportArgs& a,
       ++o.placed_n;
       o.sent_bytes += er[ICOL_LEN];
       if (tm.leader())
-        stage_loopback_row(a, hh, er, ibase + icursor, ctr2, send_t);
+        stage_loopback_row(a, hh, er, ibase + icursor, ctr2, send_t, rows);
       ++icursor;
       continue;
     }
@@ -340,15 +347,17 @@ __device__ __forceinline__ StageOut stage_serial(const TransportArgs& a,
 // tick; `tcp` is null in UDP worlds.  The slab walks (free-slot count, the
 // staging cursor, the drain's pick, the scan) run across the team's
 // lanes; the emission lanes are staged in order on uniform values, and
-// the leader writes.  Every lane gets the host's HostOut.
-template <class Team>
+// the leader writes.  Every lane gets the host's HostOut.  `rows` gives
+// (and takes, from the loopback insert) the inbox slots' (time, key).
+template <class Team, class Rows = InboxRows>
 __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
                                                   const Team& tm,
                                                   const TcpArgs* tcp,
                                                   int hh, int64_t tick,
                                                   int64_t tp, bool act,
                                                   int32_t delivered,
-                                                  int64_t t_app, Clk& clk) {
+                                                  int64_t t_app, Clk& clk,
+                                                  const Rows& rows = Rows{}) {
   const int pc = a.pc, ko = a.ko;
   const int xb = pc - OEXT_COLS;                // extension base column
   const bool boot = tp < a.bootstrap_end;
@@ -375,7 +384,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   if (tcp != nullptr) tcp_transmit(tm, *tcp, hh, tp, act, n_free, t_resume);
   const int32_t vs = a.host_vertex[hh];
   const StageOut so = stage_serial(a, tm, hh, ctr, tokens, txq0, boot, tp,
-                                   n_free, ib_free, vs);
+                                   n_free, ib_free, vs, rows);
   const int nvalid = so.nvalid;
   const bool overflow = so.overflow;
   tokens -= so.spent;
@@ -446,7 +455,7 @@ __device__ __forceinline__ HostOut transport_host(const TransportArgs& a,
   // ---- post-step scan: inbox arrivals, re-ticks, app, CPU clamp ----------
   int64_t aux = imin(t_resume, t_app);
   if (tcp != nullptr) aux = imin(aux, timer_min(tm, *tcp, hh));
-  const int64_t th = scan_host(a, tm, hh, aux, cpu_ns, cpu_avail);
+  const int64_t th = scan_host(a, tm, hh, aux, cpu_ns, cpu_avail, rows);
   tm.sync();
   clk.mark(CLK_SCAN);
   return HostOut{th, events, overflow ? 1 : 0};

@@ -10,11 +10,14 @@
 // close (now = we, n_windows + 1).  It also emits the earliest outbox
 // arrival still awaiting the next exchange (engine._outbox_pending), so
 // the host's window loop reads one small vector per launch and nothing
-// per micro-step.  Three kernels: k_window for UDP worlds with phold's
+// per micro-step.  Four kernels: k_window for UDP worlds with phold's
 // tick (phold_tick.cuh), and for TCP worlds with the TCP machine
 // (tcp.cuh) k_window_tcp with bulk's tick (bulk_tick.cuh) and
 // k_window_tgen with tgen's (tgen_tick.cuh), the same template
-// (window_tcp) on two tick policies.  They share the window's opening
+// (window_tcp) on two tick policies, and tgen's resident kernel
+// k_window_tgen_res (one block per host with its hot state in shared
+// memory, for the worlds whose shape fits; its note is below it).  They
+// share the window's opening
 // (exchange and scan) and closing as device functions, so phold's kernel
 // does not carry the TCP machine's registers.  Each is a template on the
 // world's interface buffers (k_window<Buf>; deliver.cuh) and, the TCP
@@ -59,7 +62,7 @@
 // sets status 1 and exits, so a wrong predicate fails the run instead of
 // hanging the card.
 //
-// UDP (k_window): the window loop runs on the card.  After each window
+// The window loop runs on the card, in every kernel.  After each window
 // every block has the same gmin, outbox pending and `now` (carried in a
 // register: the window's end, which block 0 also writes to the state), so
 // the launch goes on to the next window while engine._run_windows'
@@ -79,9 +82,9 @@
 // world; the tick setup's loads are one step with its first), else
 // deliver_host on the Solo team; the choice is the same in every thread.
 //
-// TCP (k_window_tcp): one window a launch (status 2 when it was asked for
-// one and the predicate still holds, as k_window).  One warp per host
-// (the Warp team, common.cuh), hosts walked warp-stride.  A host's slab and socket walks -- the router
+// TCP (k_window_tcp, k_window_tgen): one warp per host (the Warp team,
+// common.cuh), hosts walked warp-stride.  A host's slab and socket walks
+// -- the router
 // enqueue, each round's candidate pick, the socket match, the timer pick,
 // transmit's eligibility, the sink, the free-slot count, the staging
 // cursor, the drain's pick and the scan -- stride the 32 lanes (coalesced
@@ -176,11 +179,13 @@ constexpr int kWinBlock = 128;   // threads per block of k_window
 
 namespace {
 
-// Flips the parity and publishes this block's partials into it.
-template <int B>
+// Flips the parity and publishes this block's partials into it: the
+// block's fold of o, or, with `Held`, thread 0's o (the resident kernel,
+// whose thread 0 holds its host's values).
+template <int B, bool Held = false>
 __device__ __forceinline__ void publish(const WindowArgs& a, int& buf,
                                         const HostOut& o) {
-  const HostOut b = block_reduce<B>(o);
+  const HostOut b = Held ? o : block_reduce<B>(o);
   buf ^= 1;
   if (threadIdx.x == 0) {
     const int64_t i = (int64_t)buf * a.n_blocks + blockIdx.x;
@@ -223,11 +228,11 @@ __device__ __forceinline__ HostOut fold(const WindowArgs& a, int buf) {
 }
 
 // Publish, one grid sync, fold: every block gets the grid's totals.
-template <int B>
+template <int B, bool Held = false>
 __device__ __forceinline__ HostOut all_reduce(const WindowArgs& a,
                                               cg::grid_group& grid, int& buf,
                                               const HostOut& o) {
-  publish<B>(a, buf, o);
+  publish<B, Held>(a, buf, o);
   grid.sync();
   return fold(a, buf);
 }
@@ -372,21 +377,62 @@ struct TgenTick {
   }
 };
 
-// The boundary exchange, its drop accounting (pure ACKs shed first in
-// TCP worlds: engine._exchange_tail), the per-window scan and the window
-// bounds from `now`.  Returns gmin; every block gets the same values.  The
-// exchange is exchange.cuh ex_run over the whole grid (k_window_tcp's
-// default) or, with x.v1, the previous design's passes (k_window's
-// default, measured faster on phold); after a grid sync each
-// destination's thread does its drop accounting and, with a Solo `Team`,
-// scans its host; with Warp one warp per host scans.  B is the block
-// size; `clk` marks the exchange's stages.
+// Destination d's drop accounting after the exchange, from its movers
+// (`total`, `total_prot` of them not pure ACKs) and its free slots: in
+// TCP worlds the pure ACKs are shed first (engine._exchange_tail).
+// Returns the error bits.
+__device__ __forceinline__ int32_t open_drops(const WindowArgs& a, int d,
+                                              int32_t total,
+                                              int32_t total_prot,
+                                              int32_t n_free) {
+  const int32_t drops = imax32(total - n_free, 0);
+  const int32_t data_drops = imin32(drops, imax32(total_prot - n_free, 0));
+  if (drops > data_drops) a.acks_thinned[d] += drops - data_drops;
+  if (data_drops <= 0) return 0;
+  a.t.pkts_dropped_pool[d] += data_drops;
+  return ERR_POOL_OVERFLOW;
+}
+
+// The same from ex_run's counts.
+__device__ __forceinline__ int32_t open_drops(const WindowArgs& a, int d) {
+  return open_drops(a, d, __ldcg(a.x.total + d), __ldcg(a.x.total_prot + d),
+                    __ldcg(a.x.n_free + d));
+}
+
+// The window open's end: the scans' partials reduced over the grid (with
+// `Held`, thread 0's: publish), the window bounds ws = max(now, gmin) and
+// `we` from `now`, the error bits; block 0 writes ws into the result
+// vector here, so no register holds it through the window.  Returns gmin;
+// every block gets the same values.
+template <int B, bool Held = false>
+__device__ __forceinline__ int64_t open_bounds(const WindowArgs& a,
+                                               cg::grid_group& grid,
+                                               int& buf, const HostOut& o,
+                                               int64_t now, int64_t& we) {
+  const HostOut g = all_reduce<B, Held>(a, grid, buf, o);
+  const int64_t ws = imax(now, g.th);
+  we = imin(ws + a.min_latency, a.t_target);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.t.err |= g.err;
+    a.win[1] = ws;
+  }
+  return g.th;
+}
+
+// The boundary exchange, its drop accounting (open_drops), the
+// per-window scan and the window's end `we` from `now` (open_bounds).
+// Returns gmin; every block gets the same values.  The exchange is
+// exchange.cuh ex_run over the whole grid (k_window_tcp's default) or,
+// with x.v1, the previous design's passes (k_window's default, measured
+// faster on phold); after a grid sync each destination's thread does its
+// drop accounting and, with a Solo `Team`, scans its host; with Warp one
+// warp per host scans.  B is the block size; `clk` marks the exchange's
+// stages.
 template <class Tick, class Team, int B>
 __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
                                                cg::grid_group& grid,
                                                int& buf, int64_t now,
-                                               int64_t& ws, int64_t& we,
-                                               Clk& clk) {
+                                               int64_t& we, Clk& clk) {
   const int h = a.x.h;
   const int64_t gtid = (int64_t)blockIdx.x * B + threadIdx.x;
   const int64_t gstride = (int64_t)gridDim.x * B;
@@ -417,21 +463,13 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
   }
   for (int64_t dd = gtid; dd < h; dd += gstride) {
     const int d = (int)dd;
-    int32_t total, total_prot, n_free;
     if (a.x.v1) {
+      int32_t total, total_prot, n_free;
       ex_place_dest_v1(a.x, d, total, total_prot, n_free);
+      o.err |= open_drops(a, d, total, total_prot, n_free);
     } else {
-      total = __ldcg(a.x.total + d);
-      total_prot = __ldcg(a.x.total_prot + d);
-      n_free = __ldcg(a.x.n_free + d);
+      o.err |= open_drops(a, d);
     }
-    const int32_t drops = imax32(total - n_free, 0);
-    const int32_t data_drops = imin32(drops, imax32(total_prot - n_free, 0));
-    if (data_drops > 0) {
-      a.t.pkts_dropped_pool[d] += data_drops;
-      o.err |= ERR_POOL_OVERFLOW;
-    }
-    if (drops > data_drops) a.acks_thinned[d] += drops - data_drops;
     if (solo) {
       const int64_t th = scan_host(a.t, tm, d, Tick::aux(a, tm, d),
                                    a.t.cpu_ns_per_event[d],
@@ -453,20 +491,16 @@ __device__ __forceinline__ int64_t window_open(const WindowArgs& a,
       o.th = imin(o.th, th);
     }
   }
-  const HostOut g = all_reduce<B>(a, grid, buf, o);
-  ws = imax(now, g.th);
-  we = imin(ws + a.min_latency, a.t_target);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *a.t.err |= g.err;
-  return g.th;
+  return open_bounds<B>(a, grid, buf, o, now, we);
 }
 
 // A micro-step's end: the block partials reduced over the grid; block 0
 // advances the state scalars.  Returns the new gmin.
-template <int B>
+template <int B, bool Held = false>
 __device__ __forceinline__ int64_t step_close(const WindowArgs& a,
                                               cg::grid_group& grid, int& buf,
                                               const HostOut& s) {
-  const HostOut g = all_reduce<B>(a, grid, buf, s);
+  const HostOut g = all_reduce<B, Held>(a, grid, buf, s);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *a.t.n_events += g.events;
     *a.t.n_steps += 1;
@@ -476,13 +510,16 @@ __device__ __forceinline__ int64_t step_close(const WindowArgs& a,
 }
 
 // The window close: the outbox pending reduced over the grid (returned
-// to every block), the state scalars and the result vector's first four
-// words.
-template <int B>
+// to every block), the state scalars and the result vector's words 0, 2
+// and 3 (open_bounds wrote ws).  With `Held`, the block's min is the
+// team's (every thread of the block in one team) and thread 0 publishes
+// it.
+template <int B, bool Held = false, class Team = Solo>
 __device__ __forceinline__ int64_t window_close(const WindowArgs& a,
                                                 cg::grid_group& grid,
                                                 int& buf, int64_t gmin,
-                                                int64_t ws, int64_t we) {
+                                                int64_t we,
+                                                const Team& tm = Team{}) {
   const int64_t gtid = (int64_t)blockIdx.x * B + threadIdx.x;
   const int64_t gstride = (int64_t)gridDim.x * B;
   HostOut q{INV, 0, 0};
@@ -490,12 +527,12 @@ __device__ __forceinline__ int64_t window_close(const WindowArgs& a,
     if (a.x.pool_stage[i] == STAGE_IN_FLIGHT)
       q.th = imin(q.th, a.x.pool_time[i]);
   }
-  const int64_t pend = all_reduce<B>(a, grid, buf, q).th;
+  if constexpr (Held) q.th = tm.min64(q.th);
+  const int64_t pend = all_reduce<B, Held>(a, grid, buf, q).th;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *a.now = we;
     *a.n_windows += 1;
     a.win[0] = gmin;
-    a.win[1] = ws;
     a.win[2] = we;
     a.win[3] = pend;
   }
@@ -528,9 +565,9 @@ __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
   const bool small = deliver_small_fits(a.d);      // the same in every thread
   __shared__ RxRows<kWinBlock> rx_rows;            // deliver_small's rows
   for (;;) {
-    int64_t ws, we;
+    int64_t we;
     int64_t gmin = window_open<PholdTick, Solo, kWinBlock>(a, grid, buf,
-                                                          now, ws, we, clk);
+                                                          now, we, clk);
     clk.mark(CLK_OPEN);
     int64_t steps = 0;
     while (gmin < we) {                // gmin is the same in every block
@@ -578,7 +615,7 @@ __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
       clk.count_step();
       ++steps;
     }
-    const int64_t pend = window_close<kWinBlock>(a, grid, buf, gmin, ws, we);
+    const int64_t pend = window_close<kWinBlock>(a, grid, buf, gmin, we);
     clk.mark(CLK_WCLOSE);
     now = we;
     ++windows;
@@ -594,132 +631,428 @@ __global__ void __launch_bounds__(kWinBlock) k_window(WindowArgs a) {
   write_status(a, status);
 }
 
-// The TCP window: one warp per host, every thread through every barrier
-// (see the design note above).  `clk` traces host a.clk_host's phases in
-// the lane 0 of the warp that runs it (S1_PHASE_CLOCKS builds).  `Buf` and
+// The TCP window on a design `D` (WarpDesign, ResDesign below), every
+// thread through every barrier (see the design note above): the window
+// open (D::open), the micro-steps -- the tick setup, the delivery rounds
+// (deliver_tcp_rounds on D's hosts), run_timers, the tick, K_TRANSPORT's
+// body -- and the window close, while the window loop's predicate holds.
+// The host-local device code runs on D.A, the arguments as the design
+// points them; the grid's words (gates, t_h, the partials, the state
+// scalars) are the kernel's `a`.  `clk` traces host a.clk_host's phases
+// in the thread D::traced picks (S1_PHASE_CLOCKS builds).  `Buf` and
 // `Cong` are the interface-buffer and congestion-control instantiations
 // (deliver.cuh, tcp.cuh).
-template <class Tick, bool Buf, int Cong>
-__device__ __forceinline__ void window_tcp(const WindowArgs& a) {
+template <class Tick, bool Buf, int Cong, class D>
+__device__ __forceinline__ void window_tcp(const WindowArgs& a, D& dz) {
+  using Team = typename D::Team;
+  constexpr int B = D::Threads;
+  constexpr bool Held = D::kHeld;
   cg::grid_group grid = cg::this_grid();
-  const int h = a.x.h, e = a.t.e, rb = a.d.rx_batch;
-  const int64_t gtid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
-  const int64_t gstride = (int64_t)gridDim.x * kBlock;
-  const Warp tm{};
-  const int64_t nw = gstride / Warp::W;
+  const WindowArgs& A = dz.A;
+  const Team& tm = dz.tm;
+  const int e = a.t.e, rb = a.d.rx_batch;
+  const int64_t gtid = (int64_t)blockIdx.x * B + threadIdx.x;
+  const int64_t gstride = (int64_t)gridDim.x * B;
   int32_t* const gates = a.tcp.gates;            // [2][rb] by step parity
-  Clk clk = make_clk(a.clk, a.clk_host >= 0 && a.clk_host < h &&
-                                gtid / Warp::W == a.clk_host % nw &&
-                                tm.leader());
+  Clk clk = make_clk(a.clk, dz.traced());
   Clk no_clk = make_clk(nullptr, false);
   clk.start();
   for (int64_t i = gtid; i < 2 * rb; i += gstride) gates[i] = 0;
+  // Every block reads the state's `now` before its first barrier; block 0
+  // rewrites it at each window's close, after several.
+  int64_t now = *a.now;
   int buf = 0;
-  int64_t ws, we;
-  int64_t gmin = window_open<Tick, Warp, kBlock>(a, grid, buf, *a.now, ws,
-                                                 we, clk);
-  clk.mark(CLK_OPEN);
-
-  int64_t steps = 0;
+  // 32-bit counts (far below 2^31): the warp kernels' registers are
+  // capped at 128, and what lives through the TCP machine spills.
+  int32_t windows = 0;
   int64_t status = 0;
-  while (gmin < we) {                  // gmin is the same in every block
-    if (steps == a.max_steps) {
-      status = STATUS_STEP_CAP;
+  for (;;) {
+    int64_t we;
+    int64_t gmin = dz.template open<Tick>(grid, buf, now, we, clk);
+    clk.mark(CLK_OPEN);
+
+    int32_t steps = 0;
+    while (gmin < we) {                  // gmin is the same in every block
+      if (steps == a.max_steps) {
+        status = STATUS_STEP_CAP;
+        break;
+      }
+      // The step's gate words: parity `g`, the one the step's closing
+      // publish takes.  The other parity's words were last read before the
+      // previous step's closing barrier and are next written after this
+      // step's.
+      const int g = buf ^ 1;
+      if (gtid == 0)
+        for (int r = 0; r < rb; ++r) gates[(g ^ 1) * rb + r] = 0;
+      HostOut s{INV, 0, 0};
+      // K_TRANSPORT's body after the tick, and the host's partials.
+      const auto step_tail = [&](int hh, int64_t tick, int64_t tp, bool act,
+                                 int32_t delivered, Clk& ck) {
+        const HostOut o = transport_host(A.t, tm, &A.tcp, hh, tick, tp, act,
+                                         delivered, Tick::next(A, hh), ck,
+                                         dz.rows);
+        if (tm.leader()) {
+          a.t_h[hh] = o.th;
+          s.events += o.events;
+        }
+        s.th = imin(s.th, o.th);
+        s.err |= o.err;
+      };
+      const int32_t sock_err = deliver_tcp_rounds<Buf, Cong>(
+          A.d, A.tcp, dz, gates + g * rb, we, clk, a.clk_host,
+          [&](int hh, int64_t& tick, bool& act, int64_t& aux0) {
+            // Tick setup: re-arm the resume time of active hosts only; the
+            // rx_batch bound is the aux term after the re-arm.
+            const int64_t th0 = a.t_h[hh];
+            act = th0 < we;
+            tick = act ? th0 : we;
+            if (act && tm.leader()) a.d.t_resume[hh] = INV;
+            for (int j = tm.lane(); j < e; j += Team::W)
+              A.tcp.em_valid[(int64_t)hh * e + j] = 0;
+            tm.sync();
+            aux0 = Tick::aux(A, tm, hh);
+          },
+          [&](int hh, const RxCarry& c, const DeliverOut& dl, bool traced) {
+            Clk& ck = traced ? clk : no_clk;
+            tcp_run_timers<Cong>(tm, A.tcp, hh, dl.t_post, c.act);
+            ck.mark(CLK_TIMERS);
+            if constexpr (Tick::kSplit) {
+              // The client stage; the host's step goes on after the barrier.
+              Tick::client(A, tm, hh, dl.t_post, c.act);
+              dz.park_split(hh, c.tick, dl.t_post, c.act, dl.delivered);
+            } else {
+              Tick::tick(A, tm, hh, dl.t_post, c.act);
+              ck.mark(CLK_TICK);
+              step_tail(hh, c.tick, dl.t_post, c.act, dl.delivered, ck);
+            }
+          });
+      if constexpr (Tick::kSplit) {
+        // Every host's client stage before any server stage reads it.
+        grid.sync();
+        dz.each([&](int hh) {
+          Clk& ck = hh == a.clk_host ? clk : no_clk;
+          int64_t tick, tp;
+          bool act;
+          int32_t delivered;
+          dz.unpark_split(hh, tick, tp, act, delivered);
+          Tick::server(A, tm, hh);
+          ck.mark(CLK_TICK);
+          step_tail(hh, tick, tp, act, delivered, ck);
+        });
+      }
+      s.err |= sock_err;
+      clk.start();
+      gmin = step_close<B, Held>(a, grid, buf, s);
+      clk.mark(CLK_CLOSE);
+      clk.count_step();
+      ++steps;
+    }
+    dz.close();
+    clk.start();
+    const int64_t pend =
+        window_close<B, Held>(a, grid, buf, gmin, we, tm);
+    clk.mark(CLK_WCLOSE);
+    now = we;
+    ++windows;
+    // The window loop's predicate, as k_window's.
+    if (status != 0 || now >= a.t_target || imin(gmin, pend) >= a.t_target)
+      break;
+    if (windows == a.max_windows) {
+      status = STATUS_WINDOW_CAP;
       break;
     }
-    // The step's gate words: parity `g`, the one the step's closing
-    // publish takes.  The other parity's words were last read before the
-    // previous step's closing barrier and are next written after this
-    // step's.
-    const int g = buf ^ 1;
-    if (gtid == 0)
-      for (int r = 0; r < rb; ++r) gates[(g ^ 1) * rb + r] = 0;
-    HostOut s{INV, 0, 0};
-    // K_TRANSPORT's body after the tick, and the host's partials.
-    const auto step_tail = [&](int hh, int64_t tick, int64_t tp, bool act,
-                               int32_t delivered, Clk& ck) {
-      const HostOut o = transport_host(a.t, tm, &a.tcp, hh, tick, tp, act,
-                                       delivered, Tick::next(a, hh), ck);
-      if (tm.leader()) {
-        a.t_h[hh] = o.th;
-        s.events += o.events;
-      }
-      s.th = imin(s.th, o.th);
-      s.err |= o.err;
-    };
-    const int32_t sock_err = deliver_tcp_warps<Buf, Cong>(
-        a.d, a.tcp, gates + g * rb, we, clk, a.clk_host,
-        [&](int hh, int64_t& tick, bool& act, int64_t& aux0) {
-          // Tick setup: re-arm the resume time of active hosts only; the
-          // rx_batch bound is the aux term after the re-arm.
-          const int64_t th0 = a.t_h[hh];
-          act = th0 < we;
-          tick = act ? th0 : we;
-          if (act && tm.leader()) a.d.t_resume[hh] = INV;
-          for (int j = tm.lane(); j < e; j += Warp::W)
-            a.tcp.em_valid[(int64_t)hh * e + j] = 0;
-          tm.sync();
-          aux0 = Tick::aux(a, tm, hh);
-        },
-        [&](int hh, const RxCarry& c, const DeliverOut& dl, bool traced) {
-          Clk& ck = traced ? clk : no_clk;
-          tcp_run_timers<Cong>(tm, a.tcp, hh, dl.t_post, c.act);
-          ck.mark(CLK_TIMERS);
-          if constexpr (Tick::kSplit) {
-            // The client stage; the host's step goes on after the barrier.
-            Tick::client(a, tm, hh, dl.t_post, c.act);
-            if (tm.leader()) {
-              int64_t* sp = a.g.split + (int64_t)hh * 3;
-              sp[0] = c.tick;
-              sp[1] = dl.t_post;
-              sp[2] = (int64_t)c.act | ((int64_t)dl.delivered << 1);
-            }
-          } else {
-            Tick::tick(a, tm, hh, dl.t_post, c.act);
-            ck.mark(CLK_TICK);
-            step_tail(hh, c.tick, dl.t_post, c.act, dl.delivered, ck);
-          }
-        });
-    if constexpr (Tick::kSplit) {
-      // Every host's client stage before any server stage reads it.
-      grid.sync();
-      for (int64_t i = gtid / Warp::W; i < h; i += nw) {
-        const int hh = (int)i;
-        Clk& ck = hh == a.clk_host ? clk : no_clk;
-        const int64_t* sp = a.g.split + (int64_t)hh * 3;
-        const int64_t tick = sp[0], tp = sp[1], w = sp[2];
-        Tick::server(a, tm, hh);
-        ck.mark(CLK_TICK);
-        step_tail(hh, tick, tp, (w & 1) != 0, (int32_t)(w >> 1), ck);
-      }
-    }
-    s.err |= sock_err;
-    clk.start();
-    gmin = step_close<kBlock>(a, grid, buf, s);
-    clk.mark(CLK_CLOSE);
-    clk.count_step();
-    ++steps;
   }
-  clk.start();
-  const int64_t pend = window_close<kBlock>(a, grid, buf, gmin, ws, we);
-  // One window a launch.  Asked for one, a stop with the window loop's
-  // predicate true is the window cap, as k_window and window_plain say;
-  // asked for more, it is not (the host's loop launches again).
-  if (status == 0 && a.max_windows == 1 && we < a.t_target &&
-      imin(gmin, pend) < a.t_target)
-    status = STATUS_WINDOW_CAP;
   write_status(a, status);
-  clk.mark(CLK_WCLOSE);
 }
+
+// The warp design (k_window_tcp, k_window_tgen): one warp per host,
+// walked warp-stride over the grid, with a host's carry across the gates
+// (WarpHosts) and tgen's across its client/server barrier (g.split)
+// parked in device scratch; the arguments' tensors as they are (A is the
+// kernel's `a`); the window open's exchange either design (window_open).
+// The trace is the lane 0 of the warp that runs host a.clk_host.
+struct WarpDesign : WarpHosts {
+  static constexpr int Threads = kBlock;
+  static constexpr bool kHeld = false;
+  const WindowArgs& A;
+  __device__ explicit WarpDesign(const WindowArgs& a)
+      : WarpHosts(a.tcp.carry, a.x.h), A(a) {}
+  __device__ bool traced() const {
+    const int64_t nw = (int64_t)gridDim.x * Threads / Warp::W;
+    const int64_t w = ((int64_t)blockIdx.x * Threads + threadIdx.x) / Warp::W;
+    return A.clk_host >= 0 && A.clk_host < h && w == A.clk_host % nw &&
+           tm.leader();
+  }
+  template <class Tick>
+  __device__ int64_t open(cg::grid_group& grid, int& buf, int64_t now,
+                          int64_t& we, Clk& clk) const {
+    return window_open<Tick, Warp, Threads>(A, grid, buf, now, we, clk);
+  }
+  __device__ void close() const {}
+  __device__ void park_split(int hh, int64_t tick, int64_t tp, bool act,
+                             int32_t delivered) const {
+    if (tm.leader()) {
+      int64_t* sp = A.g.split + (int64_t)hh * 3;
+      sp[0] = tick;
+      sp[1] = tp;
+      sp[2] = (int64_t)act | ((int64_t)delivered << 1);
+    }
+  }
+  __device__ void unpark_split(int hh, int64_t& tick, int64_t& tp, bool& act,
+                               int32_t& delivered) const {
+    const int64_t* sp = A.g.split + (int64_t)hh * 3;
+    tick = sp[0];
+    tp = sp[1];
+    act = (sp[2] & 1) != 0;
+    delivered = (int32_t)(sp[2] >> 1);
+  }
+};
 
 template <bool Buf, int Cong>
 __global__ void __launch_bounds__(kBlock, 2) k_window_tcp(WindowArgs a) {
-  window_tcp<BulkTick, Buf, Cong>(a);
+  WarpDesign dz(a);
+  window_tcp<BulkTick, Buf, Cong>(a, dz);
 }
 
 template <bool Buf, int Cong>
 __global__ void __launch_bounds__(kBlock, 2) k_window_tgen(WindowArgs a) {
-  window_tcp<TgenTick, Buf, Cong>(a);
+  WarpDesign dz(a);
+  window_tcp<TgenTick, Buf, Cong>(a, dz);
+}
+
+// ---------------------------------------------------------------------------
+// The resident tgen kernel (k_window_tgen_res): window_tcp<TgenTick> on
+// one block of kResBlock threads per host (block hh runs host hh; the
+// grid is h blocks, all resident), with the host's hot state in shared
+// memory for the whole launch -- its record (dynamic shared memory,
+// res_record_bytes):
+//   * its socket table, every field of Sock for its S slots, SoA in the
+//     table's own dtypes (S1_SOCK_FIELDS, TcpArgs order), loaded once at
+//     the launch's start and stored back at its end: within a launch no
+//     other host reads a host's sockets (tgen_server reads its peers' app
+//     registers, and the exchange only the pool and the inbox slabs);
+//   * its inbox slab's stage words and each live slot's (time, key), the
+//     columns every walk compares (CachedRows), loaded after each window's
+//     exchange and the stage words stored back at the window's close, for
+//     the next exchange; the loopback insert writes its row to the inbox
+//     and its (time, key) to the copy;
+//   * its emission lanes.
+// The shared functions run unchanged on it: the block's copy of the
+// arguments (`A`, shared) points the socket table's fields, the slab's
+// stage words and the emission lanes at the record, offset by the host's
+// first row so that the usual flat indexes land in it (generic addresses,
+// which resolve to shared memory).  The team is the whole block (Cta):
+// every walk -- the enqueue, each round's pick, the socket match, the
+// timer pick, transmit's eligibility, the free-slot counts, the staging
+// cursor, the drain pick, the scans -- strides kResBlock threads and ends
+// in a block reduction; the serial TCP machine runs on uniform values in
+// every thread, its reads from shared memory, and the leader writes.  A
+// host's receive state and its arrival stay in registers across the gate
+// barriers, and its tick, t_post and counts across the client/server
+// barrier (ResDesign), so neither scratch record of the warp design is
+// used.  The grid barriers are the warp design's: the exchange's, the
+// open's fold, the rx_batch gates, the client/server split, the step
+// close and the window close; thread 0 holds the host's partials, so it
+// publishes them with no block fold (`Held`).  The block takes
+// __launch_bounds__(kResBlock, 1): one block per SM, every register the
+// serial path wants.  The wrapper picks this kernel by the world's shape
+// (megakernel.window_tgen_resident): h blocks resident and the record
+// within the shared memory a block may opt into.
+// ---------------------------------------------------------------------------
+
+// Threads a block of k_window_tgen_res; -DS1_RES_BLOCK builds another
+// width.  Timed on the same inputs (window_ab.py widths, PERF.md): 32
+// matches 128 on the tgen world's 32-slot slabs but takes 1.7x its time
+// on examples/tgen-100host's 3,200-slot ones; 256 is 4 % faster there and
+// 15 % slower on the tgen world.
+#ifndef S1_RES_BLOCK
+#define S1_RES_BLOCK 128
+#endif
+constexpr int kResBlock = S1_RES_BLOCK;
+
+// The socket table's fields (TcpArgs and megakernel.py _TCP_SOCK_FIELDS
+// order): dtype, name, words per slot.
+#define S1_SOCK_FIELDS(X)                                                   \
+  X(int32_t, stype, 1) X(int32_t, tcp_state, 1) X(int32_t, local_port, 1)   \
+  X(int32_t, peer_host, 1) X(int32_t, peer_port, 1) X(int32_t, parent, 1)   \
+  X(uint8_t, accepted, 1) X(int64_t, child_order, 1) X(int32_t, backlog, 1) \
+  X(int64_t, snd_una, 1) X(int64_t, snd_nxt, 1) X(int64_t, snd_end, 1)      \
+  X(int32_t, snd_wnd, 1) X(int32_t, snd_buf_cap, 1) X(int32_t, cwnd, 1)     \
+  X(int32_t, ssthresh, 1) X(int32_t, dup_acks, 1) X(int64_t, recover, 1)    \
+  X(uint8_t, in_recovery, 1) X(int64_t, retrans_nxt, 1)                     \
+  X(int64_t, retrans_end, 1) X(uint8_t, app_closed, 1)                      \
+  X(int64_t, rcv_nxt, 1) X(int64_t, rcv_read, 1) X(int32_t, rcv_buf_cap, 1) \
+  X(int64_t, sack_lo, SACK_RANGES) X(int64_t, sack_hi, SACK_RANGES)         \
+  X(int64_t, fin_seq, 1) X(int64_t, ts_recent, 1) X(int64_t, srtt, 1)       \
+  X(int64_t, rttvar, 1) X(int64_t, rto, 1) X(int64_t, t_rto, 1)             \
+  X(int64_t, t_delack, 1) X(int64_t, t_tw, 1) X(int64_t, t_persist, 1)      \
+  X(int32_t, delack_pending, 1) X(int64_t, at_bytes, 1)                     \
+  X(int64_t, at_last, 1) X(int64_t, cub_epoch, 1) X(int32_t, cub_wmax, 1)   \
+  X(int64_t, ssack_lo, SSACK_RANGES) X(int64_t, ssack_hi, SSACK_RANGES)     \
+  X(int32_t, retx_segs, 1) X(int32_t, error, 1) X(int64_t, bytes_sent, 1)   \
+  X(int64_t, bytes_recv, 1)
+
+// An array of the record: `n` bytes rounded up to 16.
+__host__ __device__ inline int64_t res_span(int64_t n) {
+  return (n + 15) & ~(int64_t)15;
+}
+
+// The socket table's part of a host's record.
+__host__ __device__ inline int64_t res_sock_bytes(int slots) {
+  int64_t b = 0;
+#define S1_X(T, name, R) b += res_span((int64_t)slots * (R) * sizeof(T));
+  S1_SOCK_FIELDS(S1_X)
+#undef S1_X
+  return b;
+}
+
+// Bytes of a host's record: the sockets, then the slab's stage words,
+// arrival times and keys, then the emission lanes' valid flags and rows
+// (megakernel.py resident_record_bytes, which the launch checks).
+__host__ __device__ inline int64_t res_record_bytes(int slots, int ki, int e,
+                                                    int pc) {
+  return res_sock_bytes(slots) + res_span(4LL * ki) + 2 * res_span(8LL * ki) +
+         res_span(e) + res_span(4LL * e * pc);
+}
+
+// n elements from src to dst, strided over the block's threads.
+template <class T>
+__device__ __forceinline__ void res_copy(T* dst, const T* src, int64_t n) {
+  for (int64_t i = threadIdx.x; i < n; i += kResBlock) dst[i] = src[i];
+}
+
+// The resident design: host hh on the whole block, its rows' (time, key)
+// from the record, its carries in registers (a design of window_tcp and
+// a host policy of deliver_tcp_rounds).  `a` is the kernel's arguments,
+// `A` the block's copy pointed at the record.  The window open runs
+// ex_run, then the host's drop accounting on thread 0, copies the slab's
+// stage words and live (time, key) into the record and scans the host
+// there; the window close stores the stage words back.  The trace is
+// thread 0 of block a.clk_host.
+struct ResDesign {
+  using Team = Cta<kResBlock>;
+  static constexpr int Threads = kResBlock;
+  static constexpr bool kHeld = true;
+  Team tm{};
+  CachedRows rows;
+  const WindowArgs& a;
+  const WindowArgs& A;
+  int hh;
+  RxCarry c;                           // across the gates
+  Arrival ar;
+  int64_t s_tick, s_tp;                // across the client/server barrier
+  bool s_act;
+  int32_t s_delivered;
+  __device__ ResDesign(const WindowArgs& a_, const WindowArgs& A_,
+                       CachedRows rows_)
+      : rows(rows_), a(a_), A(A_), hh((int)blockIdx.x) {}
+  __device__ bool traced() const {
+    return hh == a.clk_host && threadIdx.x == 0;
+  }
+  template <class F>
+  __device__ void each(const F& f) const {
+    f(hh);
+  }
+  __device__ void park(int, const RxCarry& c_, const Arrival& ar_) {
+    c = c_;
+    ar = ar_;
+  }
+  __device__ void unpark(int, RxCarry& c_, Arrival& ar_) const {
+    c_ = c;
+    ar_ = ar;
+  }
+  __device__ void park_split(int, int64_t tick, int64_t tp, bool act,
+                             int32_t delivered) {
+    s_tick = tick;
+    s_tp = tp;
+    s_act = act;
+    s_delivered = delivered;
+  }
+  __device__ void unpark_split(int, int64_t& tick, int64_t& tp, bool& act,
+                               int32_t& delivered) const {
+    tick = s_tick;
+    tp = s_tp;
+    act = s_act;
+    delivered = s_delivered;
+  }
+  template <class Tick>
+  __device__ int64_t open(cg::grid_group& grid, int& buf, int64_t now,
+                          int64_t& we, Clk& clk) {
+    ex_run<Threads>(a.x, grid, clk);
+    grid.sync();
+    HostOut o{INV, 0, 0};
+    if (threadIdx.x == 0) o.err = open_drops(a, hh);
+    const int ki = a.d.ki;
+    const int64_t ibase = (int64_t)hh * ki;
+    for (int k = threadIdx.x; k < ki; k += Threads) {
+      const int32_t st = a.d.ib_stage[ibase + k];
+      A.d.ib_stage[ibase + k] = st;
+      if (st != STAGE_FREE) {
+        const int32_t* row = a.d.ib_blk + (ibase + k) * a.d.ic;
+        rows.put(ibase + k, row_time(row), row_key(row));
+      }
+    }
+    __syncthreads();
+    o.th = scan_host(A.t, tm, hh, Tick::aux(A, tm, hh),
+                     a.t.cpu_ns_per_event[hh], a.t.cpu_avail[hh], rows);
+    if (tm.leader()) a.t_h[hh] = o.th;
+    return open_bounds<Threads, true>(a, grid, buf, o, now, we);
+  }
+  __device__ void close() const {
+    const int ki = a.d.ki;
+    const int64_t ibase = (int64_t)hh * ki;
+    for (int k = threadIdx.x; k < ki; k += Threads)
+      a.d.ib_stage[ibase + k] = A.d.ib_stage[ibase + k];
+  }
+};
+
+template <bool Buf, int Cong>
+__global__ void __launch_bounds__(kResBlock, 1)
+    k_window_tgen_res(WindowArgs a) {
+  extern __shared__ __align__(16) unsigned char rec[];
+  __shared__ WindowArgs A;             // `a` with the record's pointers
+  const int hh = blockIdx.x;
+  const int S = a.tcp.slots, ki = a.d.ki, e = a.t.e, pc = a.t.pc;
+  const int64_t sbase = (int64_t)hh * S, ibase = (int64_t)hh * ki;
+  unsigned char* const slab = rec + res_sock_bytes(S);
+  if (threadIdx.x == 0) {
+    A = a;
+    unsigned char* p = rec;
+#define S1_X(T, name, R)                      \
+  A.tcp.name = (T*)p - sbase * (R);           \
+  p += res_span((int64_t)S * (R) * sizeof(T));
+    S1_SOCK_FIELDS(S1_X)
+#undef S1_X
+    int32_t* const stage = (int32_t*)slab - ibase;
+    A.d.ib_stage = stage;
+    A.t.ib_stage = stage;
+    unsigned char* const lanes = slab + res_span(4LL * ki) +
+                                 2 * res_span(8LL * ki);
+    uint8_t* const ev = lanes - (int64_t)hh * e;
+    int32_t* const eb = (int32_t*)(lanes + res_span(e)) -
+                        (int64_t)hh * e * pc;
+    A.tcp.em_valid = ev;
+    A.t.em_valid = ev;
+    A.tcp.em_blk = eb;
+    A.t.em_blk = eb;
+  }
+  __syncthreads();
+  // The host's sockets into the record.
+#define S1_X(T, name, R) \
+  res_copy(A.tcp.name + sbase * (R), a.tcp.name + sbase * (R), (int64_t)S * (R));
+  S1_SOCK_FIELDS(S1_X)
+#undef S1_X
+  __syncthreads();
+  const CachedRows rows{(int64_t*)(slab + res_span(4LL * ki)) - ibase,
+                        (int64_t*)(slab + res_span(4LL * ki) +
+                                   res_span(8LL * ki)) - ibase};
+  ResDesign dz(a, A, rows);
+  window_tcp<TgenTick, Buf, Cong>(a, dz);
+  // The host's sockets back to the table.
+#define S1_X(T, name, R) \
+  res_copy(a.tcp.name + sbase * (R), A.tcp.name + sbase * (R), (int64_t)S * (R));
+  S1_SOCK_FIELDS(S1_X)
+#undef S1_X
 }
 
 template <bool Buf, int Cong>
@@ -792,6 +1125,80 @@ extern "C" int window_tcp_launch(const WindowArgs* args, int kernel,
   return (int)cudaLaunchCooperativeKernel(fn, dim3(args->n_blocks),
                                           dim3(kBlock),
                                           params, 0, (cudaStream_t)stream);
+}
+
+// The resident tgen kernel in instantiation (buf, cong); the phase-clock
+// build carries Reno without buffers only (null otherwise).
+static const void* window_res_fn(bool buf, int cong) {
+#ifdef S1_PHASE_CLOCKS
+  return buf || cong != CONG_RENO
+             ? nullptr
+             : (const void*)k_window_tgen_res<false, CONG_RENO>;
+#else
+  if (cong == CONG_CUBIC)
+    return buf ? (const void*)k_window_tgen_res<true, CONG_CUBIC>
+               : (const void*)k_window_tgen_res<false, CONG_CUBIC>;
+  return buf ? (const void*)k_window_tgen_res<true, CONG_RENO>
+             : (const void*)k_window_tgen_res<false, CONG_RENO>;
+#endif
+}
+
+// The resident tgen kernel's fit for a record of `bytes`: its static
+// shared bytes, the shared memory a block may opt into, and, when the two
+// fit together, the blocks per SM with that much dynamic shared memory
+// (after raising the kernel's dynamic limit to it; 0 when they do not
+// fit), and the card's SM count.  Returns a CUDA error code, or -1 when
+// the device cannot launch cooperative kernels.
+extern "C" int window_res_occupancy(int buf, int cong, int64_t bytes,
+                                    int* per_sm, int* sms, int* static_bytes,
+                                    int* optin) {
+  int dev = 0, coop = 0;
+  *per_sm = 0;
+  const void* fn = window_res_fn(buf != 0, cong);
+  if (fn == nullptr) return (int)cudaErrorInvalidDeviceFunction;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  cudaFuncAttributes at;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&at, fn);
+  if (e != cudaSuccess) return (int)e;
+  *static_bytes = (int)at.sharedSizeBytes;
+  if (!coop) return -1;
+  if (bytes + (int64_t)at.sharedSizeBytes > (int64_t)*optin) return 0;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kResBlock,
+                                                      (size_t)bytes);
+  return (int)e;
+}
+
+// The resident tgen kernel on one block per host (args->n_blocks = h) with
+// a record of `bytes` as its dynamic shared memory: refused unless
+// `bytes` is res_record_bytes of the arguments' shapes.  The kernel's
+// dynamic shared-memory limit is a property of the function, which every
+// world of an instantiation shares (window_res_occupancy sets it to the
+// record it was asked about), so each launch sets it to its own record.
+extern "C" int window_res_launch(const WindowArgs* args, int64_t bytes,
+                                 void* stream) {
+  void* params[] = {(void*)args};
+  const void* fn = window_res_fn(args->d.has_iface_buf != 0, args->tcp.cong);
+  if (fn == nullptr) return (int)cudaErrorInvalidDeviceFunction;
+  if (bytes != res_record_bytes(args->tcp.slots, args->d.ki, args->t.e,
+                                args->t.pc))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(args->n_blocks),
+                                          dim3(kResBlock), params,
+                                          (size_t)bytes,
+                                          (cudaStream_t)stream);
 }
 
 // The device f64 log1p (phold_tick.cuh log1p_xla) over a vector, for the
